@@ -1,0 +1,349 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port once on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. The script imports ``torch`` and
+``rayaccel_tpu_torch`` only (never JAX), needs one CUDA device, and exits
+non-zero without printing a result when there is none or when the package
+is missing. Phases, one JSON line each:
+
+1. device: the card's name, and ``nvidia-smi``'s name and power limit
+   (also printed raw on a line of their own);
+2. build: the three hand-written kernels (``rayaccel_tpu_torch/csrc``)
+   compiled by nvcc for sm_90a, with ptxas's register report;
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the headline shapes (battlefield-like scene, 827 clusters of 128):
+   K1 on one 65,536-ray primary wave, K2 on the 983,040-lane bounce pool
+   (k = 4, then k = 8 with the first call's spill words) which must be
+   bitwise equal, K3 on pass 1 of the first bounce; K1 and K3 must meet
+   the oracle bar of ``tools/oracle_lib.py:run_oracle`` (hit agreement and
+   t within 1e-3 relative on >= 99.95%);
+4. slice: ``PathTracingRenderer`` at 1280x720, depth 2, the default
+   configuration: one warm-up frame and three timed frames, with every
+   kernel's launch count over the timed frames (each must be > 0),
+   ``dropped`` (must be 0) and an image check (finite, not black);
+5. gate: the same slice at 320x180 and 2 spp on the card against the same
+   frames on the host CPU (plain versions, same keys), through the
+   two-class gate of ``tools/oracle_lib.py:run_image_oracle``
+   (rmse_trimmed < 1e-3, frac_flip < 0.5%).
+
+Then the kernel table as one JSON line, and last
+``{"ok": true, "device": {...}}``. A failing phase raises.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, reps):
+    """Mean milliseconds of ``fn()`` on the current stream over ``reps``
+    runs after one warm-up, timed with CUDA events."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def hit_stats(hit_a, hit_b, win_a, win_b, t_a, t_b):
+    """Oracle-table agreement between two traces of the same rays."""
+    import torch
+    both = hit_a & hit_b
+    rel = ((t_a - t_b).abs() / t_b.abs().clamp_min(1e-6))[both]
+    return dict(
+        n=int(hit_a.numel()), hits=int(hit_a.sum()),
+        hit_agree=float((hit_a == hit_b).float().mean()),
+        winner_agree=float((win_a == win_b)[both].float().mean())
+        if both.any() else 1.0,
+        t_within_1e3=float((rel < 1e-3).float().mean()) if both.any() else 1.0,
+        max_rel_t=float(rel.max()) if both.any() else 0.0,
+        max_abs_t=float((t_a - t_b).abs()[both].max()) if both.any() else 0.0)
+
+
+def require_oracle_bar(name, s):
+    if not (s["hit_agree"] >= 0.9995 and s["t_within_1e3"] >= 0.9995):
+        raise AssertionError(f"{name} fails the oracle bar: {s}")
+
+
+def two_class_gate(img, ref):
+    """``tools/oracle_lib.py:run_image_oracle``'s two-class gate."""
+    import numpy as np
+    diff = img - ref
+    pix = np.abs(diff).max(axis=1)
+    flip = pix > 0.05
+    trim = diff[~flip]
+    return dict(rmse_trimmed=float(np.sqrt(np.mean(trim * trim))),
+                frac_flip=float(flip.mean()),
+                image_rmse=float(np.sqrt(np.mean(diff * diff))),
+                max_abs=float(pix.max()), n_pixels=int(len(pix)))
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+    import rayaccel_tpu_torch as racc
+    from rayaccel_tpu_torch import rng
+    from rayaccel_tpu_torch.ops import _kernels
+    from rayaccel_tpu_torch.ops import trace_dense as dense
+    from rayaccel_tpu_torch.ops import trace_sparse as sparse
+    from rayaccel_tpu_torch.ops.intersect import safe_inv_dir
+    from rayaccel_tpu_torch.ops.trace_mxu import _ray_features
+    from rayaccel_tpu_torch.render import pathtracer
+    from rayaccel_tpu_torch.scene.clusters import (cluster_scene_from_numpy,
+                                                   compile_clusters_np)
+    from rayaccel_tpu_torch.scene.loader import make_battlefield_like
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+
+    # ---- 1. device ----
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit(dict(phase="device", kind=kind, nvidia_smi=smi,
+              count=torch.cuda.device_count(), torch=torch.__version__,
+              cuda=torch.version.cuda))
+
+    # ---- 2. build ----
+    t0 = time.perf_counter()
+    _kernels.library()
+    emit(dict(phase="build", seconds=time.perf_counter() - t0,
+              ptxas=[ln.strip() for ln in _kernels.build_log.splitlines()
+                     if "registers" in ln or "spill" in ln]))
+
+    # ---- 3. kernels against their plain versions ----
+    t0 = time.perf_counter()
+    sd = make_battlefield_like(max_depth=2)
+    arrays = compile_clusters_np(sd)
+    cs = cluster_scene_from_numpy(**arrays, device=dev)
+    ctx = racc.create_context(racc.default_configuration(), device=dev)
+    cam = racc.Camera.look_at(sd.cam_origin, sd.cam_dir, sd.cam_up,
+                              sd.cam_fov, sd.viewport_width,
+                              sd.viewport_height)
+    renderer = racc.PathTracingRenderer(ctx, cam, sd, cluster_scene=cs)
+    opts = ctx.configuration.engine_opts()
+    emit(dict(phase="scene", seconds=time.perf_counter() - t0,
+              triangles=sd.triangle_count, clusters=cs.n_clusters,
+              cluster_size=cs.cluster_size, lanes=renderer.n_lanes,
+              waves=renderer.n_waves, wave_size=renderer.wave_size))
+    key = rng.PRNGKey(1)
+    cam_arrays = cam.as_arrays(dev)
+    tile = renderer.tile
+    kernels = []
+
+    # K1: one primary wave from the middle of the frame (the top waves
+    # are sky).
+    w = renderer.n_waves // 2
+    rays = pathtracer._primary_rays(cam_arrays, renderer._wave_x[w],
+                                    renderer._wave_y[w], rng.fold_in(key, w))
+    active = renderer._wave_alive[w]
+    R = rays.o.shape[0]
+    T = R // tile
+    tmax_eff = torch.where(active, rays.tmax, torch.full_like(rays.tmax, -1))
+    q = dense.cull_and_queue(cs, rays.o, safe_inv_dir(rays.d), rays.tmin,
+                             tmax_eff, T, tile, opts.k_step, opts.tile_cap)
+    F = _ray_features(rays.o, rays.d)
+    F[:, 10] = rays.tmin
+    F[:, 11] = tmax_eff
+    args = (F, cs.G3, q[0], q[1], q[2], tile, opts.k_step)
+    out_k = dense.dense_closest_hit(*args)
+    out_p = dense.dense_closest_hit_plain(*args)
+    torch.cuda.synchronize()
+
+    def winner_t(slot):
+        hit = slot >= 0
+        _, _, t, _, _ = dense.reconstruct(cs, rays, torch.where(hit, slot, 0))
+        return hit, t
+
+    hk, tk = winner_t(out_k[1])
+    hp, tp = winner_t(out_p[1])
+    s1 = hit_stats(hk, hp, out_k[1], out_p[1], tk, tp)
+    s1.update(queue_overflow=int(q[3]), queue_max=int(q[2].max()),
+              ms=cuda_ms(lambda: dense.dense_closest_hit(*args), 20),
+              plain_ms=cuda_ms(lambda: dense.dense_closest_hit_plain(*args),
+                               3))
+    emit(dict(phase="kernel", name="K1 dense_closest_hit", rays=R,
+              tiles=T, **s1))
+    require_oracle_bar("K1", s1)
+    kernels.append(dict(name="dense_closest_hit", route="cuda",
+                        source="rayaccel_tpu_torch/csrc/dense_hit.cu",
+                        replaces="rayaccel_tpu/ops/trace_pallas.py:77",
+                        max_abs_err=s1["max_abs_t"], ms=s1["ms"],
+                        plain_ms=s1["plain_ms"]))
+
+    # The 983,040-lane bounce pool: stage 1 of a frame.
+    state, _ = pathtracer._stage1(cs, cam_arrays, renderer._wave_x,
+                                  renderer._wave_y, renderer._wave_alive, key,
+                                  2, "pallas", tile, opts)
+    pool = state["rays"]
+    N = pool.o.shape[0]
+    pool_tmax = torch.where(state["alive"], pool.tmax,
+                            torch.full_like(pool.tmax, -1))
+    pool_inv = safe_inv_dir(pool.d)
+    n_cp = cs.bb.shape[0]
+    id_bits = max((n_cp - 1).bit_length(), 1)
+    sel_tile = sparse._select_tile(N, n_cp)
+    live = ((pool_tmax > 0).reshape(-1, sel_tile).any(dim=1)
+            .repeat_interleave(sel_tile).to(torch.uint8))
+    F8 = torch.cat([pool.o, pool_inv, pool.tmin[:, None],
+                    pool_tmax[:, None]], dim=1)
+    prev = torch.full((N,), -0x80000000, dtype=torch.int32, device=dev)
+    k2 = {}
+    spill4 = None
+    for k in (opts.k_pairs, opts.k_restart):
+        pv = prev if spill4 is None else spill4
+        a = (F8, pv, live, cs.bb, k, id_bits)
+        sel_k = sparse.select_nearest(*a)
+        sel_p = sparse.select_nearest_plain(*a)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(sel_k, sel_p))
+        max_diff = int((sel_k.long() - sel_p.long()).abs().max())
+        ms = cuda_ms(lambda: sparse.select_nearest(*a), 10)
+        plain_ms = cuda_ms(lambda: sparse.select_nearest_plain(*a), 2)
+        emit(dict(phase="kernel", name="K2 select_nearest", k=k, lanes=N,
+                  live_lanes=int(state["alive"].sum()), bitwise_equal=equal,
+                  words_differing=int((sel_k != sel_p).sum()),
+                  pairs=int((sel_k[:k] < 0x7F800000).sum()),
+                  ms=ms, plain_ms=plain_ms))
+        if not equal:
+            raise AssertionError(f"K2 (k={k}) differs from its plain version")
+        if spill4 is None:
+            spill4 = sel_k[k].contiguous()
+            lat = sel_k[:k]
+            k2.update(ms=ms, plain_ms=plain_ms, max_abs_err=max_diff)
+    kernels.append(dict(name="select_nearest", route="cuda",
+                        source="rayaccel_tpu_torch/csrc/select_nearest.cu",
+                        replaces="rayaccel_tpu/ops/trace_sparse.py:209",
+                        **k2))
+
+    # K3: pass 1 of the first bounce (the pool's k = 4 lattice).
+    K = opts.k_pairs
+    SP = opts.sp_tile
+    cap = min(max(SP, -(-opts.pair_budget * N // SP) * SP),
+              -(-K * N // SP) * SP)
+    cl, ray, rank, total = sparse._lattice_pairs(
+        lat < 0x7F800000, lat & ((1 << id_bits) - 1), cap)
+    Fp, items = sparse._pair_inputs(pool.o, pool.d, pool.tmin, pool_tmax,
+                                    cl, ray, rank, SP)
+    col_bits = max((cs.cluster_size - 1).bit_length(), 1)
+    a3 = (Fp, cs.G3, items, col_bits, False)
+    pk = sparse.pair_hit(*a3)
+    pp = sparse.pair_hit_plain(*a3)
+    torch.cuda.synchronize()
+    low = (1 << (col_bits + 3)) - 1
+
+    def per_ray(packed):
+        """Per-ray merge and the winner's exact t, as trace_sparse does."""
+        best = torch.full((N,), 0x7F000000, dtype=torch.int32, device=dev)
+        best.scatter_reduce_(0, ray, packed, "amin")
+        hit = best < 0x7F000000
+        rank_w = (best >> col_bits) & 7
+        ksel = torch.arange(K, device=dev)[:, None] == rank_w[None, :]
+        cluster = torch.where(ksel, lat & ((1 << id_bits) - 1), 0).sum(0)
+        slot = cluster * cs.cluster_size + (best & ((1 << col_bits) - 1))
+        _, _, t, _, _ = dense.reconstruct(cs, pool, torch.where(hit, slot, 0))
+        return hit, best & low, t
+
+    s3 = hit_stats(*(x for pair in zip(per_ray(pk), per_ray(pp))
+                     for x in pair))
+    s3.update(pairs=int(cl.numel()), lattice_pairs=int(total),
+              items=int(items.shape[0]),
+              ms=cuda_ms(lambda: sparse.pair_hit(*a3), 10),
+              plain_ms=cuda_ms(lambda: sparse.pair_hit_plain(*a3), 2))
+    emit(dict(phase="kernel", name="K3 pair_hit", **s3))
+    require_oracle_bar("K3", s3)
+    kernels.append(dict(name="pair_hit", route="cuda",
+                        source="rayaccel_tpu_torch/csrc/pair_hit.cu",
+                        replaces="rayaccel_tpu/ops/trace_sparse.py:77",
+                        max_abs_err=s3["max_abs_t"], ms=s3["ms"],
+                        plain_ms=s3["plain_ms"]))
+    del state, pool, F8, Fp, items, sel_k, sel_p, pk, pp
+
+    # ---- 4. the slice ----
+    wrappers = (dense.dense_closest_hit, sparse.select_nearest,
+                sparse.pair_hit)
+    renderer.render_frame(rng.PRNGKey(100))          # warm-up
+    torch.cuda.synchronize()
+    for fn in wrappers:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rays_traced = 0
+    frames = 3
+    for i in range(frames):
+        rays_traced += int(renderer.render_frame(rng.PRNGKey(101 + i))
+                           .rays_traced)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    img = renderer.image()
+    slice_line = dict(
+        phase="slice", viewport=[sd.viewport_width, sd.viewport_height],
+        max_depth=renderer.max_depth, spp=renderer.spp, frames=frames,
+        frame_ms=seconds / frames * 1e3,
+        mrays_per_s=rays_traced / seconds / 1e6, rays=rays_traced,
+        dropped=renderer.dropped, launches=launches,
+        image_finite=bool(np.isfinite(img).all()),
+        image_mean=float(img.mean()), image_max=float(img.max()),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit(slice_line)
+    if renderer.dropped != 0:
+        raise AssertionError(f"slice dropped {renderer.dropped} rays")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched: {launches}")
+    if not (slice_line["image_finite"] and slice_line["image_max"] > 0):
+        raise AssertionError("slice image is not finite or is black")
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    del renderer
+
+    # ---- 5. frame gate: card against host CPU ----
+    t0 = time.perf_counter()
+    small = type(sd)(**{**sd.__dict__, "viewport_width": 320,
+                        "viewport_height": 180})
+    images = {}
+    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        c = racc.create_context(racc.default_configuration(), device=device)
+        cam_s = racc.Camera.look_at(small.cam_origin, small.cam_dir,
+                                    small.cam_up, small.cam_fov, 320, 180)
+        r = racc.PathTracingRenderer(
+            c, cam_s, small,
+            cluster_scene=cluster_scene_from_numpy(**arrays, device=device))
+        for i in range(2):
+            r.render_frame(rng.fold_in(rng.PRNGKey(7), i))
+        images[name] = (r.image().reshape(-1, 3), r.dropped)
+    gate = two_class_gate(images["cuda"][0], images["cpu"][0])
+    gate.update(phase="gate", viewport=[320, 180], spp=2, max_depth=2,
+                dropped_cuda=images["cuda"][1], dropped_cpu=images["cpu"][1],
+                seconds=time.perf_counter() - t0)
+    emit(gate)
+    if not (gate["rmse_trimmed"] < 1e-3 and gate["frac_flip"] < 0.005):
+        raise AssertionError(f"frame gate failed: {gate}")
+
+    emit(dict(kernels=kernels))
+    emit(dict(ok=True, device=dict(platform="gpu", kind=kind,
+                                   count=torch.cuda.device_count())))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,46 @@
+"""rayaccel_tpu_torch — the PyTorch/CUDA port of rayaccel_tpu.
+
+A second package beside the JAX one, for one NVIDIA Hopper GPU (sm_90a).
+Each module names its counterpart in ``rayaccel_tpu/`` by file; the JAX
+package is the reference the port is tested against. The port imports
+``torch`` and never ``jax``.
+
+This slice runs the headline path: ``PathTracingRenderer`` with the dense
+work-queue engine for primaries and the sparse pair engine for bounces.
+The three TPU kernels on that path are hand-written CUDA kernels
+(``csrc/``), built by nvcc at first use on a CUDA tensor; on CPU tensors
+each wrapper runs its plain PyTorch version instead::
+
+    import rayaccel_tpu_torch as racc
+    from rayaccel_tpu_torch import rng
+    from rayaccel_tpu_torch.scene.loader import make_battlefield_like
+    ctx = racc.create_context(racc.default_configuration(), device="cuda")
+    sd = make_battlefield_like(max_depth=2)
+    cam = racc.Camera.look_at(sd.cam_origin, sd.cam_dir, sd.cam_up,
+                              sd.cam_fov, sd.viewport_width,
+                              sd.viewport_height)
+    r = racc.PathTracingRenderer(ctx, cam, sd)
+    r.render_frame(rng.PRNGKey(0))
+    img = r.image()
+"""
+
+from rayaccel_tpu_torch.config import (Configuration, EngineOpts,
+                                       default_configuration)
+from rayaccel_tpu_torch.context import Context, create_context, init
+from rayaccel_tpu_torch.types import Hits, INVALID_TRIANGLE, Rays, Stats
+from rayaccel_tpu_torch.camera import Camera
+from rayaccel_tpu_torch.environment import Environment, create_environment
+from rayaccel_tpu_torch.scene import ClusterScene, SceneData, compile_clusters
+from rayaccel_tpu_torch.render.tiled import TiledRenderer
+from rayaccel_tpu_torch.render.pathtracer import PathTracingRenderer
+
+__all__ = [
+    "Configuration", "EngineOpts", "default_configuration",
+    "Context", "create_context", "init",
+    "Rays", "Hits", "Stats", "INVALID_TRIANGLE",
+    "Camera", "Environment", "create_environment",
+    "ClusterScene", "SceneData", "compile_clusters",
+    "TiledRenderer", "PathTracingRenderer",
+]
+
+__version__ = "0.1.0"

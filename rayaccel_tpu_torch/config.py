@@ -1,0 +1,135 @@
+"""Configuration for the PyTorch/CUDA port.
+
+Counterpart of ``rayaccel_tpu/config.py``: the same fields, defaults and
+validation, so one configuration reads the same in both packages. The
+port runs the headline path only (the dense work-queue engine for
+primaries, the sparse pair engine for bounces, the frame-pooled bounce
+loop, the uniform sampler, one device). Values that select anything else
+pass the shared validation and then raise ``NotImplementedError`` naming
+the ``ROADMAP.md`` item (queue 1) that brings them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class Configuration:
+    """Runtime configuration; field meanings as in ``rayaccel_tpu/config.py``.
+
+    ``backend="pallas"`` names the dense work-queue engine
+    (``ops/trace_dense.py``) in the port too: the name is kept so that a
+    configuration reads the same in both packages.
+    """
+
+    backend: str = "pallas"                 # "pallas" | "mxu" | "xla" | "sparse"
+    hybrid_tracing: bool = True
+    max_rays_in_flight: int = 128 * 128 * 16
+    trace_block: int = 1024
+    wave_size: int = 128 * 128 * 4
+    traversal_stack_depth: int = 48
+    sampler: str = "uniform"
+    regroup: bool = True
+    max_shading_depth: int = 8
+    mesh_shape: Optional[Tuple[int, ...]] = None
+    sparse_k_pairs: int = 4
+    sparse_k_first: Optional[int] = None
+    sparse_pair_budget: int = 3
+    sparse_sp_tile: int = 1024
+    sparse_max_passes: int = 4
+    sparse_k_restart: Optional[int] = 8
+    pallas_k_step: int = 4
+    pallas_tile_cap: int = 256
+    precision: str = "highest"
+    reshard_bounces: bool = True
+    min_stage_width: int = 8192
+    whitted_stage_ratio: int = 2
+    whitted_hot_levels: int = 3
+    whitted_bounce_scan: Optional[int] = None
+
+    def engine_opts(self) -> "EngineOpts":
+        return EngineOpts(
+            k_pairs=self.sparse_k_pairs,
+            k_first=self.sparse_k_first,
+            pair_budget=self.sparse_pair_budget,
+            sp_tile=self.sparse_sp_tile,
+            max_passes=self.sparse_max_passes,
+            k_restart=self.sparse_k_restart,
+            k_step=self.pallas_k_step,
+            tile_cap=self.pallas_tile_cap,
+            precision=self.precision,
+        )
+
+    def __post_init__(self):
+        if self.backend not in ("mxu", "xla", "pallas", "sparse",
+                                "bruteforce"):
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.sampler not in ("uniform", "stratified"):
+            raise ValueError(f"unknown sampler {self.sampler!r}")
+        if self.max_rays_in_flight <= 0 or self.wave_size <= 0:
+            raise ValueError("ray counts must be positive")
+        if self.wave_size % 8 != 0:
+            raise ValueError("wave_size must be a multiple of 8")
+        if not 1 <= self.sparse_k_pairs <= 8:
+            raise ValueError("sparse_k_pairs must be in [1, 8]")
+        if self.sparse_k_first is not None and not 1 <= self.sparse_k_first <= 8:
+            raise ValueError("sparse_k_first must be None or in [1, 8]")
+        if (self.sparse_k_restart is not None
+                and not 1 <= self.sparse_k_restart <= 8):
+            raise ValueError("sparse_k_restart must be None or in [1, 8]")
+        if self.precision not in ("highest", "default"):
+            raise ValueError(f"unknown precision {self.precision!r}")
+        if (self.pallas_tile_cap < self.pallas_k_step
+                or self.pallas_tile_cap % self.pallas_k_step != 0):
+            raise ValueError("pallas_tile_cap must be a positive multiple "
+                             "of pallas_k_step")
+        if self.min_stage_width < 1024:
+            raise ValueError("min_stage_width must be >= 1024")
+        if self.whitted_stage_ratio < 2:
+            raise ValueError("whitted_stage_ratio must be >= 2")
+        if self.whitted_hot_levels < 1:
+            raise ValueError("whitted_hot_levels must be >= 1")
+        # What the port does not run yet (ROADMAP.md, queue 1).
+        if self.backend != "pallas":
+            raise NotImplementedError(
+                f"backend {self.backend!r}: the mxu, xla and bruteforce "
+                "engines (and sparse primaries) are ROADMAP queue 1 item 12")
+        if self.sampler == "stratified":
+            raise NotImplementedError(
+                "the stratified sampler is ROADMAP queue 1 item 11")
+        if not self.regroup:
+            raise NotImplementedError(
+                "regroup=False (the per-wave pt_trace_wave path) is ROADMAP "
+                "queue 1 item 10")
+        if self.precision != "highest":
+            raise NotImplementedError(
+                "precision='default' is on ROADMAP's 'Do not port' list: "
+                "the port's kernels run fp32 only")
+        if self.mesh_shape is not None:
+            raise NotImplementedError(
+                "mesh_shape (the multi-device tier) is ROADMAP queue 1 "
+                "item 15")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineOpts:
+    """Tuning knobs threaded through the frame and trace functions.
+    Defaults mirror Configuration's."""
+
+    k_pairs: int = 4
+    k_first: Optional[int] = None
+    pair_budget: int = 3
+    sp_tile: int = 1024
+    max_passes: int = 4
+    k_restart: Optional[int] = 8
+    k_step: int = 4
+    tile_cap: int = 256
+    precision: str = "highest"
+
+
+def default_configuration(backend: str = "pallas") -> Configuration:
+    """The headline configuration: dense work-queue kernel for primaries,
+    hybrid routing of bounces onto the sparse pair engine."""
+    return Configuration(backend=backend)

@@ -1,0 +1,410 @@
+"""Pair-centric sparse tracer — the bounce-ray engine.
+
+Counterpart of ``rayaccel_tpu/ops/trace_sparse.py``. Each (ray, cluster)
+overlap pair is one lane of a flat work array, so the work follows the
+per-ray overlap instead of a tile's union:
+
+1. the fused cull + nearest-k select, kernel K2 (``csrc/select_nearest.cu``,
+   replacing ``_select_kernel``), picks each ray's k nearest clusters past
+   its restart window and reports the (k+1)-th as the spill word;
+2. the (cluster, ray, rank) lattice is sorted as one int64 word per pair,
+   truncated to the pair budget (counted), and each pair's feature row is
+   rebuilt from its ray;
+3. the pair kernel K3 (``csrc/pair_hit.cu``, replacing ``_kernel``) tests
+   each run of same-cluster pairs against its cluster;
+4. a scatter-min merges packed (score | rank | column) words per ray, and
+   the winner's slot is decoded through the lattice rank.
+
+``trace_sparse`` restarts unresolved rays (whose spill entry lies before
+their current best) on the compacted set until ``max_passes``, and counts
+what is left, exactly as the JAX function does.
+
+The JAX wrappers dispatched over static capacity ladders (pair buckets,
+item buckets, live-tile buckets) because a Pallas grid is static. Here a
+pass reads its pair and item counts on the host (one sync each) and sizes
+its launches to them; the caps that truncate, and so the overflow counts,
+are the JAX package's. Restart widths keep the JAX ladder, whose top
+bucket bounds how many rays one pass takes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rayaccel_tpu_torch.ops import _kernels
+from rayaccel_tpu_torch.ops.intersect import safe_inv_dir
+from rayaccel_tpu_torch.ops.trace_dense import make_hits, reconstruct
+from rayaccel_tpu_torch.ops.trace_mxu import MxuHits
+from rayaccel_tpu_torch.scene.clusters import ClusterScene
+from rayaccel_tpu_torch.types import Rays
+
+_RANK_SHIFT = 20          # rank rides above the cluster id in lane words
+_CL_MASK = (1 << _RANK_SHIFT) - 1
+_MISS_BITS = 0x7F000000   # packed-score miss marker (huge positive float)
+_INF_PACK = 0x7F800000    # +inf bits: packed-entry invalid threshold
+_NONE = 0x7FFFFFFF        # "no candidate" word of the select kernel
+_INT_MIN = -0x80000000
+
+
+# ---------------------------------------------------------------- K2 ----
+
+def select_nearest(F8, prev, live, bb, k: int, id_bits: int) -> torch.Tensor:
+    """K2: fused cull + nearest-k select.
+
+    F8 (R, 8) float32 rows [o, inv_d, tmin, tmax_eff]; prev (R,) int32
+    previous spill words (candidates whose packed word is below are
+    excluded); live (R,) uint8, 0 for lanes of a ray tile with no live ray;
+    bb (n_cp, 6) cluster boxes [bbmin | bbmax]. Returns (k + 2, R) int32:
+    rows 0..k-1 the k smallest packed (entry bits | cluster id) words in
+    order, row k the (k+1)-th (the spill word), row k+1 the number of
+    overlapped clusters. Dead lanes get 0x7FFFFFFF words and count 0.
+
+    On a CUDA tensor this launches ``csrc/select_nearest.cu``; on a CPU
+    tensor it runs :func:`select_nearest_plain`."""
+    if F8.device.type == "cpu":
+        return select_nearest_plain(F8, prev, live, bb, k, id_bits)
+    R = F8.shape[0]
+    n_cp = bb.shape[0]
+    _kernels.require(F8, "F8", torch.float32, (R, 8))
+    _kernels.require(prev, "prev", torch.int32, (R,))
+    _kernels.require(live, "live", torch.uint8, (R,))
+    _kernels.require(bb, "bb", torch.float32, (n_cp, 6))
+    if not 1 <= k <= 8:
+        raise ValueError(f"k must be in [1, 8], got {k}")
+    out = torch.empty((k + 2, R), dtype=torch.int32, device=F8.device)
+    lib = _kernels.library()
+    _kernels.check(lib.racc_select_nearest(
+        _kernels.ptr(F8), _kernels.ptr(prev), _kernels.ptr(live),
+        _kernels.ptr(bb), _kernels.ptr(out), R, n_cp, id_bits, k,
+        _kernels.stream()), "racc_select_nearest")
+    select_nearest.launches += 1
+    return out
+
+
+select_nearest.launches = 0
+
+
+def select_nearest_plain(F8, prev, live, bb, k: int, id_bits: int,
+                         chunk: int = 32768) -> torch.Tensor:
+    """Plain torch version of K2, over chunks of rays (an (R, n_cp) entry
+    matrix at frame width would be gigabytes)."""
+    R = F8.shape[0]
+    n_cp = bb.shape[0]
+    low = (1 << id_bits) - 1
+    ids = torch.arange(n_cp, dtype=torch.int32, device=F8.device)
+    out = torch.empty((k + 2, R), dtype=torch.int32, device=F8.device)
+    for s in range(0, R, chunk):
+        f = F8[s:s + chunk]
+        t0 = f[:, 6:7].expand(-1, n_cp)
+        t1 = f[:, 7:8].expand(-1, n_cp)
+        for a in range(3):
+            tn = (bb[None, :, a] - f[:, a:a + 1]) * f[:, 3 + a:4 + a]
+            tf = (bb[None, :, 3 + a] - f[:, a:a + 1]) * f[:, 3 + a:4 + a]
+            t0 = torch.maximum(t0, torch.minimum(tn, tf))
+            t1 = torch.minimum(t1, torch.maximum(tn, tf))
+        # "+ 0.0" turns a -0.0 entry into +0.0, as the kernel does.
+        e = torch.where(t0 <= t1, torch.clamp_min(t0, 0.0) + 0.0,
+                        torch.full_like(t0, float("inf")))
+        ep = (e.view(torch.int32) & ~low) | ids
+        ep = torch.where(ep >= prev[s:s + chunk, None], ep,
+                         torch.full_like(ep, _NONE))
+        cnt = (ep < _INF_PACK).sum(dim=1).to(torch.int32)
+        top = torch.topk(ep, k + 1, dim=1, largest=False, sorted=True).values
+        dead = live[s:s + chunk] == 0
+        top[dead] = _NONE
+        cnt[dead] = 0
+        out[:k + 1, s:s + chunk] = top.T
+        out[k + 1, s:s + chunk] = cnt
+    return out
+
+
+def _select_tile(R: int, n_cp: int) -> int:
+    """The JAX wrapper's select ray tile: the unit of its dead-tile skip."""
+    sel_tile = 1024
+    while sel_tile * n_cp * 4 > (4 << 20) or R % sel_tile:
+        sel_tile //= 2
+        if sel_tile < 8:
+            raise ValueError(f"wave size {R} has no usable select tile")
+    return sel_tile
+
+
+def _select(cs: ClusterScene, o, inv_d, tmin, tmax_eff, k: int,
+            prev_packed=None):
+    """Run K2 over the rays (the counterpart of ``_select_nearest_pallas``).
+    Returns (lat_valid (k, R) bool, lat_id (k, R) int32 nearest first,
+    spill (R,) int32, cnt (R,) int32)."""
+    R = o.shape[0]
+    n_cp = cs.bb.shape[0]
+    id_bits = max((n_cp - 1).bit_length(), 1)
+    sel_tile = _select_tile(R, n_cp)
+    live = ((tmax_eff > 0).reshape(-1, sel_tile).any(dim=1)
+            .repeat_interleave(sel_tile).to(torch.uint8))
+    if prev_packed is None:
+        prev_packed = torch.full((R,), _INT_MIN, dtype=torch.int32,
+                                 device=o.device)
+    F8 = torch.cat([o, inv_d, tmin[:, None], tmax_eff[:, None]], dim=1)
+    out = select_nearest(F8, prev_packed.contiguous(), live, cs.bb, k,
+                         id_bits)
+    packed = out[:k]
+    return (packed < _INF_PACK, packed & ((1 << id_bits) - 1), out[k],
+            out[k + 1])
+
+
+# ---------------------------------------------------------------- K3 ----
+
+def pair_hit(Fp, G3, items, col_bits: int, guard_tmax: bool) -> torch.Tensor:
+    """K3: the pair kernel.
+
+    Fp (P, 16) float32 pair rows [d, o, d x o, 1, tmin, tmax, lane word,
+    0...], the lane word (cluster | rank << 20) as raw int32 bits; G3
+    (n_c, 4C, 16); items (n_items, 3) int32 [start, end, cluster], each a
+    run of pairs of one cluster inside one SP-pair block. Returns (P,)
+    int32: for each pair that an item covers and whose lane word names the
+    item's cluster, min(miss marker, packed (score | rank | column)); the
+    miss marker 0x7F000000 elsewhere. ``guard_tmax`` adds the exact
+    t < tmax test (the any-hit form).
+
+    On a CUDA tensor this launches ``csrc/pair_hit.cu``, one CTA per item
+    (the caller counted the items on the host); on a CPU tensor it runs
+    :func:`pair_hit_plain`."""
+    if Fp.device.type == "cpu":
+        return pair_hit_plain(Fp, G3, items, col_bits, guard_tmax)
+    P = Fp.shape[0]
+    _kernels.require(Fp, "Fp", torch.float32, (P, 16))
+    _kernels.require(G3, "G3", torch.float32)
+    _kernels.require(items, "items", torch.int32)
+    out = torch.full((P,), _MISS_BITS, dtype=torch.int32, device=Fp.device)
+    n_items = items.shape[0]
+    if n_items == 0:
+        return out
+    lib = _kernels.library()
+    _kernels.check(lib.racc_pair_hit(
+        _kernels.ptr(Fp), _kernels.ptr(G3), _kernels.ptr(items), n_items,
+        _kernels.ptr(out), G3.shape[1] // 4, col_bits, int(guard_tmax),
+        _kernels.stream()), "racc_pair_hit")
+    pair_hit.launches += 1
+    return out
+
+
+pair_hit.launches = 0
+
+
+def pair_hit_plain(Fp, G3, items, col_bits: int, guard_tmax: bool,
+                   chunk: int = 4096) -> torch.Tensor:
+    """Plain torch version of K3, over chunks of covered pairs. The
+    bilinear products are summed feature by feature with elementwise
+    operations, so a pair's result does not depend on where it sits in the
+    array."""
+    P = Fp.shape[0]
+    C = G3.shape[1] // 4
+    out = torch.full((P,), _MISS_BITS, dtype=torch.int32, device=Fp.device)
+    if items.shape[0] == 0:
+        return out
+    starts, ends, clusters = (items[:, i].long().contiguous() for i in range(3))
+    pos = torch.arange(P, device=Fp.device)
+    item = torch.clamp_min(torch.searchsorted(starts, pos, right=True) - 1, 0)
+    lanes = Fp[:, 12].contiguous().view(torch.int32)
+    cl = clusters[item]
+    covered = ((pos >= starts[item]) & (pos < ends[item])
+               & ((lanes & _CL_MASK) == cl))
+    sel = covered.nonzero().squeeze(1)
+    low = (1 << (col_bits + 3)) - 1
+    col = torch.arange(C, dtype=torch.int32, device=Fp.device)
+    G10 = G3[:, :, :10]
+    for s in range(0, sel.numel(), chunk):
+        q = sel[s:s + chunk]
+        f = Fp[q]
+        g = G10[cl[q]]                                     # (n, 4C, 10)
+        S = f[:, 0:1] * g[:, :, 0]
+        for i in range(1, 10):
+            S = S + f[:, i:i + 1] * g[:, :, i]
+        det, u, v, tn = S[:, :C], S[:, C:2 * C], S[:, 2 * C:3 * C], S[:, 3 * C:]
+        det_i = det.view(torch.int32)
+        sign_ok = ((u.view(torch.int32) ^ det_i)
+                   | (v.view(torch.int32) ^ det_i)) >= 0
+        ad = torch.abs(det)
+        ts = (tn.view(torch.int32) ^ (det_i & _INT_MIN)).view(torch.float32)
+        valid = (sign_ok & (torch.abs(u + v) <= ad)
+                 & (ts > ad * f[:, 10:11]))
+        if guard_tmax:
+            valid = valid & (ts < ad * f[:, 11:12])
+        score = torch.where(valid, ts * torch.reciprocal(ad),
+                            torch.full_like(ts, 3e38))
+        rank = (lanes[q] >> _RANK_SHIFT) << col_bits
+        sp = (score.view(torch.int32) & ~low) | rank[:, None] | col
+        out[q] = torch.clamp_max(sp.amin(dim=1), _MISS_BITS)
+    return out
+
+
+# -------------------------------------------------------- pass + trace ----
+
+def _lattice_pairs(lat_valid, lat_id, cap: int):
+    """Sort the valid (cluster, ray, rank) lattice entries as one int64
+    word each and keep the first ``cap``. Returns (cl, ray, rank) int64 of
+    the kept pairs and the number of valid entries."""
+    K, R = lat_id.shape
+    ray_bits = max((R - 1).bit_length(), 1)
+    rank_bits = (K - 1).bit_length()
+    ray = torch.arange(R, dtype=torch.int64, device=lat_id.device)
+    rank = torch.arange(K, dtype=torch.int64, device=lat_id.device)
+    word = ((lat_id.to(torch.int64) << (ray_bits + rank_bits))
+            | (ray[None, :] << rank_bits) | rank[:, None])[lat_valid]
+    total = word.numel()
+    word = torch.sort(word).values[:cap]
+    return (word >> (ray_bits + rank_bits), (word >> rank_bits) & ((1 << ray_bits) - 1),
+            word & ((1 << rank_bits) - 1), total)
+
+
+def _pair_inputs(o, d, tlo, tmax_p, cl, ray, rank, SP: int):
+    """Pair feature rows (the F-row rebuild: [d, o, d x o, 1, tlo, tmax,
+    lane word]) and the work items (one per cluster run per SP block)."""
+    P = cl.shape[0]
+    rd, ro = d[ray], o[ray]
+    dx, dy, dz = rd[:, 0], rd[:, 1], rd[:, 2]
+    ox, oy, oz = ro[:, 0], ro[:, 1], ro[:, 2]
+    lanes = (cl | (rank << _RANK_SHIFT)).to(torch.int32)
+    zero = torch.zeros_like(dx)
+    Fp = torch.stack([
+        dx, dy, dz, ox, oy, oz,
+        dy * oz - dz * oy, dz * ox - dx * oz, dx * oy - dy * ox,
+        torch.ones_like(dx), tlo[ray], tmax_p[ray], lanes.view(torch.float32),
+        zero, zero, zero], dim=1)
+    pos = torch.arange(P, device=cl.device)
+    boundary = (pos % SP == 0)
+    boundary[1:] |= cl[1:] != cl[:-1]
+    starts = boundary.nonzero().squeeze(1)
+    ends = torch.cat([starts[1:], starts.new_tensor([P])])
+    items = torch.stack([starts, ends, cl[starts]], dim=1).to(torch.int32)
+    return Fp, items.contiguous()
+
+
+def _sparse_pass(cs: ClusterScene, o, d, inv_d, tlo, tmax_p, K: int, SP: int,
+                 pair_budget: int, prev_packed=None, guard_tmax: bool = True):
+    """One spill-window pass at width R = len(tlo). Returns (best_p (R,)
+    int32 packed, slot_p (R,) int32, spill (R,) int32, trunc int).
+
+    The pair and item counts are read on the host (one sync each) and size
+    the pair arrays and K3's grid; the pair cap is the JAX package's top
+    bucket, so truncation is counted as there."""
+    R = tlo.shape[0]
+    C = cs.cluster_size
+    n_c = cs.n_clusters
+    col_bits = max((C - 1).bit_length(), 1)
+    K = min(K, n_c)
+    kr_pad = -(-K * R // SP) * SP
+    cap = min(max(SP, -(-pair_budget * R // SP) * SP), kr_pad)
+
+    lat_valid, lat_id, spill, _cnt = _select(cs, o, inv_d, tlo, tmax_p, K,
+                                             prev_packed)
+    cl, ray, rank, total = _lattice_pairs(lat_valid, lat_id, cap)
+    # Dead lattice entries never enter the pair arrays, so the merge needs
+    # no dump slot for them.
+    best_p = torch.full((R,), _MISS_BITS, dtype=torch.int32, device=o.device)
+    if cl.numel():
+        Fp, items = _pair_inputs(o, d, tlo, tmax_p, cl, ray, rank, SP)
+        packed = pair_hit(Fp, cs.G3, items, col_bits, guard_tmax)
+        best_p.scatter_reduce_(0, ray, packed, "amin")
+
+    rank_w = (best_p >> col_bits) & 7
+    col_w = best_p & ((1 << col_bits) - 1)
+    ksel = torch.arange(K, device=o.device)[:, None] == rank_w[None, :]
+    cluster_w = torch.where(ksel, lat_id, 0).sum(dim=0)
+    slot_p = (cluster_w * C + col_w).to(torch.int32)
+    return best_p, slot_p, spill, max(total - cap, 0)
+
+
+def trace_sparse(cs: ClusterScene, rays: Rays, active=None,
+                 k_pairs: int = 4, pair_budget: int = 3, sp_tile: int = 1024,
+                 max_passes: int = 4, k_first: int | None = None,
+                 k_restart: int | None = None):
+    """Pair-centric closest-hit trace, spill-exact multipass. Returns
+    (MxuHits, overflow): ``overflow`` counts truncated pairs and rays still
+    unresolved after ``max_passes`` (knobs as in the JAX function)."""
+    if not 1 <= k_pairs <= 8:
+        raise ValueError("k_pairs must be in [1, 8]: rank rides in 3 bits")
+    k_first = k_pairs if k_first is None else k_first
+    k_restart = k_pairs if k_restart is None else k_restart
+    if not (1 <= k_first <= 8 and 1 <= k_restart <= 8):
+        raise ValueError("k_first and k_restart must be in [1, 8]")
+    R = rays.o.shape[0]
+    C = cs.cluster_size
+    n_c = cs.n_clusters
+    low_mask = (1 << (max((C - 1).bit_length(), 1) + 3)) - 1
+    K_r = min(k_restart, n_c)
+    SP = sp_tile
+    id_bits = max((cs.bb.shape[0] - 1).bit_length(), 1)
+    spill_clear = ~((1 << id_bits) - 1)
+
+    inv_d = safe_inv_dir(rays.d)
+    tmin = rays.tmin
+    tmax0 = (rays.tmax if active is None
+             else torch.where(active, rays.tmax,
+                              torch.full_like(rays.tmax, -1.0)))
+
+    def decode_t(b):
+        """Packed best -> conservative upper bound of the winner's t: the
+        cleared low bits and the score's reciprocal rounding put the
+        packed value at most ~2^-12 below the true t; the 2^-11 inflation
+        keeps the bound one-sided."""
+        return (b & ~low_mask).view(torch.float32) * (1.0 + 2.0 ** -11)
+
+    def decode_spill(s):
+        return (s & spill_clear).view(torch.float32)
+
+    # ---- pass 1: full width, k_first nearest ----
+    best, slot, spill, overflow = _sparse_pass(
+        cs, rays.o, rays.d, inv_d, tmin, tmax0, min(k_first, n_c), SP,
+        pair_budget, guard_tmax=False)
+    spill_e = decode_spill(spill)
+    unresolved = ((tmax0 > 0) & (spill < _INF_PACK)
+                  & (spill_e < torch.minimum(decode_t(best), tmax0)))
+    tlo = torch.where(unresolved, spill_e, tmin)
+    prev = spill
+
+    # ---- restart passes: compacted unresolved set, width-bucketed ----
+    r_pad = -(-R // SP) * SP
+    width_buckets = sorted({min(r_pad, max(SP, (-(-R // dv // SP)) * SP))
+                            for dv in ((64, 16, 4) if k_first < k_pairs
+                                       else (64, 16))})
+    n_pass = 1
+    while n_pass < max_passes:
+        n_un = int(unresolved.sum())
+        if n_un == 0:
+            break
+        Rs = next((w for w in width_buckets if n_un <= w), width_buckets[-1])
+        uidx = unresolved.nonzero().squeeze(1)[:Rs]
+        nv = uidx.numel()
+        idx = torch.zeros(Rs, dtype=torch.int64, device=rays.o.device)
+        idx[:nv] = uidx
+        valid = torch.arange(Rs, device=rays.o.device) < nv
+        d_s = rays.d[idx]
+        best_s = best[idx]
+        tmax_r = tmax0[idx]
+        tmax_s = torch.where(valid, torch.minimum(decode_t(best_s), tmax_r),
+                             torch.full_like(tmax_r, -1.0))
+        bp, sp_p, spill_s, trunc_s = _sparse_pass(
+            cs, rays.o[idx], d_s, safe_inv_dir(d_s), tlo[idx], tmax_s, K_r,
+            SP, K_r, prev_packed=prev[idx], guard_tmax=False)
+        merged = torch.minimum(bp, best_s)
+        slot_m = torch.where(bp < best_s, sp_p, slot[idx])
+        spill_es = decode_spill(spill_s)
+        unres_s = (valid & (spill_s < _INF_PACK)
+                   & (spill_es < torch.minimum(decode_t(merged), tmax_r)))
+        tlo_m = torch.where(unres_s, spill_es, tlo[idx])
+        best[uidx] = merged[:nv]
+        slot[uidx] = slot_m[:nv]
+        tlo[uidx] = tlo_m[:nv]
+        prev[uidx] = spill_s[:nv]
+        unresolved[uidx] = unres_s[:nv]
+        n_pass += 1
+        overflow += trunc_s
+
+    hit = best < _MISS_BITS
+    attr, tri, t, u, v = reconstruct(cs, rays, torch.where(hit, slot, 0))
+    # The kernel ran without the tmax guard: enforce the window exactly on
+    # the refined t (the packed min picked the nearest valid hit, so
+    # "nearest > tmax" means no in-window hit exists).
+    hit = hit & (t < rays.tmax)
+    overflow = unresolved.sum() + overflow
+    return MxuHits(hits=make_hits(rays, hit, tri, t, u, v),
+                   attrs=attr), overflow

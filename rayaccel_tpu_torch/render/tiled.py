@@ -1,0 +1,115 @@
+"""Tiled progressive renderer base.
+
+Counterpart of ``rayaccel_tpu/render/tiled.py``: ``block_swizzle``
+(``:46-71``) and a single-device ``TiledRenderer`` that keeps the HDR
+accumulation buffer in block-swizzled lane order, one contiguous slice per
+wave, and un-permutes it in :meth:`TiledRenderer.image`. There is no mesh
+(ROADMAP queue 1 item 15).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rayaccel_tpu_torch.context import Context
+from rayaccel_tpu_torch.types import Stats
+
+BLOCK_W = 32
+BLOCK_H = 16
+
+
+def block_swizzle(width: int, height: int, pad_to: int):
+    """Flat pixel ids in block-major order, padded with -1 to ``pad_to``.
+
+    Returns (perm, x, y) int64 arrays of length pad_to; padding lanes have
+    perm == -1 and x = y = 0.
+    """
+    bw, bh = BLOCK_W, BLOCK_H
+    nbx = -(-width // bw)
+    nby = -(-height // bh)
+    ys, xs = np.mgrid[0:nby * bh, 0:nbx * bw]
+    inside = (xs < width) & (ys < height)
+    key = (((ys // bh) * nbx + (xs // bw)).astype(np.int64) * (bw * bh)
+           + (ys % bh) * bw + (xs % bw))
+    order = np.argsort(key.ravel(), kind="stable")
+    xs = xs.ravel()[order]
+    ys = ys.ravel()[order]
+    inside = inside.ravel()[order]
+    n = len(xs)
+    assert pad_to >= n
+    perm = np.full(pad_to, -1, np.int64)
+    x = np.zeros(pad_to, np.int64)
+    y = np.zeros(pad_to, np.int64)
+    perm[:n] = np.where(inside, ys * width + xs, -1)
+    x[:n] = xs
+    y[:n] = ys
+    return perm, x, y
+
+
+class TiledRenderer:
+    """Owns the lane-order framebuffer and the frame's wave inputs; a
+    subclass supplies :meth:`_render` for one progressive sample."""
+
+    def __init__(self, context: Context, width: int, height: int):
+        self.context = context
+        self.device = context.device
+        self.width = int(width)
+        self.height = int(height)
+        cfg = context.configuration
+        self.wave_size = min(cfg.wave_size, cfg.max_rays_in_flight)
+        self.n_pixels = self.width * self.height
+
+        n_blocks = (-(-self.width // BLOCK_W)) * (-(-self.height // BLOCK_H))
+        n_lanes = n_blocks * BLOCK_W * BLOCK_H
+        self.n_waves = -(-n_lanes // self.wave_size)
+        self.n_lanes = self.n_waves * self.wave_size
+
+        perm, x, y = block_swizzle(self.width, self.height, self.n_lanes)
+        self._perm = perm
+        shape = (self.n_waves, self.wave_size)
+        self._wave_x = torch.as_tensor(x.reshape(shape), dtype=torch.int32,
+                                       device=self.device)
+        self._wave_y = torch.as_tensor(y.reshape(shape), dtype=torch.int32,
+                                       device=self.device)
+        self._wave_alive = torch.as_tensor((perm >= 0).reshape(shape),
+                                           device=self.device)
+        self.spp = 0
+        self._rays = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._dropped = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._fb3 = torch.zeros((self.n_waves, self.wave_size, 3),
+                                dtype=torch.float32, device=self.device)
+
+    @property
+    def dropped(self) -> int:
+        """Overflow/drop counter (reading syncs)."""
+        return int(self._dropped)
+
+    @property
+    def rays_traced_total(self) -> int:
+        """Lifetime rays-traced counter (reading syncs)."""
+        return int(self._rays)
+
+    def image(self) -> np.ndarray:
+        """Accumulated HDR image divided by spp, un-permuted to (H, W, 3)."""
+        spp = max(self.spp, 1)
+        fb = self._fb3.reshape(self.n_lanes, 3).cpu().numpy()
+        img = np.zeros((self.n_pixels, 3), np.float32)
+        valid = self._perm >= 0
+        img[self._perm[valid]] = fb[valid]
+        return img.reshape(self.height, self.width, 3) / spp
+
+    def render_frame(self, key) -> Stats:
+        """Render one progressive sample over the full viewport with the
+        :mod:`rng` key ``key``."""
+        rad, traced, dropped = self._render(key)
+        self._fb3 += rad
+        self._rays += traced
+        self._dropped += dropped
+        self.spp += 1
+        return Stats(rays_traced=traced)
+
+    def _render(self, key):
+        """(radiance (n_waves, wave_size, 3), traced, dropped) of one
+        sample."""
+        raise NotImplementedError

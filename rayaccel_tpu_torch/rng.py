@@ -1,0 +1,91 @@
+"""Threefry-2x32 random streams, bit-exact with ``jax.random``.
+
+Counterpart of the ``jax.random`` calls on the headline path
+(``PRNGKey``, ``fold_in``, ``uniform``) and of
+``rayaccel_tpu/render/pathtracer.py:_lane_uniform``. A key is a tuple of
+two Python ints (the two uint32 words of a raw jax key), so folding a
+scalar into a key is host arithmetic; the per-element streams run as int64
+tensor arithmetic on the device of the tensor they are given.
+
+Matching jax (0.9, ``jax_threefry_partitionable=True``):
+
+- ``uniform`` hashes a 64-bit iota split into (hi, lo) words and uses
+  ``bits1 ^ bits2`` (``jax/_src/prng.py:_threefry_random_bits_partitionable``);
+- ``lane_uniform`` calls the raw ``threefry_2x32``, which splits its counter
+  array in half and pairs element i with element n/2 + i.
+
+CPU torch has no uint32 shifts, adds or compares, so every word is held in
+an int64 and masked to 32 bits after each operation. The same code runs on
+Python ints (keys) and on int64 tensors (streams).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+Key = Tuple[int, int]
+
+_M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, r: int):
+    return ((x << r) & _M32) | (x >> (32 - r))
+
+
+def threefry2x32(k0: int, k1: int, x0, x1):
+    """The Threefry-2x32 block cipher (20 rounds) on uint32 words held in
+    Python ints or int64 tensors. Returns the two output words."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def PRNGKey(seed: int) -> Key:
+    """``jax.random.PRNGKey(seed)`` for a 32-bit seed: words (0, seed)."""
+    return (0, int(seed) & _M32)
+
+
+def fold_in(key: Key, data: int) -> Key:
+    """``jax.random.fold_in``: hash the counter pair (0, data)."""
+    return threefry2x32(key[0], key[1], 0, int(data) & _M32)
+
+
+def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 words (in int64) -> float32 in [0, 1): 23 random mantissa
+    bits under exponent 0, minus one (jax.random.uniform's construction)."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
+def uniform(key: Key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` on ``device``."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    return _bits_to_unit_float(b0 ^ b1).reshape(tuple(shape))
+
+
+def lane_uniform(key: Key, lane: torch.Tensor) -> torch.Tensor:
+    """Per-lane (R, 3) uniforms keyed by lane id (``_lane_uniform``).
+
+    The JAX function hashes the counter array [l, l+2^30, l+2^31, l+3*2^30]
+    with ``threefry_2x32``, which pairs (l, l+2^31) and (l+2^30,
+    l+3*2^30) into one cipher block each; its three draws are the first
+    word of each block and the second word of the first block."""
+    l = lane.to(torch.int64)
+    a0, a1 = threefry2x32(key[0], key[1], l, (l + (2 << 30)) & _M32)
+    b0, _ = threefry2x32(key[0], key[1], (l + (1 << 30)) & _M32,
+                         (l + (3 << 30)) & _M32)
+    return _bits_to_unit_float(torch.stack([a0, b0, a1], dim=1))

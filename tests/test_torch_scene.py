@@ -1,0 +1,111 @@
+"""The port's host data against the JAX package's, bitwise: synthetic
+scenes, the compiled cluster scene, the environment quad table and the
+block swizzle. Also: importing the port loads no JAX, and configuration
+values the port does not run raise."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from rayaccel_tpu.environment import create_environment as jax_env
+from rayaccel_tpu.render.tiled import block_swizzle as jax_swizzle
+from rayaccel_tpu.scene import loader as jax_loader
+from rayaccel_tpu.scene.clusters import compile_clusters as jax_compile
+
+from rayaccel_tpu_torch import Configuration
+from rayaccel_tpu_torch.environment import create_environment
+from rayaccel_tpu_torch.render.tiled import block_swizzle
+from rayaccel_tpu_torch.scene import loader
+from rayaccel_tpu_torch.scene.clusters import compile_clusters
+
+torch.set_num_threads(2)
+
+SCENES = {
+    "test": dict(fn="make_test_scene", kw=dict()),
+    "battlefield_small": dict(fn="make_battlefield_like",
+                              kw=dict(n_objects=40, grid=21)),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(SCENES))
+def scene_pair(request):
+    spec = SCENES[request.param]
+    return (getattr(jax_loader, spec["fn"])(**spec["kw"]),
+            getattr(loader, spec["fn"])(**spec["kw"]))
+
+
+def test_synthetic_scene_arrays_bitwise(scene_pair):
+    ref, port = scene_pair
+    for name in ("vertices", "indices", "triangle_materials",
+                 "triangle_normals", "normals", "texcoords", "materials",
+                 "env_pixels", "cam_origin", "cam_dir", "cam_up"):
+        np.testing.assert_array_equal(getattr(port, name),
+                                      getattr(ref, name), err_msg=name)
+    assert (port.max_depth, port.viewport_width, port.cam_fov) == \
+        (ref.max_depth, ref.viewport_width, ref.cam_fov)
+
+
+@pytest.mark.parametrize("cluster_size", [16, 128])
+def test_cluster_scene_bitwise(scene_pair, cluster_size):
+    ref_sd, port_sd = scene_pair
+    ref = jax_compile(ref_sd, cluster_size=cluster_size)
+    cs = compile_clusters(port_sd, cluster_size=cluster_size)
+    for name in ("G", "attrs", "tri_id", "cl_bbmin", "cl_bbmax",
+                 "mat_params"):
+        a = getattr(cs, name).numpy()
+        b = np.asarray(getattr(ref, name))
+        assert a.dtype == b.dtype, name
+        # Compare bit patterns: attrs carry raw int32 words in f32 columns.
+        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32),
+                                      err_msg=name)
+    n_c, C = cs.n_clusters, cs.cluster_size
+    assert (n_c, C) == (ref.n_clusters, ref.cluster_size)
+    # The kernel layouts are re-arrangements of the same arrays.
+    G3_ref = np.asarray(ref.G).reshape(16, n_c, 4 * C).transpose(1, 2, 0)
+    np.testing.assert_array_equal(cs.G3.numpy(), G3_ref)
+    np.testing.assert_array_equal(cs.bb[:n_c, :3].numpy(),
+                                  np.asarray(ref.cl_bbmin))
+    assert cs.bb.shape[0] % 128 == 0 and (cs.bb[n_c:] == 3e37).all()
+
+
+def test_environment_quad_table_bitwise(scene_pair):
+    _, sd = scene_pair
+    px = sd.env_pixels
+    ref = jax_env(px, px.shape[1], px.shape[0])
+    env = create_environment(px, px.shape[1], px.shape[0])
+    np.testing.assert_array_equal(env.quad.numpy(), np.asarray(ref.quad))
+    np.testing.assert_array_equal(env.pixels.numpy(), np.asarray(ref.pixels))
+
+
+@pytest.mark.parametrize("w,h,pad", [(64, 64, 4096), (320, 180, 65536),
+                                     (37, 23, 2048)])
+def test_block_swizzle_bitwise(w, h, pad):
+    for a, b in zip(block_swizzle(w, h, pad), jax_swizzle(w, h, pad)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_import_loads_no_jax():
+    """The port imports torch and never jax."""
+    code = ("import sys, rayaccel_tpu_torch, rayaccel_tpu_torch.render."
+            "pathtracer; sys.exit(1 if any(m in ('jax', 'rayaccel_tpu') or "
+            "m.startswith(('jax.', 'rayaccel_tpu.')) for m in sys.modules) "
+            "else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("kw", [dict(backend="mxu"),
+                                dict(sampler="stratified"),
+                                dict(regroup=False),
+                                dict(mesh_shape=(1,))])
+def test_unported_configuration_raises(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Configuration(**kw)
+    with pytest.raises(ValueError):
+        Configuration(pallas_tile_cap=6)    # shared validation runs first
