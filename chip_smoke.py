@@ -10,15 +10,18 @@ is missing. Phases, one JSON line each:
 
 1. device: the card's name, and ``nvidia-smi``'s name and power limit
    (also printed raw on a line of their own);
-2. build: the three hand-written kernels (``rayaccel_tpu_torch/csrc``)
-   compiled by nvcc for sm_90a, with ptxas's register report;
+2. build: the four hand-written kernels (``rayaccel_tpu_torch/csrc``)
+   compiled by nvcc for sm_90a (one nvcc per source, in parallel), with
+   ptxas's register report;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the headline shapes (battlefield-like scene, 827 clusters of 128):
    K1 on one 65,536-ray primary wave, K2 on the 983,040-lane bounce pool
    (k = 4, then k = 8 with the first call's spill words) which must be
    bitwise equal, K3 on pass 1 of the first bounce; K1 and K3 must meet
    the oracle bar of ``tools/oracle_lib.py:run_oracle`` (hit agreement and
-   t within 1e-3 relative on >= 99.95%);
+   t within 1e-3 relative on >= 99.95%); K4 on the shadow rays of K1's
+   wave (built from its hits as the Whitted step builds them), whose
+   occluded flags must agree on >= 99.95% of rays;
 4. slice: ``PathTracingRenderer`` at 1280x720, depth 2, the default
    configuration: one warm-up frame and three timed frames, with every
    kernel's launch count over the timed frames (each must be > 0),
@@ -26,9 +29,20 @@ is missing. Phases, one JSON line each:
 5. gate: the same slice at 320x180 and 2 spp on the card against the same
    frames on the host CPU (plain versions, same keys), through the
    two-class gate of ``tools/oracle_lib.py:run_image_oracle``
-   (rmse_trimmed < 1e-3, frac_flip < 0.5%).
+   (rmse_trimmed < 1e-3, frac_flip < 0.5%);
+6. slice ``whitted_shadow``: ``WhittedRenderer(shadows=True,
+   primary_only=True)`` at 1280x720, depth 1 (primary + shadow rays): one
+   warm-up and three timed frames; K1 and K4 must launch, ``dropped`` 0;
+7. slice ``whitted_depth8``: ``WhittedRenderer`` at 1280x720, depth 8, on
+   the pooled tree loop: one warm-up and two timed frames, with the bounce
+   iterations and stage shrinks; K1, K2 and K3 must launch, ``dropped`` 0;
+8. gate ``whitted_gate``: ``WhittedRenderer(shadows=True)`` at depth 8 and
+   320x180, one frame on the card and on the host CPU with the same key,
+   through the two-class gate; on the card all four kernels, and K3 in
+   its tmax-guarded any-hit form, must launch.
 
-Then the kernel table as one JSON line, and last
+Each slice sets every launch count to 0 just before its timed frames and
+reads them just after. Then the kernel table as one JSON line, and last
 ``{"ok": true, "device": {...}}``. A failing phase raises.
 """
 
@@ -37,6 +51,11 @@ import os
 import subprocess
 import sys
 import time
+
+
+# The Whitted gate's viewport: its host-CPU side traces depth-8 trees with
+# shadows through the plain versions.
+WHITTED_GATE_VIEWPORT = (320, 180)
 
 
 def emit(obj):
@@ -104,8 +123,8 @@ def main() -> int:
     from rayaccel_tpu_torch.ops import trace_dense as dense
     from rayaccel_tpu_torch.ops import trace_sparse as sparse
     from rayaccel_tpu_torch.ops.intersect import safe_inv_dir
-    from rayaccel_tpu_torch.ops.trace_mxu import _ray_features
-    from rayaccel_tpu_torch.render import pathtracer
+    from rayaccel_tpu_torch.render import pathtracer, whitted
+    from rayaccel_tpu_torch.render.shading import surface_from_attrs
     from rayaccel_tpu_torch.scene.clusters import (cluster_scene_from_numpy,
                                                    compile_clusters_np)
     from rayaccel_tpu_torch.scene.loader import make_battlefield_like
@@ -159,12 +178,8 @@ def main() -> int:
     active = renderer._wave_alive[w]
     R = rays.o.shape[0]
     T = R // tile
-    tmax_eff = torch.where(active, rays.tmax, torch.full_like(rays.tmax, -1))
-    q = dense.cull_and_queue(cs, rays.o, safe_inv_dir(rays.d), rays.tmin,
-                             tmax_eff, T, tile, opts.k_step, opts.tile_cap)
-    F = _ray_features(rays.o, rays.d)
-    F[:, 10] = rays.tmin
-    F[:, 11] = tmax_eff
+    F, *q = dense._dense_inputs(cs, rays, active, tile, opts.k_step,
+                                opts.tile_cap)
     args = (F, cs.G3, q[0], q[1], q[2], tile, opts.k_step)
     out_k = dense.dense_closest_hit(*args)
     out_p = dense.dense_closest_hit_plain(*args)
@@ -279,66 +294,190 @@ def main() -> int:
                         plain_ms=s3["plain_ms"]))
     del state, pool, F8, Fp, items, sel_k, sel_p, pk, pp
 
+    # K4: the shadow rays of K1's wave, built from its hits as the Whitted
+    # step builds them (every hit of a depth-1 frame casts one).
+    hit = out_k[1] >= 0
+    attr, tri, t, u, v = dense.reconstruct(cs, rays,
+                                           torch.where(hit, out_k[1], 0))
+    surf = surface_from_attrs(attr, cs.mat_params, rays,
+                              dense.make_hits(rays, hit, tri, t, u, v))
+    s_active = active & hit
+    F4, q4c, q4e, q4n, ov4 = dense._dense_inputs(
+        cs, whitted.shadow_rays(surf), s_active, tile, opts.k_step,
+        opts.tile_cap)
+    a4 = (F4, cs.G3, q4c, q4e, q4n, tile, opts.k_step)
+    occ_k = dense.dense_occluded(*a4)
+    occ_p = dense.dense_occluded_plain(*a4)
+    torch.cuda.synchronize()
+    s4 = dict(shadow_rays=int(s_active.sum()), occluded=int(occ_k.sum()),
+              occluded_plain=int(occ_p.sum()),
+              flag_agree=float((occ_k == occ_p).float().mean()),
+              flags_differing=int((occ_k != occ_p).sum()),
+              queue_max=int(q4n.max()), queue_mean=float(q4n.float().mean()),
+              queue_overflow=int(ov4),
+              ms=cuda_ms(lambda: dense.dense_occluded(*a4), 20),
+              plain_ms=cuda_ms(lambda: dense.dense_occluded_plain(*a4), 3))
+    emit(dict(phase="kernel", name="K4 dense_occluded", rays=R, tiles=T,
+              **s4))
+    if s4["flag_agree"] < 0.9995:
+        raise AssertionError(f"K4 disagrees with its plain version: {s4}")
+    kernels.append(dict(name="dense_occluded", route="cuda",
+                        source="rayaccel_tpu_torch/csrc/dense_occl.cu",
+                        replaces="rayaccel_tpu/ops/trace_pallas.py:265",
+                        max_abs_err=float(s4["flags_differing"] > 0),
+                        ms=s4["ms"], plain_ms=s4["plain_ms"]))
+    del surf, F4, a4, occ_k, occ_p
+
+    wrappers = (dense.dense_closest_hit, dense.dense_occluded,
+                sparse.select_nearest, sparse.pair_hit)
+    slices = {}
+
+    def reset_counts():
+        for fn in wrappers:
+            fn.launches = 0
+        sparse.pair_hit.guard_launches = 0
+
+    def read_counts():
+        c = {fn.__name__: fn.launches for fn in wrappers}
+        c["pair_hit_guard_tmax"] = sparse.pair_hit.guard_launches
+        return c
+
+    def require_launches(name, launches, needed):
+        missing = [k for k in needed if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"{name}: {missing} never launched: "
+                                 f"{launches}")
+
+    def drive(name, renderer, keys, needed, **extra):
+        """One warm-up frame, then ``keys`` timed, with every launch count
+        set to 0 just before them and read just after. Emits the slice's
+        line; raises unless each kernel in ``needed`` launched, ``dropped``
+        is 0 and the image is finite and not black."""
+        torch.cuda.reset_peak_memory_stats()
+        renderer.render_frame(rng.PRNGKey(100))          # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        rays_traced = 0
+        for k in keys:
+            rays_traced += int(renderer.render_frame(k).rays_traced)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        img = renderer.image()
+        line = dict(
+            phase="slice", name=name,
+            viewport=[renderer.width, renderer.height],
+            max_depth=renderer.max_depth, spp=renderer.spp, frames=len(keys),
+            frame_ms=seconds / len(keys) * 1e3,
+            mrays_per_s=rays_traced / seconds / 1e6, rays=rays_traced,
+            dropped=renderer.dropped, launches=launches,
+            image_finite=bool(np.isfinite(img).all()),
+            image_mean=float(img.mean()), image_max=float(img.max()),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            **{k: f() for k, f in extra.items()})
+        emit(line)
+        if renderer.dropped != 0:
+            raise AssertionError(f"{name} dropped {renderer.dropped} rays")
+        require_launches(name, launches, needed)
+        if not (line["image_finite"] and line["image_max"] > 0):
+            raise AssertionError(f"{name} image is not finite or is black")
+        slices[name] = launches
+
+    def card_vs_cpu(name, make, keys, **fields):
+        """Render ``keys`` with ``make(device)``'s renderer on the card and
+        on the host CPU, emit the two-class gate with both ``dropped``
+        counts, times and the card run's launch counts, and raise unless
+        it passes. Returns the card's launch counts."""
+        t0 = time.perf_counter()
+        images = {}
+        for side, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            r = make(device)
+            reset_counts()
+            t1 = time.perf_counter()
+            for k in keys:
+                r.render_frame(k)
+            if side == "cuda":
+                torch.cuda.synchronize()
+                launches = read_counts()
+            images[side] = (r.image().reshape(-1, 3), r.dropped,
+                            time.perf_counter() - t1)
+            del r
+        gate = two_class_gate(images["cuda"][0], images["cpu"][0])
+        gate.update(phase=name, **fields, dropped_cuda=images["cuda"][1],
+                    dropped_cpu=images["cpu"][1],
+                    cuda_seconds=images["cuda"][2],
+                    cpu_seconds=images["cpu"][2],
+                    seconds=time.perf_counter() - t0)
+        emit(dict(gate, launches=launches))
+        if not (gate["rmse_trimmed"] < 1e-3 and gate["frac_flip"] < 0.005
+                and gate["dropped_cuda"] == gate["dropped_cpu"] == 0):
+            raise AssertionError(f"{name} failed: {gate}")
+        return launches
+
+    def scene_at(width, height, max_depth):
+        return type(sd)(**{**sd.__dict__, "viewport_width": width,
+                           "viewport_height": height,
+                           "max_depth": max_depth})
+
+    def renderer_on(cls, scene, **kw):
+        """A factory of ``cls`` renderers of ``scene`` on a device, with the
+        default configuration and the headline cluster scene."""
+        def make(device):
+            c = racc.create_context(racc.default_configuration(),
+                                    device=device)
+            cam_s = racc.Camera.look_at(
+                scene.cam_origin, scene.cam_dir, scene.cam_up, scene.cam_fov,
+                scene.viewport_width, scene.viewport_height)
+            return cls(c, cam_s, scene, cluster_scene=(
+                cs if device == dev else
+                cluster_scene_from_numpy(**arrays, device=device)), **kw)
+        return make
+
     # ---- 4. the slice ----
-    wrappers = (dense.dense_closest_hit, sparse.select_nearest,
-                sparse.pair_hit)
-    renderer.render_frame(rng.PRNGKey(100))          # warm-up
-    torch.cuda.synchronize()
-    for fn in wrappers:
-        fn.launches = 0
-    t0 = time.perf_counter()
-    rays_traced = 0
-    frames = 3
-    for i in range(frames):
-        rays_traced += int(renderer.render_frame(rng.PRNGKey(101 + i))
-                           .rays_traced)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in wrappers}
-    img = renderer.image()
-    slice_line = dict(
-        phase="slice", viewport=[sd.viewport_width, sd.viewport_height],
-        max_depth=renderer.max_depth, spp=renderer.spp, frames=frames,
-        frame_ms=seconds / frames * 1e3,
-        mrays_per_s=rays_traced / seconds / 1e6, rays=rays_traced,
-        dropped=renderer.dropped, launches=launches,
-        image_finite=bool(np.isfinite(img).all()),
-        image_mean=float(img.mean()), image_max=float(img.max()),
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    emit(slice_line)
-    if renderer.dropped != 0:
-        raise AssertionError(f"slice dropped {renderer.dropped} rays")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel never launched: {launches}")
-    if not (slice_line["image_finite"] and slice_line["image_max"] > 0):
-        raise AssertionError("slice image is not finite or is black")
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    drive("pt", renderer, [rng.PRNGKey(101 + i) for i in range(3)],
+          ["dense_closest_hit", "select_nearest", "pair_hit"])
     del renderer
 
     # ---- 5. frame gate: card against host CPU ----
-    t0 = time.perf_counter()
-    small = type(sd)(**{**sd.__dict__, "viewport_width": 320,
-                        "viewport_height": 180})
-    images = {}
-    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
-        c = racc.create_context(racc.default_configuration(), device=device)
-        cam_s = racc.Camera.look_at(small.cam_origin, small.cam_dir,
-                                    small.cam_up, small.cam_fov, 320, 180)
-        r = racc.PathTracingRenderer(
-            c, cam_s, small,
-            cluster_scene=cluster_scene_from_numpy(**arrays, device=device))
-        for i in range(2):
-            r.render_frame(rng.fold_in(rng.PRNGKey(7), i))
-        images[name] = (r.image().reshape(-1, 3), r.dropped)
-    gate = two_class_gate(images["cuda"][0], images["cpu"][0])
-    gate.update(phase="gate", viewport=[320, 180], spp=2, max_depth=2,
-                dropped_cuda=images["cuda"][1], dropped_cpu=images["cpu"][1],
-                seconds=time.perf_counter() - t0)
-    emit(gate)
-    if not (gate["rmse_trimmed"] < 1e-3 and gate["frac_flip"] < 0.005):
-        raise AssertionError(f"frame gate failed: {gate}")
+    card_vs_cpu("gate",
+                renderer_on(racc.PathTracingRenderer, scene_at(320, 180, 2)),
+                [rng.fold_in(rng.PRNGKey(7), i) for i in range(2)],
+                viewport=[320, 180], spp=2, max_depth=2)
 
+    # ---- 6. Whitted primary + shadow rays (BASELINE config 1) ----
+    full = (sd.viewport_width, sd.viewport_height)
+    drive("whitted_shadow",
+          renderer_on(racc.WhittedRenderer, scene_at(*full, 1),
+                      shadows=True, primary_only=True)(dev),
+          [rng.PRNGKey(101 + i) for i in range(3)],
+          ["dense_closest_hit", "dense_occluded"])
+
+    # ---- 7. Whitted depth-8 ray trees on the frame pool (config 6) ----
+    r = renderer_on(racc.WhittedRenderer, scene_at(*full, 8))(dev)
+    drive("whitted_depth8", r, [rng.PRNGKey(101 + i) for i in range(2)],
+          ["dense_closest_hit", "select_nearest", "pair_hit"],
+          bounce_iterations=lambda: r.last_info["iterations"],
+          stage_shrinks=lambda: r.last_info["shrinks"],
+          deep_hauls=lambda: r.last_info["deep_hauls"])
+    del r
+
+    # ---- 8. Whitted gate: depth 8 with shadows, card against host CPU ----
+    gw, gh = WHITTED_GATE_VIEWPORT
+    launches = card_vs_cpu(
+        "whitted_gate",
+        renderer_on(racc.WhittedRenderer, scene_at(gw, gh, 8), shadows=True),
+        [rng.PRNGKey(9)], viewport=[gw, gh], spp=1, max_depth=8,
+        shadows=True)
+    require_launches("whitted_gate", launches,
+                     ["dense_closest_hit", "dense_occluded", "select_nearest",
+                      "pair_hit", "pair_hit_guard_tmax"])
+
+    # Launches of each kernel over the timed frames of the three slices.
+    for k in kernels:
+        k["launches_by_slice"] = {name: c[k["name"]]
+                                  for name, c in slices.items()}
+        k["launches"] = sum(k["launches_by_slice"].values())
     emit(dict(kernels=kernels))
     emit(dict(ok=True, device=dict(platform="gpu", kind=kind,
                                    count=torch.cuda.device_count())))

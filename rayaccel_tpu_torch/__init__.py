@@ -5,11 +5,14 @@ Each module names its counterpart in ``rayaccel_tpu/`` by file; the JAX
 package is the reference the port is tested against. The port imports
 ``torch`` and never ``jax``.
 
-This slice runs the headline path: ``PathTracingRenderer`` with the dense
-work-queue engine for primaries and the sparse pair engine for bounces.
-The three TPU kernels on that path are hand-written CUDA kernels
-(``csrc/``), built by nvcc at first use on a CUDA tensor; on CPU tensors
-each wrapper runs its plain PyTorch version instead::
+Two renderers run: ``PathTracingRenderer`` (the headline path tracer) and
+``WhittedRenderer`` (ray trees, with optional shadow rays), both with the
+dense work-queue engine for primaries and the sparse pair engine for
+bounces. The four TPU kernels on those paths (closest hit and any hit on
+the dense queue, the nearest-k select and the pair kernel) are
+hand-written CUDA kernels (``csrc/``), built by nvcc at first use on a
+CUDA tensor; on CPU tensors each wrapper runs its plain PyTorch version
+instead::
 
     import rayaccel_tpu_torch as racc
     from rayaccel_tpu_torch import rng
@@ -19,7 +22,7 @@ each wrapper runs its plain PyTorch version instead::
     cam = racc.Camera.look_at(sd.cam_origin, sd.cam_dir, sd.cam_up,
                               sd.cam_fov, sd.viewport_width,
                               sd.viewport_height)
-    r = racc.PathTracingRenderer(ctx, cam, sd)
+    r = racc.PathTracingRenderer(ctx, cam, sd)   # or racc.WhittedRenderer
     r.render_frame(rng.PRNGKey(0))
     img = r.image()
 """
@@ -33,6 +36,7 @@ from rayaccel_tpu_torch.environment import Environment, create_environment
 from rayaccel_tpu_torch.scene import ClusterScene, SceneData, compile_clusters
 from rayaccel_tpu_torch.render.tiled import TiledRenderer
 from rayaccel_tpu_torch.render.pathtracer import PathTracingRenderer
+from rayaccel_tpu_torch.render.whitted import WhittedRenderer
 
 __all__ = [
     "Configuration", "EngineOpts", "default_configuration",
@@ -40,7 +44,7 @@ __all__ = [
     "Rays", "Hits", "Stats", "INVALID_TRIANGLE",
     "Camera", "Environment", "create_environment",
     "ClusterScene", "SceneData", "compile_clusters",
-    "TiledRenderer", "PathTracingRenderer",
+    "TiledRenderer", "PathTracingRenderer", "WhittedRenderer",
 ]
 
 __version__ = "0.1.0"

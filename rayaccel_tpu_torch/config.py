@@ -2,11 +2,12 @@
 
 Counterpart of ``rayaccel_tpu/config.py``: the same fields, defaults and
 validation, so one configuration reads the same in both packages. The
-port runs the headline path only (the dense work-queue engine for
-primaries, the sparse pair engine for bounces, the frame-pooled bounce
-loop, the uniform sampler, one device). Values that select anything else
-pass the shared validation and then raise ``NotImplementedError`` naming
-the ``ROADMAP.md`` item (queue 1) that brings them.
+port runs the headline path tracer and the Whitted renderer (the dense
+work-queue engine for primaries and their shadow rays, the sparse pair
+engine for bounces, the frame-pooled bounce loops, the uniform sampler,
+one device). Values that select anything else pass the shared validation
+and then raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
+(queue 1) that brings them, or its "Do not port" list.
 """
 
 from __future__ import annotations
@@ -111,6 +112,10 @@ class Configuration:
             raise NotImplementedError(
                 "mesh_shape (the multi-device tier) is ROADMAP queue 1 "
                 "item 15")
+        if self.whitted_bounce_scan is not None:
+            raise NotImplementedError(
+                "whitted_bounce_scan (the scanned dense bounce) is on "
+                "ROADMAP's 'Do not port' list")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,9 +2,10 @@
 
 The sources are ``rayaccel_tpu_torch/csrc/*.cu``. At the first launch on a
 CUDA tensor they are compiled by nvcc, for Hopper only
-(``-gencode arch=compute_90a,code=sm_90a``), into one shared library with a
-plain C interface under the package's git-ignored ``_build/`` directory,
-named by a hash of the sources and flags, and loaded with ctypes. Nothing
+(``-gencode arch=compute_90a,code=sm_90a``), one nvcc process per source
+started together, and linked into one shared library with a plain C
+interface under the package's git-ignored ``_build/`` directory, named by
+a hash of the sources and flags, and loaded with ctypes. Nothing
 is compiled or loaded when the module is imported. If nvcc is missing or
 the build fails, the launch raises: there is no fallback.
 
@@ -29,8 +30,9 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -40,6 +42,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "racc_dense_hit": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "racc_dense_occluded": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "racc_select_nearest": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "racc_pair_hit": [_P, _P, _P, _I, _P, _I, _I, _I, _P],
 }
@@ -60,10 +63,50 @@ def _sources():
                   + glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
+def _build(so: str) -> None:
+    """Compile every ``.cu`` to an object in parallel, then link ``so``."""
+    global build_log
+    nvcc = _nvcc()
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cus = [p for p in _sources() if p.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(cu)}.o" for cu in cus]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, cu],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cu, obj in zip(cus, objs)]
+    logs, failed = [], []
+    try:
+        for cu, proc in zip(cus, procs):
+            out, _ = proc.communicate(timeout=900)
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(os.path.basename(cu))
+        if not failed:
+            link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+                                   *objs], capture_output=True, text=True,
+                                  timeout=300)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed.append("link")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed to build the port's kernels "
+                           f"({', '.join(failed)}):\n{build_log[-6000:]}")
+    os.replace(tmp, so)
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use. Raises RuntimeError if nvcc
     is missing or fails."""
-    global _lib, build_log
+    global _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -74,16 +117,7 @@ def library() -> ctypes.CDLL:
         so = os.path.join(BUILD_DIR, f"kernels-{digest.hexdigest()[:12]}.so")
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cu = [p for p in _sources() if p.endswith(".cu")]
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                                  capture_output=True, text=True,
-                                  timeout=900)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError("nvcc failed to build the port's kernels:"
-                                   f"\n{build_log[-6000:]}")
-            os.replace(tmp, so)
+            _build(so)
         lib = ctypes.CDLL(so)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -17,7 +17,9 @@ per-ray overlap instead of a tile's union:
 
 ``trace_sparse`` restarts unresolved rays (whose spill entry lies before
 their current best) on the compacted set until ``max_passes``, and counts
-what is left, exactly as the JAX function does.
+what is left, exactly as the JAX function does. ``trace_occlusion_sparse``
+(``:577-698``) is its any-hit form: K3 with the exact tmax guard, no
+t-shrink on restarts, and the occlusion OR-merged across passes.
 
 The JAX wrappers dispatched over static capacity ladders (pair buckets,
 item buckets, live-tile buckets) because a Pallas grid is static. Here a
@@ -166,7 +168,9 @@ def pair_hit(Fp, G3, items, col_bits: int, guard_tmax: bool) -> torch.Tensor:
 
     On a CUDA tensor this launches ``csrc/pair_hit.cu``, one CTA per item
     (the caller counted the items on the host); on a CPU tensor it runs
-    :func:`pair_hit_plain`."""
+    :func:`pair_hit_plain`. ``pair_hit.guard_launches`` counts the
+    launches with ``guard_tmax`` (the any-hit form) among
+    ``pair_hit.launches``."""
     if Fp.device.type == "cpu":
         return pair_hit_plain(Fp, G3, items, col_bits, guard_tmax)
     P = Fp.shape[0]
@@ -183,10 +187,12 @@ def pair_hit(Fp, G3, items, col_bits: int, guard_tmax: bool) -> torch.Tensor:
         _kernels.ptr(out), G3.shape[1] // 4, col_bits, int(guard_tmax),
         _kernels.stream()), "racc_pair_hit")
     pair_hit.launches += 1
+    pair_hit.guard_launches += bool(guard_tmax)
     return out
 
 
 pair_hit.launches = 0
+pair_hit.guard_launches = 0
 
 
 def pair_hit_plain(Fp, G3, items, col_bits: int, guard_tmax: bool,
@@ -313,13 +319,40 @@ def _sparse_pass(cs: ClusterScene, o, d, inv_d, tlo, tmax_p, K: int, SP: int,
     return best_p, slot_p, spill, max(total - cap, 0)
 
 
-def trace_sparse(cs: ClusterScene, rays: Rays, active=None,
+def _restart_widths(R: int, SP: int, divisors):
+    """The restart passes' width ladder: R / dv for each divisor, rounded
+    up to a multiple of SP, at least SP and at most R rounded up."""
+    r_pad = -(-R // SP) * SP
+    return sorted({min(r_pad, max(SP, (-(-R // dv // SP)) * SP))
+                   for dv in divisors})
+
+
+def _compact(unresolved, widths):
+    """The unresolved rays of a restart pass, at the smallest width of the
+    ladder that holds them (the largest otherwise: the rest wait for the
+    next pass). Returns (uidx, idx, valid): their indices, the same padded
+    with 0 to the width, and the mask of real rows; None when no ray is
+    unresolved. Reads the count on the host."""
+    n_un = int(unresolved.sum())
+    if n_un == 0:
+        return None
+    Rs = next((w for w in widths if n_un <= w), widths[-1])
+    uidx = unresolved.nonzero().squeeze(1)[:Rs]
+    idx = torch.zeros(Rs, dtype=torch.int64, device=unresolved.device)
+    idx[:uidx.numel()] = uidx
+    valid = torch.arange(Rs, device=unresolved.device) < uidx.numel()
+    return uidx, idx, valid
+
+
+def trace_sparse(cs: ClusterScene, rays: Rays, env=None, active=None,
                  k_pairs: int = 4, pair_budget: int = 3, sp_tile: int = 1024,
                  max_passes: int = 4, k_first: int | None = None,
                  k_restart: int | None = None):
     """Pair-centric closest-hit trace, spill-exact multipass. Returns
     (MxuHits, overflow): ``overflow`` counts truncated pairs and rays still
-    unresolved after ``max_passes`` (knobs as in the JAX function)."""
+    unresolved after ``max_passes`` (knobs as in the JAX function). With
+    ``env``, the environment's radiance along each active miss is folded
+    into ``miss_rgb`` after the exact tmax post-filter."""
     if not 1 <= k_pairs <= 8:
         raise ValueError("k_pairs must be in [1, 8]: rank rides in 3 bits")
     k_first = k_pairs if k_first is None else k_first
@@ -362,21 +395,15 @@ def trace_sparse(cs: ClusterScene, rays: Rays, active=None,
     prev = spill
 
     # ---- restart passes: compacted unresolved set, width-bucketed ----
-    r_pad = -(-R // SP) * SP
-    width_buckets = sorted({min(r_pad, max(SP, (-(-R // dv // SP)) * SP))
-                            for dv in ((64, 16, 4) if k_first < k_pairs
-                                       else (64, 16))})
+    widths = _restart_widths(R, SP, (64, 16, 4) if k_first < k_pairs
+                             else (64, 16))
     n_pass = 1
     while n_pass < max_passes:
-        n_un = int(unresolved.sum())
-        if n_un == 0:
+        pending = _compact(unresolved, widths)
+        if pending is None:
             break
-        Rs = next((w for w in width_buckets if n_un <= w), width_buckets[-1])
-        uidx = unresolved.nonzero().squeeze(1)[:Rs]
+        uidx, idx, valid = pending
         nv = uidx.numel()
-        idx = torch.zeros(Rs, dtype=torch.int64, device=rays.o.device)
-        idx[:nv] = uidx
-        valid = torch.arange(Rs, device=rays.o.device) < nv
         d_s = rays.d[idx]
         best_s = best[idx]
         tmax_r = tmax0[idx]
@@ -406,5 +433,78 @@ def trace_sparse(cs: ClusterScene, rays: Rays, active=None,
     # "nearest > tmax" means no in-window hit exists).
     hit = hit & (t < rays.tmax)
     overflow = unresolved.sum() + overflow
-    return MxuHits(hits=make_hits(rays, hit, tri, t, u, v),
+    return MxuHits(hits=make_hits(rays, hit, tri, t, u, v, env, active),
                    attrs=attr), overflow
+
+
+def trace_occlusion_sparse(cs: ClusterScene, rays: Rays, active=None,
+                           k_pairs: int = 4, pair_budget: int = 3,
+                           sp_tile: int = 1024, max_passes: int = 4,
+                           k_restart: int | None = None):
+    """Any-hit occlusion query on the pair engine: True where some triangle
+    blocks the ray within [tmin, tmax].
+
+    Pass 1 tests each ray's ``k_pairs`` nearest clusters with the tmax
+    guard on; an unoccluded ray whose spill entry lies inside its window
+    restarts from that entry with its tmax unchanged (occlusion never
+    narrows it), on the compacted unresolved set, until ``max_passes``.
+    Returns (occluded (R,) bool, under_resolved): rays still unresolved at
+    the pass cap are reported unoccluded and counted, with truncated
+    pairs, in ``under_resolved``."""
+    if not 1 <= k_pairs <= 8:
+        raise ValueError("k_pairs must be in [1, 8]: rank rides in 3 bits")
+    k_restart = k_pairs if k_restart is None else k_restart
+    if not 1 <= k_restart <= 8:
+        raise ValueError("k_restart must be in [1, 8]")
+    R = rays.o.shape[0]
+    n_c = cs.n_clusters
+    K_r = min(k_restart, n_c)
+    SP = sp_tile
+    id_bits = max((cs.bb.shape[0] - 1).bit_length(), 1)
+    spill_clear = ~((1 << id_bits) - 1)
+
+    def decode_spill(s):
+        return (s & spill_clear).view(torch.float32)
+
+    inv_d = safe_inv_dir(rays.d)
+    tmin = rays.tmin
+    tmax0 = (rays.tmax if active is None
+             else torch.where(active, rays.tmax,
+                              torch.full_like(rays.tmax, -1.0)))
+
+    best, _, spill, under = _sparse_pass(
+        cs, rays.o, rays.d, inv_d, tmin, tmax0, min(k_pairs, n_c), SP,
+        pair_budget, guard_tmax=True)
+    occluded = best < _MISS_BITS
+    spill_e = decode_spill(spill)
+    unresolved = ((tmax0 > 0) & ~occluded & (spill < _INF_PACK)
+                  & (spill_e < tmax0))
+    tlo = torch.where(unresolved, spill_e, tmin)
+    prev = spill
+
+    # Restart passes: the ladder tops out at R/8 (shadow rays can leave a
+    # longer unresolved tail than closest-hit, having no tmax shrink).
+    widths = _restart_widths(R, SP, (64, 8))
+    n_pass = 1
+    while n_pass < max_passes:
+        pending = _compact(unresolved, widths)
+        if pending is None:
+            break
+        uidx, idx, valid = pending
+        nv = uidx.numel()
+        d_s = rays.d[idx]
+        tmax_s = torch.where(valid, tmax0[idx], -1.0)
+        bp, _, spill_s, trunc_s = _sparse_pass(
+            cs, rays.o[idx], d_s, safe_inv_dir(d_s), tlo[idx], tmax_s, K_r,
+            SP, K_r, prev_packed=prev[idx], guard_tmax=True)
+        occ_s = (bp < _MISS_BITS) | occluded[idx]
+        spill_es = decode_spill(spill_s)
+        unres_s = (valid & ~occ_s & (spill_s < _INF_PACK)
+                   & (spill_es < tmax_s))
+        occluded[uidx] = occ_s[:nv]
+        tlo[uidx] = torch.where(unres_s, spill_es, tlo[idx])[:nv]
+        prev[uidx] = spill_s[:nv]
+        unresolved[uidx] = unres_s[:nv]
+        n_pass += 1
+        under += trunc_s
+    return occluded, unresolved.sum() + under

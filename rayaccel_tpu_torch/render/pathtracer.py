@@ -58,17 +58,19 @@ def pt_shade(surf, rays, weight, key, lane=None):
     return new_rays, new_weight, ok
 
 
-def _trace_and_surface(scene, rays, alive, bk, tile, opts=EngineOpts()):
+def _trace_and_surface(scene, rays, alive, bk, tile, opts=EngineOpts(),
+                       env=None):
     """One closest-hit trace on engine ``bk`` ("pallas": the dense
     work-queue engine; "sparse": the pair engine) and the shading frame.
-    Returns (hits, surf, overflow)."""
+    With ``env``, the environment's radiance along active misses is folded
+    into ``hits.miss_rgb``. Returns (hits, surf, overflow)."""
     if bk == "pallas":
-        res, overflow = trace_dense(scene, rays, active=alive, tile=tile,
-                                    k_step=opts.k_step,
+        res, overflow = trace_dense(scene, rays, env=env, active=alive,
+                                    tile=tile, k_step=opts.k_step,
                                     tile_cap=opts.tile_cap)
     elif bk == "sparse":
         res, overflow = trace_sparse(
-            scene, rays, active=alive, k_pairs=opts.k_pairs,
+            scene, rays, env=env, active=alive, k_pairs=opts.k_pairs,
             pair_budget=opts.pair_budget, sp_tile=opts.sp_tile,
             max_passes=opts.max_passes, k_first=opts.k_first,
             k_restart=opts.k_restart)
@@ -141,6 +143,43 @@ def _stage1(scene, cam_arrays, xs, ys, alives, key, max_depth, backend,
     return state, overflow
 
 
+def _shrink(alive, lane, n_fresh: int, nxt: int, cols):
+    """The width shrink of a pooled bounce loop. Returns (perm, piece):
+    the first ``nxt`` positions of a stable live-first order (the new
+    head), and the piece the pool leaves behind: at every position, the
+    lane id and ``cols`` where the lane is fresh (below ``n_fresh``, so
+    alive when the stage began) and dead now, ``_LANE_INVALID`` elsewhere,
+    so that each dead lane is emitted exactly once."""
+    iota = torch.arange(alive.shape[0], dtype=torch.int32,
+                        device=alive.device)
+    perm = torch.argsort(torch.where(alive, iota, 0x7FFFFFFF),
+                         stable=True)[:nxt]
+    valid = (iota < n_fresh) & ~alive
+    piece = torch.cat([torch.where(valid, lane.to(torch.float32),
+                                   _LANE_INVALID)[:, None], *cols], dim=1)
+    return perm, piece
+
+
+def _final_piece(lane, n_fresh: int, shrunk: bool, cols):
+    """The last stage's piece. After a shrink, the rows at or past
+    ``n_fresh`` are dead filler hauled into the head, emitted in an
+    earlier piece: they are marked invalid."""
+    final = lane.to(torch.float32)
+    if shrunk:
+        final = torch.where(torch.arange(final.shape[0], device=lane.device)
+                            < n_fresh, final, _LANE_INVALID)
+    return torch.cat([final[:, None], *cols], dim=1)
+
+
+def _by_lane(lane_f, rows, N: int):
+    """(N, cols): each valid piece row scattered to its lane id."""
+    real = lane_f < _LANE_INVALID
+    out = torch.zeros((N, rows.shape[1]), dtype=rows.dtype,
+                      device=rows.device)
+    out[lane_f[real].to(torch.int64)] = rows[real]
+    return out
+
+
 def _stage_widths(N: int, max_depth: int, min_stage_width: int):
     """Width-shrink ladder: quarter the pool while it stays above the
     floor, at most ``max_depth`` stages (bounce b runs in stage <= b)."""
@@ -197,8 +236,7 @@ def pt_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
     stage_widths = _stage_widths(N, max_depth, min_stage_width)
     pieces = []
     st = state
-    for si, width in enumerate(stage_widths):
-        nxt = stage_widths[si + 1] if si + 1 < len(stage_widths) else None
+    for nxt in [*stage_widths[1:], None]:
         while True:
             n_live = int(st["alive"].sum())
             if n_live == 0 or (nxt is not None and n_live <= nxt):
@@ -206,17 +244,10 @@ def pt_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
             st = bounce_body(st)
         if nxt is None:
             break
-        # Shrink: live lanes first (stable), the head keeps them; the
-        # piece emits each fresh (alive at stage entry) lane that is dead.
-        iota_w = torch.arange(width, dtype=torch.int32, device=device)
-        perm = torch.argsort(torch.where(st["alive"], iota_w, 0x7FFFFFFF),
-                             stable=True)[:nxt]
+        perm, piece = _shrink(st["alive"], st["lane"], st["n_fresh"], nxt,
+                              (st["miss_d"], st["miss_w"]))
+        pieces.append(piece)
         r = st["rays"]
-        valid = (iota_w < st["n_fresh"]) & ~st["alive"]
-        pieces.append(torch.cat([
-            torch.where(valid, st["lane"].to(torch.float32),
-                        _LANE_INVALID)[:, None],
-            st["miss_d"], st["miss_w"]], dim=1))
         d_h = r.d[perm]
         st = dict(
             rays=Rays(r.o[perm], d_h,
@@ -229,15 +260,9 @@ def pt_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
             depth=st["depth"][perm],
             alive=torch.arange(nxt, device=device) < n_live,
             lane=st["lane"][perm], n_fresh=n_live)
-    final_lane = st["lane"].to(torch.float32)
-    if len(stage_widths) > 1:
-        # Non-fresh rows (dead filler hauled into the head) were emitted in
-        # an earlier piece.
-        fw = final_lane.shape[0]
-        final_lane = torch.where(torch.arange(fw, device=device)
-                                 < st["n_fresh"], final_lane, _LANE_INVALID)
-    pieces.append(torch.cat([final_lane[:, None], st["miss_d"],
-                             st["miss_w"]], dim=1))
+    pieces.append(_final_piece(st["lane"], st["n_fresh"],
+                               len(stage_widths) > 1,
+                               (st["miss_d"], st["miss_w"])))
 
     # ---- stage 3: deferred env lookup + reassembly by lane id ----
     allp = torch.cat(pieces) if len(pieces) > 1 else pieces[0]
@@ -248,10 +273,7 @@ def pt_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
     up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=device)
     miss_dir = torch.where(is_miss[:, None], allp[:, 1:4], up)
     radiance = miss_w * sample_environment(env, miss_dir)
-    lane_f = allp[:, 0]
-    real = lane_f < _LANE_INVALID
-    rad = torch.zeros((N, 3), dtype=torch.float32, device=device)
-    rad[lane_f[real].to(torch.int64)] = radiance[real]
+    rad = _by_lane(allp[:, 0], radiance, N)
     return rad.reshape(W, R, 3), traced, dropped
 
 

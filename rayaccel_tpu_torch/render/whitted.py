@@ -1,0 +1,464 @@
+"""Wavefront Whitted renderer: ray trees with lane-local parked stacks.
+
+Counterpart of ``rayaccel_tpu/render/whitted.py``: ``whitted_shade``
+(``:57-107``) and its constants (``:52-54``), ``_occlusion_query``
+(``:110-142``, the "pallas" and "sparse" engines), the trace of
+``_whitted_trace`` (``:145-178``, through ``pathtracer._trace_and_surface``
+with the environment folded at trace time), ``_whitted_step``
+(``:181-274``), ``whitted_trace_wave`` (``:277-420``) without the
+between-bounce regroup, ``whitted_trace_frame`` (``:423-768``) on one
+device with the fast shrink, and ``WhittedRenderer`` (``:771-891``).
+
+Each wavefront lane owns one pixel's whole ray tree. When a hit spawns
+both a reflection and a refraction ray, the reflection continues and the
+refraction is parked on the lane's stack; when a lane's path terminates,
+its top parked ray resumes. The stacks are (S, 7, R) [o, d, depth] and
+(S, 3, R) [weight]; a push writes and a pop reads the level ``sp`` by a
+gather/scatter, which selects the same values as the JAX one-hot level
+blend. Parks beyond the stack are counted in ``dropped``.
+
+Decided difference: the dense shadow query reports its queue-clamp
+overflow (``ops/trace_dense.py:trace_occlusion_dense``) and this module
+adds it to ``dropped``; the JAX function returns 0 there (``:118-124``).
+
+The JAX functions are compiled programs with ``lax.scan`` /
+``while_loop`` / ``cond``; here the same control flow runs eagerly, with
+every loop condition read on the host.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rayaccel_tpu_torch import rng
+from rayaccel_tpu_torch.camera import Camera, generate_pixel_rays
+from rayaccel_tpu_torch.config import EngineOpts
+from rayaccel_tpu_torch.context import Context
+from rayaccel_tpu_torch.environment import Environment, create_environment
+from rayaccel_tpu_torch.ops.intersect import dot3
+from rayaccel_tpu_torch.ops.trace_dense import trace_occlusion_dense
+from rayaccel_tpu_torch.ops.trace_sparse import trace_occlusion_sparse
+from rayaccel_tpu_torch.render.pathtracer import (_by_lane, _final_piece,
+                                                  _shrink, _trace_and_surface)
+from rayaccel_tpu_torch.render.shading import (ORIGIN_EPSILON, SECONDARY_TMAX,
+                                               SECONDARY_TMIN, WEIGHT_CUTOFF,
+                                               merge_rays)
+from rayaccel_tpu_torch.render.tiled import TiledRenderer
+from rayaccel_tpu_torch.scene.clusters import ClusterScene, compile_clusters
+from rayaccel_tpu_torch.scene.data import SceneData
+from rayaccel_tpu_torch.types import INVALID_TRIANGLE, Rays
+
+MATERIAL_GRAY = 0.3                      # WhittedRenderer.cpp:343-345
+LIGHT_DIR = (0.57, 0.57, 0.57)           # WhittedRenderer.cpp:357-359
+ETA_GLASS = 1.1                          # WhittedRenderer.cpp:429-430
+
+# The light direction and its normalised form, rounded to float32 as the
+# JAX function computes them, held as Python floats (a float32 tensor op
+# with a Python float rounds it to float32 exactly).
+_LIGHT = np.float32(LIGHT_DIR)
+_LIGHT_UNIT = _LIGHT / np.sqrt(np.float32(_LIGHT[0] * _LIGHT[0]
+                                          + _LIGHT[1] * _LIGHT[1]
+                                          + _LIGHT[2] * _LIGHT[2]))
+_LIGHT, _LIGHT_UNIT = _LIGHT.tolist(), _LIGHT_UNIT.tolist()
+
+
+def _dot_const(a: torch.Tensor, c) -> torch.Tensor:
+    """Row-wise dot product of (R, 3) with a constant 3-vector."""
+    return a[:, 0] * c[0] + a[:, 1] * c[1] + a[:, 2] * c[2]
+
+
+def _secondary(o: torch.Tensor, d: torch.Tensor) -> Rays:
+    n = o.shape[0]
+    return Rays(o, d,
+                torch.full((n,), SECONDARY_TMIN, dtype=torch.float32,
+                           device=o.device),
+                torch.full((n,), SECONDARY_TMAX, dtype=torch.float32,
+                           device=o.device))
+
+
+def whitted_shade(surf, rays: Rays, weight: torch.Tensor):
+    """Direct radiance and both child rays of each hit, given its shading
+    frame. Returns (radiance, new_weight, refl_rays, refl_ok, refr_rays,
+    refr_ok)."""
+    d = rays.d
+    ns = surf.ns  # already flipped toward the incoming ray
+    ndotl = torch.clamp_min(_dot_const(ns, _LIGHT), 0.0)
+    new_weight = weight * MATERIAL_GRAY
+    radiance = new_weight * ndotl[:, None]
+    cont = torch.any(new_weight > WEIGHT_CUTOFF, dim=-1)
+
+    d_dot_n = dot3(d, ns)
+    refl_d = d - (2.0 * d_dot_n)[:, None] * ns
+    # Refraction: eta by travel side (entering uses 1/1.1).
+    eta = torch.where(surf.entering, 1.0 / ETA_GLASS, ETA_GLASS).to(
+        torch.float32)
+    r = 1.0 - eta * eta * (1.0 - d_dot_n * d_dot_n)
+    mu = eta * d_dot_n + torch.sqrt(torch.clamp_min(r, 0.0))
+    refr_d = eta[:, None] * d - mu[:, None] * ns
+
+    d_side = surf.d_dot_ng > 0
+
+    def finish(dir_new, extra_ok):
+        dot = dot3(dir_new, surf.ng)
+        pos = surf.pos + surf.ng * torch.where(
+            dot >= 0, ORIGIN_EPSILON, -ORIGIN_EPSILON)[:, None]
+        finite = (torch.isfinite(pos).all(dim=-1)
+                  & torch.isfinite(dir_new).all(dim=-1))
+        return _secondary(pos, dir_new), cont & extra_ok & finite, dot > 0
+
+    refl_rays, refl_base, refl_side = finish(refl_d, True)
+    refr_rays, refr_base, refr_side = finish(refr_d, r > 0.0)
+    # Side consistency: reflection leaves on the opposite side of Ng,
+    # refraction on the same side.
+    refl_ok = refl_base & (refl_side != d_side)
+    refr_ok = refr_base & (refr_side == d_side)
+    return radiance, new_weight, refl_rays, refl_ok, refr_rays, refr_ok
+
+
+def shadow_rays(surf) -> Rays:
+    """Shadow rays toward the directional light, from each hit point
+    offset along Ng to the light's side, over [SECONDARY_TMIN,
+    SECONDARY_TMAX]."""
+    sgn = torch.where(_dot_const(surf.ng, _LIGHT_UNIT) >= 0, ORIGIN_EPSILON,
+                      -ORIGIN_EPSILON)
+    spos = surf.pos + surf.ng * sgn[:, None]
+    d = torch.tensor(_LIGHT_UNIT, dtype=torch.float32).to(spos.device)
+    return _secondary(spos, d.expand_as(spos).contiguous())
+
+
+def _occlusion_query(scene, srays: Rays, active, bk: str, tile: int,
+                     opts: EngineOpts = EngineOpts()):
+    """Any-hit shadow query on engine ``bk``. Returns (occluded,
+    uncounted): the dense engine's queue-clamp overflow or the sparse
+    engine's under-resolved rays, which the caller adds to ``dropped``."""
+    if bk == "pallas":
+        return trace_occlusion_dense(scene, srays, active=active, tile=tile,
+                                     k_step=opts.k_step,
+                                     tile_cap=opts.tile_cap)
+    if bk == "sparse":
+        return trace_occlusion_sparse(
+            scene, srays, active=active, k_pairs=opts.k_pairs,
+            pair_budget=opts.pair_budget, sp_tile=opts.sp_tile,
+            max_passes=opts.max_passes, k_restart=opts.k_restart)
+    raise NotImplementedError(f"engine {bk!r} is ROADMAP queue 1 item 12")
+
+
+def _initial_state(rays: Rays, alive, stack_size: int):
+    """Fresh lane state: unit weight, depth 0, empty stacks."""
+    R = rays.o.shape[0]
+    dev = rays.o.device
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    return dict(
+        rays=rays, weight=torch.ones((R, 3), dtype=torch.float32, device=dev),
+        depth=torch.zeros((R,), dtype=torch.int32, device=dev), alive=alive,
+        sp=torch.zeros((R,), dtype=torch.int32, device=dev),
+        stk=torch.zeros((stack_size, 7, R), dtype=torch.float32, device=dev),
+        stk_w=torch.zeros((stack_size, 3, R), dtype=torch.float32,
+                          device=dev),
+        radiance=torch.zeros((R, 3), dtype=torch.float32, device=dev),
+        traced=zero, dropped=zero)
+
+
+def _whitted_step(scene, s, hits, surf, bk: str, tile: int, max_depth: int,
+                  stack_size: int, shadows: bool, primary_only: bool,
+                  opts: EngineOpts = EngineOpts()):
+    """Advance the lane state after a trace: environment on miss, direct
+    light (with the optional shadow query), reflection and refraction
+    spawn, refraction parking, and terminated-head pops. Writes the stacks
+    of ``s`` in place; returns the advanced state dict."""
+    rays, alive, weight, depth = s["rays"], s["alive"], s["weight"], s["depth"]
+    R = rays.o.shape[0]
+    lanes = torch.arange(R, device=rays.o.device)
+    traced = s["traced"] + alive.sum()
+    dropped = s["dropped"]
+
+    miss = alive & (hits.tri == INVALID_TRIANGLE)
+    radiance = s["radiance"] + torch.where(miss[:, None],
+                                           weight * hits.miss_rgb, 0.0)
+
+    # Hits at depth == max_depth terminate without contribution.
+    active = alive & (hits.tri >= 0) & (depth < max_depth)
+    direct, new_w, refl, refl_ok, refr, refr_ok = whitted_shade(
+        surf, rays, weight)
+    if primary_only:
+        # Primary + shadow rays only: no reflection or refraction trees.
+        refl_ok = torch.zeros_like(refl_ok)
+        refr_ok = torch.zeros_like(refr_ok)
+    refl_ok = refl_ok & active
+    refr_ok = refr_ok & active
+    if shadows:
+        # An occluded hit gets no direct light.
+        occluded, uncounted = _occlusion_query(scene, shadow_rays(surf),
+                                               active, bk, tile, opts)
+        traced = traced + active.sum()
+        direct = torch.where(occluded[:, None], 0.0, direct)
+        dropped = dropped + uncounted
+    radiance = radiance + torch.where(active[:, None], direct, 0.0)
+
+    # Reflection continues; a lone refraction continues; both => park the
+    # refraction.
+    next_rays = merge_rays(refl_ok, refl, refr)
+    has_next = refl_ok | refr_ok
+    park = refl_ok & refr_ok
+
+    stk, stk_w, sp = s["stk"], s["stk_w"], s["sp"]
+    top = stk.shape[0] - 1     # the stacks may hold fewer levels than S
+    can_park = park & (sp < stack_size)
+    dropped = dropped + (park & ~can_park).sum()
+    level = torch.clamp_max(sp, top).long()
+    entry = torch.cat([refr.o, refr.d, (depth + 1).to(torch.float32)[:, None]],
+                      dim=1)                                      # (R, 7)
+    stk[level, :, lanes] = torch.where(can_park[:, None], entry,
+                                       stk[level, :, lanes])
+    stk_w[level, :, lanes] = torch.where(can_park[:, None], new_w,
+                                         stk_w[level, :, lanes])
+    sp = sp + can_park.to(torch.int32)
+
+    # Termination => resume the top parked ray, else the lane dies.
+    terminated = alive & ~has_next
+    pop = terminated & (sp > 0)
+    sp = sp - pop.to(torch.int32)
+    level = torch.clamp_max(sp, top).long()
+    pe = stk[level, :, lanes]                                     # (R, 7)
+    pw = stk_w[level, :, lanes]                                   # (R, 3)
+    popped = _secondary(pe[:, 0:3], pe[:, 3:6])
+
+    alive_next = (active & has_next) | pop
+    out_rays = merge_rays(pop, popped, merge_rays(has_next, next_rays, rays))
+    out_w = torch.where(pop[:, None], pw,
+                        torch.where(active[:, None], new_w, weight))
+    out_depth = torch.where(pop, pe[:, 6].to(torch.int32),
+                            depth + active.to(torch.int32))
+    return dict(s, rays=out_rays, weight=out_w, depth=out_depth,
+                alive=alive_next, sp=sp, stk=stk, stk_w=stk_w,
+                radiance=radiance, traced=traced, dropped=dropped)
+
+
+def _trace_step(scene, env, st, bk, tile, max_depth, stack_size, shadows,
+                primary_only, opts):
+    """One trace on engine ``bk`` and the step after it."""
+    hits, surf, ov = _trace_and_surface(scene, st["rays"], st["alive"], bk,
+                                        tile, opts, env)
+    st = dict(st, dropped=st["dropped"] + ov)
+    return _whitted_step(scene, st, hits, surf, bk, tile, max_depth,
+                         stack_size, shadows, primary_only, opts)
+
+
+def whitted_trace_wave(scene: ClusterScene, env: Environment, cam_arrays,
+                       x: torch.Tensor, y: torch.Tensor, alive0: torch.Tensor,
+                       key, max_depth: int, stack_size: int = 9,
+                       backend: str = "pallas", tile: int = 512,
+                       shadows: bool = False,
+                       bounce_backend: str | None = None,
+                       primary_only: bool = False,
+                       opts: EngineOpts = EngineOpts()):
+    """Trace one wave of pixels through their full Whitted ray trees: the
+    primary trace on ``backend``, then bounces on ``bounce_backend`` while
+    any lane is alive. The lanes keep their places (no between-bounce
+    regroup: the JAX function's ``regroup=False`` path, which is also the
+    path it takes with ``primary_only``).
+
+    Returns (radiance (R, 3), traced, dropped)."""
+    if bounce_backend is None:
+        bounce_backend = backend
+    rays = generate_pixel_rays(cam_arrays, x, y, key=key)
+    st = _initial_state(rays, alive0, stack_size)
+    bk = backend
+    while bool(st["alive"].any()):
+        st = _trace_step(scene, env, st, bk, tile, max_depth, stack_size,
+                         shadows, primary_only, opts)
+        bk = bounce_backend
+    return st["radiance"], st["traced"], st["dropped"]
+
+
+def _stage_widths(N: int, stage_ratio: int, min_stage_width: int):
+    """Width ladder of the pooled bounce loop: divide by ``stage_ratio``
+    (rounded up to a multiple of 1024) while the result stays at or above
+    ``min_stage_width``."""
+    widths = [N]
+    while widths[-1] // stage_ratio >= min_stage_width:
+        widths.append(-(-widths[-1] // stage_ratio // 1024) * 1024)
+    return widths
+
+
+def whitted_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
+                        xs: torch.Tensor, ys: torch.Tensor,
+                        alives: torch.Tensor, key, max_depth: int,
+                        stack_size: int = 9, backend: str = "pallas",
+                        tile: int = 512, shadows: bool = False,
+                        bounce_backend: str = "sparse",
+                        min_stage_width: int = 8192,
+                        opts: EngineOpts = EngineOpts(),
+                        stage_ratio: int = 2, hot_levels: int = 3,
+                        info: dict | None = None):
+    """Trace a whole frame of ray trees with one pooled bounce loop.
+
+    1. Stage 1 traces and first-shades the primaries wave by wave on
+       ``backend``, with the jitter drawn from ``fold_in(key, w)``.
+    2. Stage 2 pools every lane, its parked stack included, in frame
+       order and runs one bounce loop on ``bounce_backend``. When the live
+       count fits the next width of the ladder (ratio ``stage_ratio``,
+       floor ``min_stage_width``), live lanes move to the head (a stable
+       sort), and the lanes left behind emit (lane, radiance) rows as a
+       piece at full width, with rows that must not contribute marked
+       invalid. Stack levels below ``hot_levels`` always move; the deep
+       levels move only when some lane has parked that deep.
+    3. The pieces are reassembled by lane id.
+
+    Returns (radiance (W, R, 3) in lane order, traced, dropped). With
+    ``info``, the numbers of bounce-loop iterations, shrinks and shrinks
+    that moved the deep stack levels are written to it."""
+    W, R = xs.shape
+    N = W * R
+    assert N < (1 << 24), f"frame pool {N} >= 2^24 lanes"
+    S = stack_size
+    device = xs.device
+    f32 = dict(dtype=torch.float32, device=device)
+
+    # ---- stage 1: primary trace + first shade/park, wave by wave ----
+    # One step from sp = 0 pushes at most once and pops nothing, so only
+    # stack level 0 can be occupied: the waves carry a one-level stack
+    # (the same parks: 0 < stack_size) and the pool adds the rest.
+    live_waves = alives.any(dim=1).tolist()
+    waves = []
+    for w in range(W):
+        rays = generate_pixel_rays(cam_arrays, xs[w], ys[w],
+                                   key=rng.fold_in(key, w))
+        st = _initial_state(rays, alives[w], 1)
+        if live_waves[w]:
+            st = _trace_step(scene, env, st, backend, tile, max_depth, S,
+                             shadows, False, opts)
+        waves.append(st)
+
+    def pooled(name):
+        return torch.cat([wst[name] for wst in waves])
+
+    stk = torch.zeros((S, 7, N), **f32)
+    stk_w = torch.zeros((S, 3, N), **f32)
+    stk[0] = torch.cat([wst["stk"][0] for wst in waves], dim=1)
+    stk_w[0] = torch.cat([wst["stk_w"][0] for wst in waves], dim=1)
+    st = dict(
+        rays=_secondary(torch.cat([wst["rays"].o for wst in waves]),
+                        torch.cat([wst["rays"].d for wst in waves])),
+        weight=pooled("weight"), depth=pooled("depth"),
+        alive=pooled("alive"), sp=pooled("sp"), stk=stk, stk_w=stk_w,
+        radiance=pooled("radiance"),
+        lane=torch.arange(N, dtype=torch.int32, device=device),
+        traced=sum(wst["traced"] for wst in waves),
+        dropped=sum(wst["dropped"] for wst in waves))
+    del waves
+
+    # ---- stage 2: one bounce loop over the pooled trees ----
+    stage_widths = _stage_widths(N, stage_ratio, min_stage_width)
+    H = min(hot_levels, S)
+    n_fresh = N
+    pieces = []
+    iterations = deep_hauls = 0
+    for nxt in [*stage_widths[1:], None]:
+        while True:
+            n_live = int(st["alive"].sum())
+            if n_live == 0 or (nxt is not None and n_live <= nxt):
+                break
+            st = _trace_step(scene, env, st, bounce_backend, tile, max_depth,
+                             S, shadows, False, opts)
+            iterations += 1
+        if nxt is None:
+            break
+        # Live lanes keep their radiance in the head (partial sums never
+        # split between pieces).
+        perm, piece = _shrink(st["alive"], st["lane"], n_fresh, nxt,
+                              (st["radiance"],))
+        pieces.append(piece)
+        # Occupied levels are 0..sp-1: the deep tier moves only when some
+        # lane has parked past the hot levels.
+        L = S if H < S and bool((st["sp"] > H).any()) else H
+        deep_hauls += L > H
+        stk = torch.zeros((S, 7, nxt), **f32)
+        stk_w = torch.zeros((S, 3, nxt), **f32)
+        stk[:L] = st["stk"][:L, :, perm]
+        stk_w[:L] = st["stk_w"][:L, :, perm]
+        r = st["rays"]
+        st = dict(
+            rays=_secondary(r.o[perm], r.d[perm]), weight=st["weight"][perm],
+            radiance=st["radiance"][perm], depth=st["depth"][perm],
+            sp=st["sp"][perm],
+            alive=torch.arange(nxt, device=device) < n_live,
+            stk=stk, stk_w=stk_w, lane=st["lane"][perm],
+            traced=st["traced"], dropped=st["dropped"])
+        n_fresh = n_live
+    pieces.append(_final_piece(st["lane"], n_fresh, len(stage_widths) > 1,
+                               (st["radiance"],)))
+    if info is not None:
+        info.update(iterations=iterations, shrinks=len(stage_widths) - 1,
+                    deep_hauls=deep_hauls)
+
+    # ---- stage 3: reassembly by lane id ----
+    allp = torch.cat(pieces)
+    rad = _by_lane(allp[:, 0], allp[:, 1:4], N)
+    return rad.reshape(W, R, 3), st["traced"], st["dropped"]
+
+
+class WhittedRenderer(TiledRenderer):
+    """Whitted ray tracer over a compiled cluster scene: dense primaries
+    (and their shadow rays on K4), bounces on the sparse pair engine under
+    ``hybrid_tracing``. ``primary_only`` traces primaries and shadows wave
+    by wave (``whitted_trace_wave``); otherwise the frame runs on the
+    pooled tree loop (``whitted_trace_frame``)."""
+
+    def __init__(self, context: Context, camera: Camera, scene_data: SceneData,
+                 cluster_scene: ClusterScene | None = None,
+                 environment: Environment | None = None,
+                 shadows: bool = False, primary_only: bool = False):
+        super().__init__(context, scene_data.viewport_width,
+                         scene_data.viewport_height)
+        cfg = context.configuration
+        self.camera = camera
+        self.scene_data = scene_data
+        self.shadows = shadows
+        self.primary_only = primary_only
+        self.backend = cfg.backend
+        self.scene = (cluster_scene if cluster_scene is not None
+                      else compile_clusters(scene_data, device=self.device))
+        self.bounce_backend = "sparse" if cfg.hybrid_tracing else self.backend
+        if environment is None:
+            env_px = scene_data.env_pixels
+            assert env_px is not None, "scene has no environment probe"
+            environment = create_environment(env_px, env_px.shape[1],
+                                             env_px.shape[0],
+                                             device=self.device)
+        self.environment = environment
+        # main.cpp:346 forces maxDepth=8 for the Whitted demo.
+        self.max_depth = int(scene_data.max_depth)
+        self.stack_size = max(cfg.max_shading_depth, self.max_depth + 1)
+        self.opts = cfg.engine_opts()
+        self.tile = min(cfg.trace_block, self.wave_size)
+        self.min_stage_width = cfg.min_stage_width
+        self.stage_ratio = cfg.whitted_stage_ratio
+        self.hot_levels = cfg.whitted_hot_levels
+        self.last_info: dict = {}
+
+    def _render(self, key):
+        cam = self.camera.as_arrays(self.device)
+        kw = dict(stack_size=self.stack_size, backend=self.backend,
+                  tile=self.tile, shadows=self.shadows,
+                  bounce_backend=self.bounce_backend, opts=self.opts)
+        if not self.primary_only:
+            return whitted_trace_frame(
+                self.scene, self.environment, cam, self._wave_x,
+                self._wave_y, self._wave_alive, key, self.max_depth,
+                min_stage_width=self.min_stage_width,
+                stage_ratio=self.stage_ratio, hot_levels=self.hot_levels,
+                info=self.last_info, **kw)
+        # Primary + shadow rays die after the first shade: the per-wave
+        # body, one key fold_in(key, w) per wave.
+        rads, traced, dropped = [], 0, 0
+        for w in range(self.n_waves):
+            rad, n, d = whitted_trace_wave(
+                self.scene, self.environment, cam, self._wave_x[w],
+                self._wave_y[w], self._wave_alive[w], rng.fold_in(key, w),
+                self.max_depth, primary_only=True, **kw)
+            rads.append(rad)
+            traced = traced + n
+            dropped = dropped + d
+        return torch.stack(rads), traced, dropped

@@ -92,6 +92,48 @@ def test_pair_kernel_matches_plain(cuda, scenes):
     _same_hits(got.hits, want.hits)
 
 
+def _shadow_rays(cs, n, seed, device):
+    """Rays over [1e-3, 20] with every fourth lane inactive."""
+    r = _rays(cs, n, seed, device)
+    r = r._replace(tmin=torch.full_like(r.tmin, 1e-3),
+                   tmax=torch.full_like(r.tmax, 20.0))
+    return r, torch.arange(n, device=device) % 4 != 3
+
+
+def test_occlusion_kernel_matches_plain(cuda, scenes):
+    """K4 through trace_occlusion_dense: one launch, the same overflow, and
+    the same flags on >= 99.95% of rays (K4 and the plain version's matrix
+    product may round the dot products differently at a triangle edge)."""
+    cpu_cs, gpu_cs = scenes
+    launches = dense.dense_occluded.launches
+    r, active = _shadow_rays(cpu_cs, 8192, 3, cuda)
+    got, ov = dense.trace_occlusion_dense(gpu_cs, r, active=active,
+                                          tile=1024)
+    r_c, active_c = _shadow_rays(cpu_cs, 8192, 3, "cpu")
+    want, ov_p = dense.trace_occlusion_dense(cpu_cs, r_c, active=active_c,
+                                             tile=1024)
+    assert dense.dense_occluded.launches == launches + 1
+    assert int(ov) == int(ov_p)
+    assert (got.cpu() == want).float().mean() >= 0.9995
+    assert want.any() and not got[~active].any()
+
+
+def test_sparse_occlusion_on_card_matches_cpu(cuda, scenes):
+    """trace_occlusion_sparse on the card (K2, and K3 with its tmax guard)
+    against the same query on the CPU."""
+    cpu_cs, gpu_cs = scenes
+    launches = sparse.pair_hit.launches
+    r, active = _shadow_rays(cpu_cs, 8192, 4, cuda)
+    got, under = sparse.trace_occlusion_sparse(gpu_cs, r, active=active)
+    r_c, active_c = _shadow_rays(cpu_cs, 8192, 4, "cpu")
+    want, under_p = sparse.trace_occlusion_sparse(cpu_cs, r_c,
+                                                  active=active_c)
+    assert sparse.pair_hit.launches > launches
+    assert abs(int(under) - int(under_p)) <= 4
+    assert (got.cpu() == want).float().mean() >= 0.9995
+    assert want.any()
+
+
 def test_launch_validates_arguments(cuda, scenes):
     """A CUDA launch checks its arguments and raises; it never falls back
     to the plain version."""

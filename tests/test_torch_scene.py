@@ -103,7 +103,8 @@ def test_import_loads_no_jax():
 @pytest.mark.parametrize("kw", [dict(backend="mxu"),
                                 dict(sampler="stratified"),
                                 dict(regroup=False),
-                                dict(mesh_shape=(1,))])
+                                dict(mesh_shape=(1,)),
+                                dict(whitted_bounce_scan=1024)])
 def test_unported_configuration_raises(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Configuration(**kw)
