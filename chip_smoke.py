@@ -21,7 +21,16 @@ is missing. Phases, one JSON line each:
    the oracle bar of ``tools/oracle_lib.py:run_oracle`` (hit agreement and
    t within 1e-3 relative on >= 99.95%); K4 on the shadow rays of K1's
    wave (built from its hits as the Whitted step builds them), whose
-   occluded flags must agree on >= 99.95% of rays;
+   occluded flags must agree on >= 99.95% of rays. Each kernel line
+   carries its bound: ``flop`` (the fp32 operations these inputs need),
+   ``bytes`` (each input read once, each output written once),
+   ``bound_ms`` (the larger of the two over the H100's published peaks),
+   ``bound_by``, ``share_of_bound`` (bound_ms / ms) and ``library_ms``
+   (null: no single PyTorch call computes any of the four). K1 and K4 add
+   ``ctas``, ``pairs_needed`` (the least (ray, cluster) pairs any walk of
+   these inputs tests) and ``pairs_walked`` (what the kernel's warps
+   tested, from its counter), and K1 ``words_differing`` from its plain
+   version;
 4. slice: ``PathTracingRenderer`` at 1280x720, depth 2, the default
    configuration: one warm-up frame and three timed frames, with every
    kernel's launch count over the timed frames (each must be > 0),
@@ -42,8 +51,16 @@ is missing. Phases, one JSON line each:
    its tmax-guarded any-hit form, must launch.
 
 Each slice sets every launch count to 0 just before its timed frames and
-reads them just after. Then the kernel table as one JSON line, and last
-``{"ok": true, "device": {...}}``. A failing phase raises.
+reads them just after. After them, each slice renders two more frames:
+one under ``torch.profiler`` (the ``profile`` line: device ms of each
+kernel and of all kernels, and the device's idle share), and one in which
+every kernel launch keeps a copy of its inputs; each launch is then timed
+again alone at its own width and its bound taken from its own inputs (the
+``launches`` line: per kernel, ms, bound ms and share summed over the
+frame's launches, and the gap, ms - bound ms). Then the kernel table as
+one JSON line (each row with its launches, ms, bound ms and gap per frame
+of each slice from those lines), and last ``{"ok": true, "device":
+{...}}``. A failing phase raises.
 """
 
 import json
@@ -57,9 +74,129 @@ import time
 # shadows through the plain versions.
 WHITTED_GATE_VIEWPORT = (320, 180)
 
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): fp32
+# outside the tensor cores, and HBM3.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# fp32 operations a kernel needs: 40 FMAs (80 FLOP) for the four bilinear
+# dot products of one (ray, triangle) pair (K1, K3, K4), and ~24 for K2's
+# slab test of one (lane, box).
+FLOP_PER_TRIANGLE = 80
+FLOP_PER_SLAB = 24
+NO_LIBRARY = "none: no single PyTorch call computes it"
+# Each kernel's name in a profiler trace.
+KERNEL_SYMBOLS = {"dense_closest_hit": "dense_hit_kernel",
+                  "dense_occluded": "dense_occl_kernel",
+                  "select_nearest": "select_kernel",
+                  "pair_hit": "pair_hit_kernel"}
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def roofline(flop, moved, ms):
+    """The least time the card could take for ``flop`` fp32 operations and
+    ``moved`` bytes (each input read once, each output written once),
+    which of the two binds, and the kernel's share of that bound. No
+    single PyTorch call computes any of the four kernels, so there is no
+    library time."""
+    ops_ms = flop / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    return dict(flop=flop, bytes=moved, ops_ms=ops_ms, bytes_ms=bytes_ms,
+                bound_ms=bound_ms,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                share_of_bound=bound_ms / ms, library_ms=None,
+                library=NO_LIBRARY)
+
+
+def queued(q_cluster, q_count):
+    """(T, cap) bool: the distinct clusters of each tile's queue row (the
+    padding that repeats the farthest cluster is no work)."""
+    import torch
+    pos = torch.arange(q_cluster.shape[1], device=q_cluster.device)
+    new = torch.ones_like(q_cluster, dtype=torch.bool)
+    new[:, 1:] = q_cluster[:, 1:] != q_cluster[:, :-1]
+    return new & (pos[None, :] < q_count[:, None])
+
+
+def cluster_bytes(G3, clusters):
+    """Bytes of the G3 rows of the distinct clusters named."""
+    return clusters.unique().numel() * G3.shape[1] * G3.shape[2] * 4
+
+
+def k1_pairs_needed(F, q_cluster, q_entry, q_count, best, tile):
+    """(active ray, queued cluster) pairs whose entry is at most the ray's
+    final packed best: the least any walk of these inputs tests."""
+    T = q_cluster.shape[0]
+    active = (F[:, 11] >= 0).view(T, tile, 1)
+    near = q_entry[:, None, :] <= best.view(T, tile, 1)
+    return int((queued(q_cluster, q_count)[:, None, :] & near
+                & active).sum())
+
+
+def k4_pairs_needed(dense, F, G3, q_cluster, q_entry, q_count, tile):
+    """(active ray, queued cluster) pairs in queue order up to and
+    including the ray's first blocker, among the clusters whose entry is
+    within its tmax."""
+    import torch
+    T = q_cluster.shape[0]
+    Fm = F.view(T, tile, 16)
+    tmin, tmax = Fm[:, :, 10:11], Fm[:, :, 11:12]
+    t_bits = Fm[:, :, 11].contiguous().view(torch.int32)
+    valid = queued(q_cluster, q_count)
+    done = t_bits < 0                       # inactive rays need nothing
+    needed = 0
+    for j in range(int(q_count.max())):
+        need = ~done & valid[:, j:j + 1] & (q_entry[:, j:j + 1] <= t_bits)
+        needed += int(need.sum())
+        inside, ad, ts = dense._candidates(Fm[:, :, :10], G3, q_cluster[:, j])
+        done |= need & (inside & (ts > ad * tmin)
+                        & (ts <= ad * tmax)).any(dim=2)
+    return needed
+
+
+def walked_pairs(fn, args):
+    """The (ray, cluster) pairs a dense kernel's warps tested, from its
+    ``walked`` counter."""
+    import torch
+    count = torch.zeros(1, dtype=torch.int64, device=args[0].device)
+    fn(*args, walked=count)
+    return int(count)
+
+
+def kernel_work(dense, name, args, out, n_c):
+    """(fp32 operations, bytes) that one launch of a kernel needs on its
+    own inputs ``args`` and output ``out``: K1 and K4 their pairs needed,
+    K2 its live lanes (tmax > 0) against the n_c real boxes (the padding
+    boxes are no work), K3 the pairs its items cover."""
+    if name in ("dense_closest_hit", "dense_occluded"):
+        F, G3, qc, qe, qn, tile = args[:6]
+        pairs = (k1_pairs_needed(F, qc, qe, qn, out[0], tile)
+                 if name == "dense_closest_hit" else
+                 k4_pairs_needed(dense, F, G3, qc, qe, qn, tile))
+        return (pairs * (G3.shape[1] // 4) * FLOP_PER_TRIANGLE,
+                nbytes(F, qc, qe, qn, out)
+                + cluster_bytes(G3, qc[queued(qc, qn)]))
+    if name == "select_nearest":
+        F8, prev, live, bb = args[:4]
+        return (int((F8[:, 7] > 0).sum()) * n_c * FLOP_PER_SLAB,
+                nbytes(F8, prev, live, bb, out))
+    Fp, G3, items = args[:3]
+    pairs = int((items[:, 1] - items[:, 0]).sum())
+    return (pairs * (G3.shape[1] // 4) * FLOP_PER_TRIANGLE,
+            nbytes(Fp, items, out) + cluster_bytes(G3, items[:, 2]))
+
+
+def kernel_row(s):
+    """A kernel phase's times and bound, as the kernel table carries them."""
+    return {k: s[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "share_of_bound", "library_ms", "library")}
 
 
 def cuda_ms(fn, reps):
@@ -193,18 +330,26 @@ def main() -> int:
     hk, tk = winner_t(out_k[1])
     hp, tp = winner_t(out_p[1])
     s1 = hit_stats(hk, hp, out_k[1], out_p[1], tk, tp)
+    # The pairs needed are counted from the plain version's bests.
+    flop, moved = kernel_work(dense, "dense_closest_hit", args, out_p,
+                              cs.n_clusters)
     s1.update(queue_overflow=int(q[3]), queue_max=int(q[2].max()),
+              words_differing=int((out_k != out_p).sum()),
+              ctas=R // dense.CTA_RAYS,
+              pairs_needed=flop // (cs.cluster_size * FLOP_PER_TRIANGLE),
+              pairs_walked=walked_pairs(dense.dense_closest_hit, args),
               ms=cuda_ms(lambda: dense.dense_closest_hit(*args), 20),
               plain_ms=cuda_ms(lambda: dense.dense_closest_hit_plain(*args),
                                3))
+    s1.update(roofline(flop, moved, s1["ms"]))
     emit(dict(phase="kernel", name="K1 dense_closest_hit", rays=R,
               tiles=T, **s1))
     require_oracle_bar("K1", s1)
     kernels.append(dict(name="dense_closest_hit", route="cuda",
                         source="rayaccel_tpu_torch/csrc/dense_hit.cu",
                         replaces="rayaccel_tpu/ops/trace_pallas.py:77",
-                        max_abs_err=s1["max_abs_t"], ms=s1["ms"],
-                        plain_ms=s1["plain_ms"]))
+                        max_abs_err=s1["max_abs_t"],
+                        **kernel_row(s1)))
 
     # The 983,040-lane bounce pool: stage 1 of a frame.
     state, _ = pathtracer._stage1(cs, cam_arrays, renderer._wave_x,
@@ -235,17 +380,22 @@ def main() -> int:
         max_diff = int((sel_k.long() - sel_p.long()).abs().max())
         ms = cuda_ms(lambda: sparse.select_nearest(*a), 10)
         plain_ms = cuda_ms(lambda: sparse.select_nearest_plain(*a), 2)
-        emit(dict(phase="kernel", name="K2 select_nearest", k=k, lanes=N,
-                  live_lanes=int(state["alive"].sum()), bitwise_equal=equal,
+        s2 = dict(k=k, lanes=N, live_lanes=int(state["alive"].sum()),
+                  boxes=cs.n_clusters, padded_boxes=n_cp,
+                  bitwise_equal=equal,
                   words_differing=int((sel_k != sel_p).sum()),
                   pairs=int((sel_k[:k] < 0x7F800000).sum()),
-                  ms=ms, plain_ms=plain_ms))
+                  ms=ms, plain_ms=plain_ms)
+        # The slab tests the live lanes need, against every real box.
+        s2.update(roofline(*kernel_work(dense, "select_nearest", a, sel_k,
+                                        cs.n_clusters), ms))
+        emit(dict(phase="kernel", name="K2 select_nearest", **s2))
         if not equal:
             raise AssertionError(f"K2 (k={k}) differs from its plain version")
         if spill4 is None:
             spill4 = sel_k[k].contiguous()
             lat = sel_k[:k]
-            k2.update(ms=ms, plain_ms=plain_ms, max_abs_err=max_diff)
+            k2.update(max_abs_err=max_diff, **kernel_row(s2))
     kernels.append(dict(name="select_nearest", route="cuda",
                         source="rayaccel_tpu_torch/csrc/select_nearest.cu",
                         replaces="rayaccel_tpu/ops/trace_sparse.py:209",
@@ -285,13 +435,14 @@ def main() -> int:
               items=int(items.shape[0]),
               ms=cuda_ms(lambda: sparse.pair_hit(*a3), 10),
               plain_ms=cuda_ms(lambda: sparse.pair_hit_plain(*a3), 2))
+    s3.update(roofline(*kernel_work(dense, "pair_hit", a3, pk,
+                                    cs.n_clusters), s3["ms"]))
     emit(dict(phase="kernel", name="K3 pair_hit", **s3))
     require_oracle_bar("K3", s3)
     kernels.append(dict(name="pair_hit", route="cuda",
                         source="rayaccel_tpu_torch/csrc/pair_hit.cu",
                         replaces="rayaccel_tpu/ops/trace_sparse.py:77",
-                        max_abs_err=s3["max_abs_t"], ms=s3["ms"],
-                        plain_ms=s3["plain_ms"]))
+                        max_abs_err=s3["max_abs_t"], **kernel_row(s3)))
     del state, pool, F8, Fp, items, sel_k, sel_p, pk, pp
 
     # K4: the shadow rays of K1's wave, built from its hits as the Whitted
@@ -309,14 +460,20 @@ def main() -> int:
     occ_k = dense.dense_occluded(*a4)
     occ_p = dense.dense_occluded_plain(*a4)
     torch.cuda.synchronize()
+    flop, moved = kernel_work(dense, "dense_occluded", a4, occ_k,
+                              cs.n_clusters)
     s4 = dict(shadow_rays=int(s_active.sum()), occluded=int(occ_k.sum()),
               occluded_plain=int(occ_p.sum()),
               flag_agree=float((occ_k == occ_p).float().mean()),
               flags_differing=int((occ_k != occ_p).sum()),
               queue_max=int(q4n.max()), queue_mean=float(q4n.float().mean()),
               queue_overflow=int(ov4),
+              ctas=R // dense.CTA_RAYS,
+              pairs_needed=flop // (cs.cluster_size * FLOP_PER_TRIANGLE),
+              pairs_walked=walked_pairs(dense.dense_occluded, a4),
               ms=cuda_ms(lambda: dense.dense_occluded(*a4), 20),
               plain_ms=cuda_ms(lambda: dense.dense_occluded_plain(*a4), 3))
+    s4.update(roofline(flop, moved, s4["ms"]))
     emit(dict(phase="kernel", name="K4 dense_occluded", rays=R, tiles=T,
               **s4))
     if s4["flag_agree"] < 0.9995:
@@ -325,7 +482,8 @@ def main() -> int:
                         source="rayaccel_tpu_torch/csrc/dense_occl.cu",
                         replaces="rayaccel_tpu/ops/trace_pallas.py:265",
                         max_abs_err=float(s4["flags_differing"] > 0),
-                        ms=s4["ms"], plain_ms=s4["plain_ms"]))
+                        **kernel_row(s4)))
+
     del surf, F4, a4, occ_k, occ_p
 
     wrappers = (dense.dense_closest_hit, dense.dense_occluded,
@@ -382,7 +540,82 @@ def main() -> int:
         require_launches(name, launches, needed)
         if not (line["image_finite"] and line["image_max"] > 0):
             raise AssertionError(f"{name} image is not finite or is black")
-        slices[name] = launches
+        slices[name] = (launches, len(keys),
+                        profile_frame(name, renderer, line["frame_ms"]),
+                        launch_frame(name, renderer))
+
+    def profile_frame(name, renderer, frame_ms):
+        """One more frame under torch.profiler: the device ms of each of
+        the four kernels and of all kernels, and the device's idle share
+        of an unprofiled frame (``frame_ms``). Emits the line and returns
+        the four kernels' ms."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            renderer.render_frame(rng.PRNGKey(200))
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernel_ms = {k: sum(e.device_time_total for e in device
+                            if symbol in e.key) / 1e3
+                     for k, symbol in KERNEL_SYMBOLS.items()}
+        all_ms = sum(e.device_time_total for e in device) / 1e3
+        emit(dict(phase="profile", name=name, kernel_ms=kernel_ms,
+                  all_kernels_ms=all_ms,
+                  device_idle_share=1 - all_ms / frame_ms))
+        return kernel_ms
+
+    def launch_frame(name, renderer):
+        """One more frame in which each kernel launch keeps a copy of its
+        inputs and its output; then each launch is timed again alone
+        (``cuda_ms``, as the kernel phases time theirs) and its bound taken
+        from its own inputs, at the width the frame gave it. Emits, per
+        kernel, the launches, widths, ms, bound ms, share and gap summed
+        over the frame, and returns them."""
+        calls = []
+
+        def keeper(fn):
+            # A wrapper counts its launches on its module's name, which is
+            # the keeper's while the frame runs.
+            def keep(*a, **kw):
+                a = tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+                before = keep.launches
+                out = fn(*a, **kw)
+                if keep.launches > before:         # K3 skips an empty pass
+                    calls.append((fn, a, kw, out))
+                return out
+            keep.launches = keep.guard_launches = 0
+            return keep
+
+        originals = {}
+        for mod, fn in ((dense, dense.dense_closest_hit),
+                        (dense, dense.dense_occluded),
+                        (sparse, sparse.select_nearest),
+                        (sparse, sparse.pair_hit)):
+            originals[fn.__name__] = (mod, fn)
+            setattr(mod, fn.__name__, keeper(fn))
+        try:
+            renderer.render_frame(rng.PRNGKey(300))
+            torch.cuda.synchronize()
+        finally:
+            for fname, (mod, fn) in originals.items():
+                setattr(mod, fname, fn)
+        per = {k: dict(launches=0, widths=[], ms=0.0, bound_ms=0.0)
+               for k in KERNEL_SYMBOLS}
+        for fn, a, kw, out in calls:
+            flop, moved = kernel_work(dense, fn.__name__, a, out,
+                                      cs.n_clusters)
+            row = per[fn.__name__]
+            row["launches"] += 1
+            row["widths"].append(int(a[0].shape[0]))
+            row["ms"] += cuda_ms(lambda: fn(*a, **kw), 5)
+            row["bound_ms"] += roofline(flop, moved, 1.0)["bound_ms"]
+        for row in per.values():
+            row["share_of_bound"] = (row["bound_ms"] / row["ms"]
+                                     if row["ms"] else None)
+            row["gap_ms"] = row["ms"] - row["bound_ms"]
+        emit(dict(phase="launches", name=name, kernels=per))
+        del calls
+        return per
 
     def card_vs_cpu(name, make, keys, **fields):
         """Render ``keys`` with ``make(device)``'s renderer on the card and
@@ -473,11 +706,23 @@ def main() -> int:
                      ["dense_closest_hit", "dense_occluded", "select_nearest",
                       "pair_hit", "pair_hit_guard_tmax"])
 
-    # Launches of each kernel over the timed frames of the three slices.
+    # Launches of each kernel over the timed frames of the three slices and
+    # per frame; its device ms in each slice's profiled frame; and, from
+    # each slice's launch frame, its launches timed alone at their own
+    # widths, their bound and the gap between the two.
     for k in kernels:
-        k["launches_by_slice"] = {name: c[k["name"]]
-                                  for name, c in slices.items()}
+        n = k["name"]
+        k["launches_by_slice"] = {name: c[n] for name, (c, *_) in
+                                  slices.items()}
         k["launches"] = sum(k["launches_by_slice"].values())
+        k["launches_per_frame"] = {name: c[n] / frames for name, (c, frames,
+                                                               *_) in
+                                   slices.items()}
+        k["kernel_ms_per_frame"] = {name: ms[n] for name, (_, _, ms, _) in
+                                    slices.items()}
+        for key in ("ms", "bound_ms", "gap_ms", "share_of_bound"):
+            k[f"frame_{key}"] = {name: per[n][key] for name, (*_, per) in
+                                 slices.items()}
     emit(dict(kernels=kernels))
     emit(dict(ok=True, device=dict(platform="gpu", kind=kind,
                                    count=torch.cuda.device_count())))

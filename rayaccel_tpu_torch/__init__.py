@@ -12,12 +12,14 @@ bounces. The four TPU kernels on those paths (closest hit and any hit on
 the dense queue, the nearest-k select and the pair kernel) are
 hand-written CUDA kernels (``csrc/``), built by nvcc at first use on a
 CUDA tensor; on CPU tensors each wrapper runs its plain PyTorch version
-instead::
+instead. ``create_context`` runs on the current CUDA device unless it is
+given ``device="cpu"``; it raises when no CUDA device is visible and no
+device is named::
 
     import rayaccel_tpu_torch as racc
     from rayaccel_tpu_torch import rng
     from rayaccel_tpu_torch.scene.loader import make_battlefield_like
-    ctx = racc.create_context(racc.default_configuration(), device="cuda")
+    ctx = racc.create_context(racc.default_configuration())   # on the card
     sd = make_battlefield_like(max_depth=2)
     cam = racc.Camera.look_at(sd.cam_origin, sd.cam_dir, sd.cam_up,
                               sd.cam_fov, sd.viewport_width,

@@ -28,7 +28,7 @@ class Configuration:
     backend: str = "pallas"                 # "pallas" | "mxu" | "xla" | "sparse"
     hybrid_tracing: bool = True
     max_rays_in_flight: int = 128 * 128 * 16
-    trace_block: int = 1024
+    trace_block: int = 1024                 # on a card, a multiple of 64
     wave_size: int = 128 * 128 * 4
     traversal_stack_depth: int = 48
     sampler: str = "uniform"

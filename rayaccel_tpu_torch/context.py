@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from rayaccel_tpu_torch.config import Configuration, default_configuration
+from rayaccel_tpu_torch.ops.trace_dense import check_tile
 
 
 def init() -> None:
@@ -30,10 +31,22 @@ class Context:
 
 def create_context(configuration: Optional[Configuration] = None,
                    device=None) -> Context:
-    """Build a context on ``device`` (default: the current CUDA device when
-    one is visible, else the CPU). Calls :func:`init`."""
+    """Build a context on ``device`` (default: the current CUDA device).
+    The port never picks the CPU by itself: with no CUDA device visible and
+    no ``device`` given this raises; pass ``device="cpu"`` to run the plain
+    versions on the host. On a CUDA device the renderers' queue tile,
+    ``min(trace_block, wave_size, max_rays_in_flight)``, must be a multiple
+    of the dense kernels' CTA (``ops/trace_dense.py:check_tile``); this
+    raises ``ValueError`` otherwise. Calls :func:`init`."""
     init()
     cfg = configuration or default_configuration()
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    return Context(configuration=cfg, device=torch.device(device))
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is visible: pass "
+                               "device=\"cpu\" to run on the host")
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda":
+        check_tile(min(cfg.trace_block, cfg.wave_size,
+                       cfg.max_rays_in_flight))
+    return Context(configuration=cfg, device=device)

@@ -11,17 +11,21 @@
 // exact up to the fp32 dot products. Inactive lanes carry tmax = -1, which
 // no candidate satisfies.
 //
-// What bounds it on the H100: fp32 FMA issue, as in K1 (40 FMAs and a few
-// compares per (ray, triangle)), but less of it: a lane stops testing at
-// its first blocker, and the tile stops walking its queue once the next
-// entry distance passes the largest tmax among its unoccluded lanes.
+// What bounds it on the H100: fp32 instruction throughput, as in K1 (40
+// FMAs, 80 FLOP, and a few compares per (ray, triangle)), but less of it:
+// a ray needs the queued clusters up to its first blocker whose entry is
+// within its tmax (0.066 ms of fp32 FMAs on chip_smoke.py's shadow wave;
+// PERF.md has the share this kernel reaches).
 //
-// Design, as in K1 (csrc/dense_hit.cu): one CTA per ray tile, one thread
-// per ray, walking the tile's own queue row in order. The Pallas kernel
-// carried the tile's bound in scratch from grid step to grid step; here it
-// is a register, refreshed after each K-step by a block-wide max of
-// (occluded ? 0 : tmax bits). An occluded thread still joins the staging
-// barriers and the block max, and skips its column loop.
+// Design, K1's (csrc/dense_hit.cu, common.cuh:walk_queue): a tile's rays
+// split across CTAs of 64, two rays a thread and 8 threads a pair of
+// rays, clusters staged by cp.async into a two-stage ring. A warp's bound is the largest tmax bits among its
+// unoccluded rays (occluded and inactive rays count as negative), so a
+// warp whose rays are all occluded skips every later cluster and the CTA
+// stops staging once all its warps would skip; the Pallas kernel's bound
+// was tile-wide. Inside a cluster, a thread leaves its column loop once
+// both its rays are occluded, and the threads of a pair of rays merge
+// their flags after it.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -29,50 +33,54 @@
 namespace racc {
 namespace {
 
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kCtaThreads)
 dense_occl_kernel(const float* __restrict__ F, const float* __restrict__ G3,
                   const int* __restrict__ q_cluster,
                   const int* __restrict__ q_entry,
                   const int* __restrict__ q_count,
-                  unsigned char* __restrict__ out, int cap, int C, int K) {
-  __shared__ float4 g[kStageFloat4];
-  __shared__ int red[32];
-  const int tile = blockIdx.x;
-  const int r = tile * blockDim.x + threadIdx.x;
+                  unsigned char* __restrict__ out,
+                  unsigned long long* __restrict__ walked, int tile, int cap,
+                  int C) {
+  extern __shared__ __align__(128) float4 ring[];
+  __shared__ int red[2 * kWarps];
+  const int sub = dense_sub(), r = dense_ray();
+  const int tl = blockIdx.x * kCtaRays / tile;
 
-  float row[16];
-  load_row16(F + static_cast<size_t>(r) * kFeat, row);
-  const float tmin = row[10];
-  const float tmax = row[11];
-  const int t_bits = max(__float_as_int(tmax), 0);
-  bool occ = false;
-  int bound = block_max(t_bits, red);
+  float f[2][10], tmin[2], tmax[2];
+  load_rays2(F, r, f, tmin, tmax);
+  bool occ[2] = {false, false};
+  auto warp_bound = [&]() {
+    return warp_max(max(occ[0] ? kSignBit : __float_as_int(tmax[0]),
+                        occ[1] ? kSignBit : __float_as_int(tmax[1])));
+  };
 
-  const int n = q_count[tile];
-  const int* clusters = q_cluster + static_cast<size_t>(tile) * cap;
-  const int* entries = q_entry + static_cast<size_t>(tile) * cap;
-  for (int s = 0; s < n; s += K) {
-    // Front-to-back early-out: bound >= 0, and non-negative float bits
-    // order like the floats.
-    if (entries[s] > bound) break;
-    for (int k = 0; k < K; ++k) {
-      const int cluster = clusters[s + k];
-      __syncthreads();  // every thread is done with the previous cluster
-      stage_cluster(g, G3, cluster, C);
-      __syncthreads();
-      if (occ) continue;
-      for (int c = 0; c < C; ++c) {
-        const Candidate h = candidate(g, c, row);
-        if (h.sign_ok && fabsf(h.u_plus_v) <= h.ad && h.ts > h.ad * tmin &&
-            h.ts <= h.ad * tmax) {
-          occ = true;
-          break;
-        }
-      }
+  auto test = [&](const float4* g, int) {
+    for (int c = sub; c < C && !(occ[0] && occ[1]); c += kColSplit) {
+      bool inside[2];
+      float ad[2], ts[2];
+      decode2(g, c, C, f, inside, ad, ts);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        occ[i] = occ[i] || (inside[i] && ts[i] > ad[i] * tmin[i] &&
+                            ts[i] <= ad[i] * tmax[i]);
     }
-    bound = block_max(occ ? 0 : t_bits, red);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int o = 1; o < kColSplit; o <<= 1)
+        occ[i] = __shfl_xor_sync(0xffffffffu, occ[i], o) || occ[i];
+    return warp_bound();
+  };
+  const long long tested = walk_queue(
+      G3, q_cluster + static_cast<size_t>(tl) * cap,
+      q_entry + static_cast<size_t>(tl) * cap, q_count[tl], C, warp_bound(),
+      ring, red, test);
+  if (walked != nullptr && (threadIdx.x & 31) == 0)
+    atomicAdd(walked, static_cast<unsigned long long>(tested));
+  if (sub == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) out[r + kWarpPairs * i] = occ[i] ? 1 : 0;
   }
-  out[r] = occ ? 1 : 0;
 }
 
 }  // namespace
@@ -80,15 +88,23 @@ dense_occl_kernel(const float* __restrict__ F, const float* __restrict__ G3,
 
 // F (T*tile, 16) rows [d, o, d x o, 1, tmin, tmax_eff, 0...]; G3 (n_c, 4C,
 // 16); q_cluster / q_entry (T, cap) int32; q_count (T,) int32; out (R,)
-// one byte per ray, 1 = occluded.
+// one byte per ray, 1 = occluded; walked (nullable) gains the (ray,
+// cluster) pairs tested. The tile is a multiple of kCtaRays.
 extern "C" int racc_dense_occluded(const float* F, const float* G3,
                                    const int* q_cluster, const int* q_entry,
                                    const int* q_count, unsigned char* out,
-                                   int T, int tile, int cap, int C, int K,
-                                   void* stream) {
-  if (C < 1 || C > racc::kMaxC || tile < 32 || tile > 1024 || tile % 32 != 0)
+                                   unsigned long long* walked, int T,
+                                   int tile, int cap, int C, void* stream) {
+  using namespace racc;
+  if (!dense_launch_ok(T, tile, C))
     return static_cast<int>(cudaErrorInvalidValue);
-  racc::dense_occl_kernel<<<T, tile, 0, static_cast<cudaStream_t>(stream)>>>(
-      F, G3, q_cluster, q_entry, q_count, out, cap, C, K);
+  if (T == 0) return 0;
+  const int smem = ring_bytes(C);
+  cudaError_t e = cudaFuncSetAttribute(
+      dense_occl_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dense_occl_kernel<<<T * (tile / kCtaRays), kCtaThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      F, G3, q_cluster, q_entry, q_count, out, walked, tile, cap, C);
   return static_cast<int>(cudaGetLastError());
 }

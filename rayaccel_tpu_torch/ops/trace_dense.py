@@ -12,16 +12,25 @@ fold of ``trace_mxu_pallas`` (``:492-528``); and ``trace_occlusion_pallas``
 
 The Pallas wrapper flattened the queue into one padded item list and
 dispatched over a static ladder of capacity buckets. A CUDA grid is sized
-at launch, so the queue stays as (T, tile_cap) rows with per-tile counts
-and the kernel runs one CTA per ray tile; no host sync is needed. Clamping
-(``tile_cap``), K-step padding and the overflow count are the JAX
-package's. One decided difference: ``trace_occlusion_pallas`` discards the
-queue's overflow count (``:394``), so a shadow ray whose blocker sits in a
-clamped-away cluster is reported lit and nothing counts it;
-:func:`trace_occlusion_dense` returns the count.
+at launch, so the queue stays as (T, tile_cap) rows with per-tile counts;
+no host sync is needed. Clamping (``tile_cap``), K-step padding and the
+overflow count are the JAX package's. The walk's early-out is finer than
+the Pallas kernel's tile-wide bound: each kernel splits a tile across
+CTAs of ``CTA_RAYS`` rays, and each warp (``WARP_RAYS`` rays) skips a
+queued cluster whose entry distance passes every best hit (K1) or every
+unoccluded tmax (K4) of its rays. A cluster is skipped only where it
+cannot change an answer, so the group size does not change the output;
+the plain versions take it as ``group`` so that the card compares like
+with like and the tests can show that. One decided difference:
+``trace_occlusion_pallas`` discards the queue's overflow count
+(``:394``), so a shadow ray whose blocker sits in a clamped-away cluster
+is reported lit and nothing counts it; :func:`trace_occlusion_dense`
+returns the count.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -37,6 +46,32 @@ K_PER_STEP = 4
 DEFAULT_TILE_CAP = 256
 _COL_BITS = 7           # candidate column rides in the score's low mantissa
 _COL_MASK = (1 << _COL_BITS) - 1
+_INT_MIN = -0x80000000
+# The dense kernels' walk shape (``csrc/common.cuh``: kCtaRays, kWarpRays),
+# one for K1 and K4, chosen on the card: a CTA takes 64 rays of one tile, so
+# a tile must be a multiple of 64, and each warp bounds 8 of them (two rays
+# a thread, 8 threads on each pair). The plain versions' default early-out
+# group is the kernel's warp, the finest bound it keeps; the CTA bound only
+# decides when the CTA stops staging clusters.
+CTA_RAYS = 64
+WARP_RAYS = 8
+
+
+def check_tile(tile: int) -> None:
+    """Raises unless the dense kernels take a queue tile of ``tile`` rays."""
+    if tile < CTA_RAYS or tile % CTA_RAYS:
+        raise ValueError(f"the dense kernels take a tile that is a positive "
+                         f"multiple of {CTA_RAYS} rays, got {tile}")
+
+
+def _walk_groups(q_cluster, q_entry, q_count, tile: int, group: int):
+    """The groups of the plain walks: each tile's rays cut into groups of
+    ``group``, and each group's tile, queue entries and count."""
+    if tile % group:
+        raise ValueError(f"group {group} does not divide tile {tile}")
+    gtile = torch.arange(q_cluster.shape[0] * (tile // group),
+                         device=q_cluster.device) // (tile // group)
+    return gtile, q_entry[gtile], q_count[gtile]
 
 
 def _slab_entries(o, inv_d, tmin, tmax, bbmin, bbmax):
@@ -99,36 +134,51 @@ def _candidates(Ft, G3, cluster):
     return sign_ok & (torch.abs(u + v) <= ad), ad, ts
 
 
-def dense_closest_hit(F, G3, q_cluster, q_entry, q_count, tile: int,
-                      k_step: int = K_PER_STEP) -> torch.Tensor:
-    """K1: packed closest hit of each ray over its tile's cluster queue.
-
-    F (T*tile, 16) ray rows [d, o, d x o, 1, tmin, tmax_eff, 0...]
-    (tmax_eff = -1 marks an inactive lane); G3 (n_c, 4C, 16); the queue as
-    returned by :func:`cull_and_queue`. Returns (2, R) int32: row 0 the
-    packed best (score bits, low 7 bits = column; the tmax_eff bits on a
-    miss), row 1 the slot cluster * C + column (-1 on a miss).
-
-    On a CUDA tensor this launches ``csrc/dense_hit.cu`` (one CTA per ray
-    tile; the grid is T, known without a host sync); on a CPU tensor it
-    runs :func:`dense_closest_hit_plain`."""
-    if F.device.type == "cpu":
-        return dense_closest_hit_plain(F, G3, q_cluster, q_entry, q_count,
-                                       tile, k_step)
+def _dense_launch(fn, name, out, F, G3, q_cluster, q_entry, q_count,
+                  tile: int, walked):
+    """Validate the arguments of a dense kernel and launch it: R / CTA_RAYS
+    CTAs. ``walked`` (optional, a (1,) int64 CUDA tensor) gains the (ray,
+    cluster) pairs the kernel's warps tested."""
     T, cap = q_cluster.shape
     R = T * tile
-    n_c, C4, _ = G3.shape
+    check_tile(tile)
     _kernels.require(F, "F", torch.float32, (R, 16))
     _kernels.require(G3, "G3", torch.float32)
     _kernels.require(q_cluster, "q_cluster", torch.int32)
     _kernels.require(q_entry, "q_entry", torch.int32, (T, cap))
     _kernels.require(q_count, "q_count", torch.int32, (T,))
-    out = torch.empty((2, R), dtype=torch.int32, device=F.device)
-    lib = _kernels.library()
-    _kernels.check(lib.racc_dense_hit(
+    if walked is not None:
+        _kernels.require(walked, "walked", torch.int64, (1,))
+    _kernels.check(fn(
         _kernels.ptr(F), _kernels.ptr(G3), _kernels.ptr(q_cluster),
         _kernels.ptr(q_entry), _kernels.ptr(q_count), _kernels.ptr(out),
-        T, tile, cap, C4 // 4, k_step, _kernels.stream()), "racc_dense_hit")
+        None if walked is None else _kernels.ptr(walked), T, tile, cap,
+        G3.shape[1] // 4, _kernels.stream()), name)
+
+
+def dense_closest_hit(F, G3, q_cluster, q_entry, q_count, tile: int,
+                      k_step: int = K_PER_STEP, *,
+                      walked=None) -> torch.Tensor:
+    """K1: packed closest hit of each ray over its tile's cluster queue.
+
+    F (T*tile, 16) ray rows [d, o, d x o, 1, tmin, tmax_eff, 0...]
+    (tmax_eff = -1 marks an inactive lane); G3 (n_c, 4C, 16); the queue as
+    returned by :func:`cull_and_queue`. ``k_step`` is ignored: it is the
+    queue's padding step, and the walk bounds cluster by cluster.
+    Returns (2, R) int32: row 0 the packed best (score bits, low 7 bits =
+    column; the tmax_eff bits on a miss), row 1 the slot cluster * C +
+    column (-1 on a miss).
+
+    On a CUDA tensor this launches ``csrc/dense_hit.cu`` (R / CTA_RAYS
+    CTAs, known without a host sync; ``walked`` counts the pairs its warps
+    tested); on a CPU tensor it runs
+    :func:`dense_closest_hit_plain`."""
+    if F.device.type == "cpu":
+        return dense_closest_hit_plain(F, G3, q_cluster, q_entry, q_count,
+                                       tile, k_step)
+    out = torch.empty((2, F.shape[0]), dtype=torch.int32, device=F.device)
+    _dense_launch(_kernels.library().racc_dense_hit, "racc_dense_hit", out,
+                  F, G3, q_cluster, q_entry, q_count, tile, walked)
     dense_closest_hit.launches += 1
     return out
 
@@ -137,42 +187,43 @@ dense_closest_hit.launches = 0
 
 
 def dense_closest_hit_plain(F, G3, q_cluster, q_entry, q_count, tile: int,
-                            k_step: int = K_PER_STEP) -> torch.Tensor:
-    """Plain torch version of K1: the same queue walk, all tiles in
-    lockstep, each K-step one batched product over the tiles whose next
-    entry has not passed their worst best hit."""
-    T = q_cluster.shape[0]
+                            k_step: int = K_PER_STEP, *,
+                            group: Optional[int] = None) -> torch.Tensor:
+    """Plain torch version of K1: the same queue walk, cluster by cluster,
+    all groups of ``group`` rays in lockstep (default the kernel's warp). A
+    group tests a cluster unless its entry passes the largest best hit of
+    the group's rays (a signed compare: an all-inactive group holds
+    negative bits and tests nothing). ``k_step`` is ignored."""
+    group = group or WARP_RAYS
     C = G3.shape[1] // 4
-    Fm = F.reshape(T, tile, 16)
+    Fm = F.reshape(-1, group, 16)
+    gtile, entry, count = _walk_groups(q_cluster, q_entry, q_count, tile,
+                                       group)
     tmin = Fm[:, :, 10]
     best = Fm[:, :, 11].contiguous().view(torch.int32).clone()
     slot = torch.full_like(best, -1)
-    worst = torch.clamp_min(best, 0).amax(dim=1)
+    bound = best.amax(dim=1)
     col = torch.arange(C, dtype=torch.int32, device=F.device)
-    steps = int(q_count.max()) // k_step
-    for s in range(steps):
-        j = s * k_step
-        useful = (j < q_count) & (q_entry[:, j] <= torch.clamp_min(worst, 0))
-        tiles = useful.nonzero().squeeze(1)
-        if tiles.numel() == 0:
+    for j in range(int(q_count.max())):
+        # Entries only grow along a row and bounds only shrink, so once no
+        # group is left, none comes back.
+        groups = ((j < count) & (entry[:, j] <= bound)).nonzero().squeeze(1)
+        if groups.numel() == 0:
             break
-        Ft = Fm[tiles, :, :10]
-        b = best[tiles]
-        sl = slot[tiles]
-        for k in range(k_step):
-            cluster = q_cluster[tiles, j + k]
-            inside, ad, ts = _candidates(Ft, G3, cluster)
-            score_q = ts * torch.reciprocal(ad)
-            valid = inside & (score_q > tmin[tiles][:, :, None])
-            score = torch.where(valid, score_q, torch.full_like(score_q, 3e38))
-            sp = (score.view(torch.int32) & ~_COL_MASK) | col
-            m = sp.amin(dim=2)
-            better = m < b
-            sl = torch.where(better, cluster[:, None] * C + (m & _COL_MASK), sl)
-            b = torch.where(better, m, b)
-        best[tiles] = b
-        slot[tiles] = sl
-        worst[tiles] = b.amax(dim=1)
+        cluster = q_cluster[gtile[groups], j]
+        inside, ad, ts = _candidates(Fm[groups, :, :10], G3, cluster)
+        score_q = ts * torch.reciprocal(ad)
+        valid = inside & (score_q > tmin[groups][:, :, None])
+        score = torch.where(valid, score_q, torch.full_like(score_q, 3e38))
+        m = ((score.view(torch.int32) & ~_COL_MASK) | col).amin(dim=2)
+        b = best[groups]
+        better = m < b
+        slot[groups] = torch.where(better,
+                                   cluster[:, None] * C + (m & _COL_MASK),
+                                   slot[groups])
+        b = torch.where(better, m, b)
+        best[groups] = b
+        bound[groups] = b.amax(dim=1)
     return torch.stack([best.reshape(-1), slot.reshape(-1)])
 
 
@@ -255,7 +306,7 @@ def trace_dense(cs: ClusterScene, rays: Rays, env=None, active=None,
 # ---------------------------------------------------------------- K4 ----
 
 def dense_occluded(F, G3, q_cluster, q_entry, q_count, tile: int,
-                   k_step: int = K_PER_STEP) -> torch.Tensor:
+                   k_step: int = K_PER_STEP, *, walked=None) -> torch.Tensor:
     """K4: any hit of each ray over its tile's cluster queue.
 
     Inputs as for :func:`dense_closest_hit` (rows 10/11 of F are tmin and
@@ -264,26 +315,16 @@ def dense_occluded(F, G3, q_cluster, q_entry, q_count, tile: int,
     ts <= |det| * tmax`` (the exact window, no reciprocal). Returns (R,)
     bool.
 
-    On a CUDA tensor this launches ``csrc/dense_occl.cu`` (one CTA per ray
-    tile); on a CPU tensor it runs :func:`dense_occluded_plain`."""
+    On a CUDA tensor this launches ``csrc/dense_occl.cu`` (the grid,
+    ``walked`` and the ignored ``k_step`` as for K1); on a CPU tensor it
+    runs :func:`dense_occluded_plain`."""
     if F.device.type == "cpu":
         return dense_occluded_plain(F, G3, q_cluster, q_entry, q_count,
                                     tile, k_step)
-    T, cap = q_cluster.shape
-    R = T * tile
-    n_c, C4, _ = G3.shape
-    _kernels.require(F, "F", torch.float32, (R, 16))
-    _kernels.require(G3, "G3", torch.float32)
-    _kernels.require(q_cluster, "q_cluster", torch.int32)
-    _kernels.require(q_entry, "q_entry", torch.int32, (T, cap))
-    _kernels.require(q_count, "q_count", torch.int32, (T,))
-    out = torch.empty((R,), dtype=torch.bool, device=F.device)
-    lib = _kernels.library()
-    _kernels.check(lib.racc_dense_occluded(
-        _kernels.ptr(F), _kernels.ptr(G3), _kernels.ptr(q_cluster),
-        _kernels.ptr(q_entry), _kernels.ptr(q_count), _kernels.ptr(out),
-        T, tile, cap, C4 // 4, k_step, _kernels.stream()),
-        "racc_dense_occluded")
+    out = torch.empty((F.shape[0],), dtype=torch.bool, device=F.device)
+    _dense_launch(_kernels.library().racc_dense_occluded,
+                  "racc_dense_occluded", out, F, G3, q_cluster, q_entry,
+                  q_count, tile, walked)
     dense_occluded.launches += 1
     return out
 
@@ -292,33 +333,33 @@ dense_occluded.launches = 0
 
 
 def dense_occluded_plain(F, G3, q_cluster, q_entry, q_count, tile: int,
-                         k_step: int = K_PER_STEP) -> torch.Tensor:
-    """Plain torch version of K4: the same queue walk, all tiles in
-    lockstep. A tile stops once its next entry passes the largest tmax
-    among its unoccluded lanes (occluded lanes bound at 0)."""
-    T = q_cluster.shape[0]
-    Fm = F.reshape(T, tile, 16)
+                         k_step: int = K_PER_STEP, *,
+                         group: Optional[int] = None) -> torch.Tensor:
+    """Plain torch version of K4: the same queue walk, cluster by cluster,
+    all groups of ``group`` rays in lockstep (default the kernel's warp). A
+    group tests a cluster unless its entry passes the largest tmax bits
+    among the group's unoccluded rays (occluded and inactive rays hold
+    negative bounds, so a group with none left tests nothing). ``k_step``
+    is ignored."""
+    group = group or WARP_RAYS
+    Fm = F.reshape(-1, group, 16)
+    gtile, entry, count = _walk_groups(q_cluster, q_entry, q_count, tile,
+                                       group)
     tmin = Fm[:, :, 10]
     tmax = Fm[:, :, 11]
-    t_bits = torch.clamp_min(tmax.contiguous().view(torch.int32), 0)
-    occ = torch.zeros((T, tile), dtype=torch.bool, device=F.device)
+    t_bits = tmax.contiguous().view(torch.int32)
+    occ = torch.zeros(t_bits.shape, dtype=torch.bool, device=F.device)
     bound = t_bits.amax(dim=1)
-    steps = int(q_count.max()) // k_step
-    for s in range(steps):
-        j = s * k_step
-        useful = (j < q_count) & (q_entry[:, j] <= bound)
-        tiles = useful.nonzero().squeeze(1)
-        if tiles.numel() == 0:
+    for j in range(int(q_count.max())):
+        groups = ((j < count) & (entry[:, j] <= bound)).nonzero().squeeze(1)
+        if groups.numel() == 0:
             break
-        Ft = Fm[tiles, :, :10]
-        lo = tmin[tiles][:, :, None]
-        hi = tmax[tiles][:, :, None]
-        o = occ[tiles]
-        for k in range(k_step):
-            inside, ad, ts = _candidates(Ft, G3, q_cluster[tiles, j + k])
-            o = o | (inside & (ts > ad * lo) & (ts <= ad * hi)).any(dim=2)
-        occ[tiles] = o
-        bound[tiles] = torch.where(o, 0, t_bits[tiles]).amax(dim=1)
+        inside, ad, ts = _candidates(Fm[groups, :, :10], G3,
+                                     q_cluster[gtile[groups], j])
+        o = occ[groups] | (inside & (ts > ad * tmin[groups][:, :, None])
+                           & (ts <= ad * tmax[groups][:, :, None])).any(dim=2)
+        occ[groups] = o
+        bound[groups] = torch.where(o, _INT_MIN, t_bits[groups]).amax(dim=1)
     return occ.reshape(-1)
 
 

@@ -11,8 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from rayaccel_tpu_torch.camera import Camera, generate_pixel_rays
 from rayaccel_tpu_torch.ops import trace_dense as dense
 from rayaccel_tpu_torch.ops import trace_sparse as sparse
+from rayaccel_tpu_torch.render.whitted import shadow_rays
+from rayaccel_tpu_torch.render.shading import surface_from_attrs
 from rayaccel_tpu_torch.scene.clusters import (cluster_scene_from_numpy,
                                                compile_clusters_np)
 from rayaccel_tpu_torch.scene.loader import make_battlefield_like
@@ -29,9 +32,13 @@ def cuda():
 
 
 @pytest.fixture(scope="module")
-def scenes(cuda):
-    arrays = compile_clusters_np(make_battlefield_like(n_objects=40,
-                                                       grid=21))
+def scene_data(cuda):
+    return make_battlefield_like(n_objects=40, grid=21)
+
+
+@pytest.fixture(scope="module")
+def scenes(scene_data, cuda):
+    arrays = compile_clusters_np(scene_data)
     return (cluster_scene_from_numpy(**arrays, device="cpu"),
             cluster_scene_from_numpy(**arrays, device=cuda))
 
@@ -142,3 +149,74 @@ def test_launch_validates_arguments(cuda, scenes):
         sparse.pair_hit(torch.zeros((4, 16), device=cuda), gpu_cs.G3,
                         torch.zeros((1, 3), dtype=torch.int64, device=cuda),
                         7, False)
+
+
+def _primaries(sd, n, device):
+    """Coherent pixel-centre camera rays of an n x n image of the scene,
+    with one lane in five inactive (numpy seed 5)."""
+    cam = Camera.look_at(sd.cam_origin, sd.cam_dir, sd.cam_up, sd.cam_fov,
+                         n, n)
+    yy, xx = np.mgrid[0:n, 0:n]
+    rays = generate_pixel_rays(cam.as_arrays(device),
+                               torch.tensor(xx.ravel(), device=device),
+                               torch.tensor(yy.ravel(), device=device))
+    active = np.random.default_rng(5).random(n * n) >= 0.2
+    return rays, torch.tensor(active, device=device)
+
+
+def _dense_case(cs, rays, active, tile, pad):
+    """The dense inputs at ``tile``; with ``pad`` every queue row counts
+    to tile_cap, its tail the farthest cluster repeated."""
+    F, q_cl, q_en, q_n, _ = dense._dense_inputs(cs, rays, active, tile,
+                                                dense.K_PER_STEP,
+                                                dense.DEFAULT_TILE_CAP)
+    if pad:
+        q_n = torch.full_like(q_n, dense.DEFAULT_TILE_CAP)
+    return F, cs.G3, q_cl, q_en, q_n, tile
+
+
+@pytest.mark.parametrize("pad", [False, True], ids=["queue", "padded"])
+@pytest.mark.parametrize("tile", [64, 512, 1024])
+def test_dense_kernels_match_plain_on_mixed_primaries(cuda, scenes,
+                                                       scene_data, tile,
+                                                       pad):
+    """K1 and K4 against their plain versions on coherent primaries whose
+    tiles mix sky, hit and inactive lanes, and on shadow rays from their
+    hits: hits and winners at the oracle bar, flags on >= 99.95% of rays
+    (the kernels' dot products round apart from the plain versions'
+    matrix products at a triangle edge)."""
+    _, cs = scenes
+    rays, active = _primaries(scene_data, 128, cuda)
+    a1 = _dense_case(cs, rays, active, tile, pad)
+    got = dense.dense_closest_hit(*a1)
+    want = dense.dense_closest_hit_plain(*a1)
+    hit = want[1] >= 0
+    mixed = ((hit & active).reshape(-1, tile).any(1)
+             & (~hit & active).reshape(-1, tile).any(1)
+             & (~active).reshape(-1, tile).any(1))
+    assert mixed.any()
+    assert ((got[1] >= 0) == hit).float().mean() >= 0.9995
+    both = hit & (got[1] >= 0)
+    assert (got[1] == want[1])[both].float().mean() >= 0.9995
+    assert (got[0] == want[0])[both].float().mean() >= 0.9995
+
+    attr, tri, t, u, v = dense.reconstruct(cs, rays,
+                                           torch.where(hit, want[1], 0))
+    surf = surface_from_attrs(attr, cs.mat_params, rays,
+                              dense.make_hits(rays, hit, tri, t, u, v))
+    a4 = _dense_case(cs, shadow_rays(surf), active & hit, tile, pad)
+    occ = dense.dense_occluded(*a4)
+    occ_p = dense.dense_occluded_plain(*a4)
+    assert occ_p.any() and not occ_p.all()
+    assert (occ == occ_p).float().mean() >= 0.9995
+
+
+def test_dense_kernels_refuse_a_tile_they_do_not_take(cuda, scenes,
+                                                      scene_data):
+    _, cs = scenes
+    rays, active = _primaries(scene_data, 32, cuda)
+    a = _dense_case(cs, rays, active, 32, False)
+    with pytest.raises(ValueError, match="multiple"):
+        dense.dense_closest_hit(*a)
+    with pytest.raises(ValueError, match="multiple"):
+        dense.dense_occluded(*a)
