@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels     # phases 1-3 only, a kernel's quick check
 
 Run from the root of a checkout. The script imports ``torch`` and
 ``rayaccel_tpu_torch`` only (never JAX), needs one CUDA device, and exits
@@ -17,7 +18,10 @@ is missing. Phases, one JSON line each:
    the headline shapes (battlefield-like scene, 827 clusters of 128):
    K1 on one 65,536-ray primary wave, K2 on the 983,040-lane bounce pool
    (k = 4, then k = 8 with the first call's spill words) which must be
-   bitwise equal, K3 on pass 1 of the first bounce; K1 and K3 must meet
+   bitwise equal, K3 on pass 1 of the first bounce; then K2 and K3 again
+   at a narrow shape, the first restart pass of that bounce (the compacted
+   unresolved rays at their ladder width, with their spill words and the
+   dead padding lanes), K2 bitwise again; K1 and K3 must meet
    the oracle bar of ``tools/oracle_lib.py:run_oracle`` (hit agreement and
    t within 1e-3 relative on >= 99.95%); K4 on the shadow rays of K1's
    wave (built from its hits as the Whitted step builds them), whose
@@ -53,7 +57,8 @@ is missing. Phases, one JSON line each:
 Each slice sets every launch count to 0 just before its timed frames and
 reads them just after. After them, each slice renders two more frames:
 one under ``torch.profiler`` (the ``profile`` line: device ms of each
-kernel and of all kernels, and the device's idle share), and one in which
+kernel and of all kernels, and the device's idle share; a kernel the slice
+must launch and whose device time reads 0 fails the run), and one in which
 every kernel launch keeps a copy of its inputs; each launch is then timed
 again alone at its own width and its bound taken from its own inputs (the
 ``launches`` line: per kernel, ms, bound ms and share summed over the
@@ -84,11 +89,11 @@ PEAK_BYTES_PER_S = 3.35e12
 FLOP_PER_TRIANGLE = 80
 FLOP_PER_SLAB = 24
 NO_LIBRARY = "none: no single PyTorch call computes it"
-# Each kernel's name in a profiler trace.
+# Each kernel's name in a profiler trace (K3's covers its unit pass too).
 KERNEL_SYMBOLS = {"dense_closest_hit": "dense_hit_kernel",
                   "dense_occluded": "dense_occl_kernel",
                   "select_nearest": "select_kernel",
-                  "pair_hit": "pair_hit_kernel"}
+                  "pair_hit": "pair_hit_"}
 
 
 def emit(obj):
@@ -161,13 +166,50 @@ def k4_pairs_needed(dense, F, G3, q_cluster, q_entry, q_count, tile):
     return needed
 
 
-def walked_pairs(fn, args):
-    """The (ray, cluster) pairs a dense kernel's warps tested, from its
-    ``walked`` counter."""
+def counted(fn, args, name, n):
+    """The ``n`` counters a kernel adds to its ``name=`` tensor in one
+    launch on ``args``: the pairs a dense kernel's warps ``walked``, the
+    lanes K2 ``tested``, K3's ``stats``."""
     import torch
-    count = torch.zeros(1, dtype=torch.int64, device=args[0].device)
-    fn(*args, walked=count)
-    return int(count)
+    count = torch.zeros(n, dtype=torch.int64, device=args[0].device)
+    fn(*args, **{name: count})
+    return count.tolist()
+
+
+def record_launches(dense, sparse, run):
+    """Run ``run()`` with every kernel wrapper replaced by one that keeps a
+    copy of its inputs and its output. Returns [(wrapper, args, kwargs,
+    out)] in launch order."""
+    import torch
+    calls = []
+
+    def keeper(fn):
+        # A wrapper counts its launches on its module's name, which is
+        # the keeper's while ``run`` runs.
+        def keep(*a, **kw):
+            a = tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+            before = keep.launches
+            out = fn(*a, **kw)
+            if keep.launches > before:         # K3 skips an empty pass
+                calls.append((fn, a, kw, out))
+            return out
+        keep.launches = keep.guard_launches = 0
+        return keep
+
+    originals = {}
+    for mod, fn in ((dense, dense.dense_closest_hit),
+                    (dense, dense.dense_occluded),
+                    (sparse, sparse.select_nearest),
+                    (sparse, sparse.pair_hit)):
+        originals[fn.__name__] = (mod, fn)
+        setattr(mod, fn.__name__, keeper(fn))
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for fname, (mod, fn) in originals.items():
+            setattr(mod, fname, fn)
+    return calls
 
 
 def kernel_work(dense, name, args, out, n_c):
@@ -201,11 +243,16 @@ def kernel_row(s):
 
 def cuda_ms(fn, reps):
     """Mean milliseconds of ``fn()`` on the current stream over ``reps``
-    runs after one warm-up, timed with CUDA events."""
+    runs after one warm-up, timed with CUDA events. The device first
+    spins for about a millisecond, so that the host has every run
+    enqueued before the first starts: a launch that takes the device less
+    than the host takes to enqueue it (the narrow ones) is then timed at
+    the device's pace and not the host's."""
     import torch
     fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -337,7 +384,8 @@ def main() -> int:
               words_differing=int((out_k != out_p).sum()),
               ctas=R // dense.CTA_RAYS,
               pairs_needed=flop // (cs.cluster_size * FLOP_PER_TRIANGLE),
-              pairs_walked=walked_pairs(dense.dense_closest_hit, args),
+              pairs_walked=counted(dense.dense_closest_hit, args, "walked",
+                                   1)[0],
               ms=cuda_ms(lambda: dense.dense_closest_hit(*args), 20),
               plain_ms=cuda_ms(lambda: dense.dense_closest_hit_plain(*args),
                                3))
@@ -381,6 +429,9 @@ def main() -> int:
         ms = cuda_ms(lambda: sparse.select_nearest(*a), 10)
         plain_ms = cuda_ms(lambda: sparse.select_nearest_plain(*a), 2)
         s2 = dict(k=k, lanes=N, live_lanes=int(state["alive"].sum()),
+                  lanes_tested=counted(sparse.select_nearest, a, "tested",
+                                       1)[0],
+                  split=sparse.select_split(N),
                   boxes=cs.n_clusters, padded_boxes=n_cp,
                   bitwise_equal=equal,
                   words_differing=int((sel_k != sel_p).sum()),
@@ -433,6 +484,9 @@ def main() -> int:
                      for x in pair))
     s3.update(pairs=int(cl.numel()), lattice_pairs=int(total),
               items=int(items.shape[0]),
+              words_differing=int((pk != pp).sum()),
+              **dict(zip(("units", "ctas", "clusters_staged"),
+                         counted(sparse.pair_hit, a3, "stats", 3))),
               ms=cuda_ms(lambda: sparse.pair_hit(*a3), 10),
               plain_ms=cuda_ms(lambda: sparse.pair_hit_plain(*a3), 2))
     s3.update(roofline(*kernel_work(dense, "pair_hit", a3, pk,
@@ -443,7 +497,74 @@ def main() -> int:
                         source="rayaccel_tpu_torch/csrc/pair_hit.cu",
                         replaces="rayaccel_tpu/ops/trace_sparse.py:77",
                         max_abs_err=s3["max_abs_t"], **kernel_row(s3)))
-    del state, pool, F8, Fp, items, sel_k, sel_p, pk, pp
+
+    # K2 and K3 at a narrow shape: the first restart pass of that bounce,
+    # as trace_sparse launches it (the compacted unresolved rays at their
+    # ladder width, their spill words as prev, dead padding lanes, and
+    # runs of a few pairs each).
+    calls = record_launches(dense, sparse, lambda: sparse.trace_sparse(
+        cs, pool, active=state["alive"], k_pairs=opts.k_pairs,
+        pair_budget=opts.pair_budget, sp_tile=opts.sp_tile,
+        max_passes=opts.max_passes, k_first=opts.k_first,
+        k_restart=opts.k_restart))
+    narrow = {}
+    for fn, a, _, _ in calls:
+        narrow.setdefault(fn.__name__, []).append(a)
+    if min(len(narrow.get(n, ())) for n in ("select_nearest",
+                                            "pair_hit")) < 2:
+        raise AssertionError("the first bounce ran no restart pass")
+    a = narrow["select_nearest"][1]
+    sel_k = sparse.select_nearest(*a)
+    sel_p = sparse.select_nearest_plain(*a)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: sparse.select_nearest(*a), 20)
+    s2 = dict(k=a[4], lanes=int(a[0].shape[0]),
+              live_lanes=int((a[0][:, 7] > 0).sum()),
+              lanes_tested=counted(sparse.select_nearest, a, "tested", 1)[0],
+              split=sparse.select_split(int(a[0].shape[0])),
+              prev_words=int((a[1] > -0x80000000).sum()),
+              bitwise_equal=bool(torch.equal(sel_k, sel_p)),
+              words_differing=int((sel_k != sel_p).sum()), ms=ms,
+              plain_ms=cuda_ms(lambda: sparse.select_nearest_plain(*a), 2))
+    s2.update(roofline(*kernel_work(dense, "select_nearest", a, sel_k,
+                                    cs.n_clusters), ms))
+    # The same launch with each split forced, beside the launcher's choice.
+    s2["ms_by_split"] = {
+        S: cuda_ms(lambda: sparse._launch_select(*a, S, None), 20)
+        for S in (1, 2, 4, 8, 16, 32)}
+    emit(dict(phase="kernel", name="K2 select_nearest narrow", **s2))
+    narrow_keys = ("ms", "bound_ms", "share_of_bound")
+    kernels[-2]["narrow"] = dict(lanes=s2["lanes"],
+                                 **{k: s2[k] for k in narrow_keys})
+    if not s2["bitwise_equal"]:
+        raise AssertionError("K2 differs from its plain version at the "
+                             "narrow shape")
+    if not 0 < s2["live_lanes"] <= s2["lanes_tested"] < s2["lanes"]:
+        raise AssertionError(f"K2's narrow shape has no dead lane or "
+                             f"tested too few: {s2}")
+
+    a = narrow["pair_hit"][1]
+    pk = sparse.pair_hit(*a)
+    pp = sparse.pair_hit_plain(*a)
+    torch.cuda.synchronize()
+    run_len = (a[2][:, 1] - a[2][:, 0]).float()
+    s3 = hit_stats(pk < 0x7F000000, pp < 0x7F000000, pk & low, pp & low,
+                   (pk & ~low).view(torch.float32),
+                   (pp & ~low).view(torch.float32))
+    s3.update(pairs=int(a[0].shape[0]), items=int(a[2].shape[0]),
+              mean_run=float(run_len.mean()), max_run=int(run_len.max()),
+              words_differing=int((pk != pp).sum()),
+              **dict(zip(("units", "ctas", "clusters_staged"),
+                         counted(sparse.pair_hit, a, "stats", 3))),
+              ms=cuda_ms(lambda: sparse.pair_hit(*a), 20),
+              plain_ms=cuda_ms(lambda: sparse.pair_hit_plain(*a), 2))
+    s3.update(roofline(*kernel_work(dense, "pair_hit", a, pk,
+                                    cs.n_clusters), s3["ms"]))
+    emit(dict(phase="kernel", name="K3 pair_hit narrow", **s3))
+    kernels[-1]["narrow"] = dict(pairs=s3["pairs"],
+                                 **{k: s3[k] for k in narrow_keys})
+    require_oracle_bar("K3 narrow", s3)
+    del state, pool, F8, Fp, items, sel_k, sel_p, pk, pp, calls, narrow, a
 
     # K4: the shadow rays of K1's wave, built from its hits as the Whitted
     # step builds them (every hit of a depth-1 frame casts one).
@@ -470,7 +591,7 @@ def main() -> int:
               queue_overflow=int(ov4),
               ctas=R // dense.CTA_RAYS,
               pairs_needed=flop // (cs.cluster_size * FLOP_PER_TRIANGLE),
-              pairs_walked=walked_pairs(dense.dense_occluded, a4),
+              pairs_walked=counted(dense.dense_occluded, a4, "walked", 1)[0],
               ms=cuda_ms(lambda: dense.dense_occluded(*a4), 20),
               plain_ms=cuda_ms(lambda: dense.dense_occluded_plain(*a4), 3))
     s4.update(roofline(flop, moved, s4["ms"]))
@@ -485,6 +606,9 @@ def main() -> int:
                         **kernel_row(s4)))
 
     del surf, F4, a4, occ_k, occ_p
+    if sys.argv[1:] == ["--kernels"]:
+        emit(dict(kernels_ok=True, kernels=kernels))
+        return 0
 
     wrappers = (dense.dense_closest_hit, dense.dense_occluded,
                 sparse.select_nearest, sparse.pair_hit)
@@ -540,8 +664,12 @@ def main() -> int:
         require_launches(name, launches, needed)
         if not (line["image_finite"] and line["image_max"] > 0):
             raise AssertionError(f"{name} image is not finite or is black")
-        slices[name] = (launches, len(keys),
-                        profile_frame(name, renderer, line["frame_ms"]),
+        kernel_ms = profile_frame(name, renderer, line["frame_ms"])
+        unseen = [k for k in needed if not kernel_ms[k] > 0]
+        if unseen:
+            raise AssertionError(f"{name}: the profile shows no device time "
+                                 f"for {unseen}: {kernel_ms}")
+        slices[name] = (launches, len(keys), kernel_ms,
                         launch_frame(name, renderer))
 
     def profile_frame(name, renderer, frame_ms):
@@ -571,34 +699,8 @@ def main() -> int:
         from its own inputs, at the width the frame gave it. Emits, per
         kernel, the launches, widths, ms, bound ms, share and gap summed
         over the frame, and returns them."""
-        calls = []
-
-        def keeper(fn):
-            # A wrapper counts its launches on its module's name, which is
-            # the keeper's while the frame runs.
-            def keep(*a, **kw):
-                a = tuple(x.clone() if torch.is_tensor(x) else x for x in a)
-                before = keep.launches
-                out = fn(*a, **kw)
-                if keep.launches > before:         # K3 skips an empty pass
-                    calls.append((fn, a, kw, out))
-                return out
-            keep.launches = keep.guard_launches = 0
-            return keep
-
-        originals = {}
-        for mod, fn in ((dense, dense.dense_closest_hit),
-                        (dense, dense.dense_occluded),
-                        (sparse, sparse.select_nearest),
-                        (sparse, sparse.pair_hit)):
-            originals[fn.__name__] = (mod, fn)
-            setattr(mod, fn.__name__, keeper(fn))
-        try:
-            renderer.render_frame(rng.PRNGKey(300))
-            torch.cuda.synchronize()
-        finally:
-            for fname, (mod, fn) in originals.items():
-                setattr(mod, fname, fn)
+        calls = record_launches(
+            dense, sparse, lambda: renderer.render_frame(rng.PRNGKey(300)))
         per = {k: dict(launches=0, widths=[], ms=0.0, bound_ms=0.0)
                for k in KERNEL_SYMBOLS}
         for fn, a, kw, out in calls:

@@ -12,15 +12,35 @@
 // with guard_tmax, t < tmax; its score is t * (1 / |det|) with an IEEE
 // reciprocal.
 //
-// What bounds it on the H100: fp32 FMA issue, as in K1: 40 FMAs and ~20
+// What bounds it on the H100: the fp32 FMA rate, as in K1: 40 FMAs and ~15
 // decode operations per (pair, triangle). Device memory traffic is one
-// 64-byte feature row and one output word per pair.
+// 64-byte feature row and one output word per pair; a cluster's columns
+// (24 KB live) come from L2 once per CTA that meets it.
 //
-// Design: the Pallas grid ran in order and initialised a pair block on its
-// first item. Every pair lane belongs to exactly one item, so items are
-// independent: the wrapper pre-fills the output with the miss marker and
-// hands each item as [start, end) of its run; one CTA per item stages the
-// cluster's columns in shared memory and its threads stride over the run.
+// Design. The Pallas grid ran in order and initialised a pair block on its
+// first item. Every pair lane belongs to at most one item, so items are
+// independent and the wrapper pre-fills the output with the miss marker.
+//
+// - Work units. A run is cut into units of at most kUnitPairs pairs, so
+//   1,666 uneven runs become ~15,000 even pieces. A one-CTA pass
+//   (pair_hit_units_kernel) writes the exclusive prefix of each item's unit
+//   count; the main kernel's grid is sized to the card (the CTAs that are
+//   resident at once) and CTA b takes the b-th contiguous share of the
+//   units, so a long run does not set the time and neighbouring units,
+//   which mostly share a cluster, fall to one CTA.
+// - K1's thread shape (common.cuh): a CTA tests a unit's 64 pairs at once;
+//   each thread holds two pairs, so a column read from shared memory feeds
+//   both pairs' FMAs, and kColSplit = 8 threads hold the same two pairs and
+//   take every 8th column; their packed minima merge by shuffles (the word
+//   carries its column, so the merge picks the winner one thread would). A
+//   5-pair item puts 8 threads on 16 columns each, not 5 threads on 128.
+// - Staging. Clusters land by cp.async in K1's two-stage ring (the 48 live
+//   bytes of each 64-byte G3 row). The CTA looks ahead along its units for
+//   the next change of cluster and starts that copy while it tests the
+//   units of the present one; consecutive units of one cluster (a run cut
+//   in pieces, or a cluster on both sides of an SP boundary) are staged
+//   once.
+// - No tensor cores: the TPU kernel ran Precision.HIGHEST.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -31,36 +51,220 @@ namespace {
 constexpr int kRankShift = 20;
 constexpr int kClusterMask = (1 << kRankShift) - 1;
 constexpr int kMissBits = 0x7F000000;
+constexpr int kUnitPairs = kCtaRays;   // the pairs a CTA tests at once
+constexpr int kScanThreads = 1024;
+// CTAs an SM should hold: caps the registers at 80 a thread (chosen on the
+// card among 2, 3 and 4: PERF.md).
+constexpr int kPairMinCtas = 3;
 
-__global__ void __launch_bounds__(256)
-pair_hit_kernel(const float* __restrict__ Fp, const float* __restrict__ G3,
-                const int* __restrict__ items, int* __restrict__ out, int C,
-                int col_bits, int guard_tmax) {
-  __shared__ float4 g[kStageFloat4];
-  const int start = items[3 * blockIdx.x];
-  const int end = items[3 * blockIdx.x + 1];
-  const int cluster = items[3 * blockIdx.x + 2];
-  stage_cluster(g, G3, cluster, C);
+// ustart[i] = the work units of items before i; ustart[n_items] = all. An
+// item that names no cluster of the scene or no pair of the array has none.
+__global__ void __launch_bounds__(kScanThreads)
+pair_hit_units_kernel(const int* __restrict__ items, int n_items, int n_c,
+                      int P, int* __restrict__ ustart) {
+  __shared__ int warp_sum[32];
+  __shared__ int carry;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) carry = 0;
   __syncthreads();
-  const int low = (1 << (col_bits + 3)) - 1;
-  for (int p = start + threadIdx.x; p < end; p += blockDim.x) {
-    float row[16];
-    load_row16(Fp + static_cast<size_t>(p) * kFeat, row);
-    const int lane = __float_as_int(row[12]);
-    if ((lane & kClusterMask) != cluster) continue;
-    const float tmin = row[10], tmax = row[11];
-    const int rank_bits = static_cast<int>(static_cast<unsigned>(lane) >> kRankShift)
-                          << col_bits;
-    int m = kIntMax;
-    for (int c = 0; c < C; ++c) {
-      const Candidate h = candidate(g, c, row);
-      bool valid = h.sign_ok && fabsf(h.u_plus_v) <= h.ad && h.ts > h.ad * tmin;
-      if (guard_tmax) valid = valid && h.ts < h.ad * tmax;
-      const float score = valid ? h.ts * __frcp_rn(h.ad) : 3e38f;
-      m = min(m, (__float_as_int(score) & ~low) | rank_bits | c);
+  for (int base = 0; base < n_items; base += kScanThreads) {
+    const int i = base + threadIdx.x;
+    int v = 0;
+    if (i < n_items) {
+      const int s = items[3 * i], e = items[3 * i + 1], cl = items[3 * i + 2];
+      if (s >= 0 && e > s && e <= P && cl >= 0 && cl < n_c)
+        v = (e - s + kUnitPairs - 1) / kUnitPairs;
     }
-    out[p] = min(m, kMissBits);
+    int x = v;  // inclusive scan over the warp
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) warp_sum[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int t = warp_sum[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, t, o);
+        if (lane >= o) t += y;
+      }
+      warp_sum[lane] = t;
+    }
+    __syncthreads();
+    const int before = carry + (warp > 0 ? warp_sum[warp - 1] : 0) + x - v;
+    if (i < n_items) ustart[i] = before;
+    __syncthreads();  // every thread has read carry and warp_sum
+    if (threadIdx.x == kScanThreads - 1) carry = before + v;
+    __syncthreads();
   }
+  if (threadIdx.x == 0) ustart[n_items] = carry;
+}
+
+struct Unit {
+  int p0, p1, cluster;  // pairs [p0, p1) of one item's run
+};
+
+template <bool Guard>
+__global__ void __launch_bounds__(kCtaThreads, kPairMinCtas)
+pair_hit_kernel(const float* __restrict__ Fp, const float* __restrict__ G3,
+                const int* __restrict__ items, const int* __restrict__ ustart,
+                int* __restrict__ out, unsigned long long* __restrict__ stats,
+                int n_items, int C, int col_bits) {
+  static_assert(kRingStages == 2, "the waits below assume two stages");
+  extern __shared__ __align__(128) float4 ring[];
+  const long long total = ustart[n_items];
+  const int u0 = static_cast<int>(total * blockIdx.x / gridDim.x);
+  const int u1 = static_cast<int>(total * (blockIdx.x + 1) / gridDim.x);
+  if (u0 >= u1) return;
+  const int rows = 4 * C, stage_f4 = rows * kRowF4;
+
+  // The item of unit u0: the last whose prefix is at most u0.
+  int first = 0;
+  for (int hi = n_items; hi - first > 1;) {
+    const int mid = (first + hi) >> 1;
+    if (ustart[mid] <= u0) first = mid; else hi = mid;
+  }
+  // Unit u, walking `item` forward from the unit before (units rise).
+  auto locate = [&](int u, int& item) {
+    while (ustart[item + 1] <= u) ++item;
+    Unit w;
+    w.p0 = items[3 * item] + (u - ustart[item]) * kUnitPairs;
+    w.p1 = min(w.p0 + kUnitPairs, items[3 * item + 1]);
+    w.cluster = items[3 * item + 2];
+    return w;
+  };
+
+  // Staging walks ahead of the tests: each call finds the next unit whose
+  // cluster differs from the last one staged and starts its copy into the
+  // next ring stage. One commit group a call, empty or not, so the waits
+  // can count.
+  int staged = 0, s_unit = u0, s_item = first, s_cluster = -1;
+  auto stage_next = [&]() {
+    for (; s_unit < u1; ++s_unit) {
+      const Unit w = locate(s_unit, s_item);
+      if (w.cluster != s_cluster) {
+        stage_async(ring + (staged % kRingStages) * stage_f4,
+                    G3 + static_cast<size_t>(w.cluster) * rows * kFeat, rows);
+        s_cluster = w.cluster;
+        ++staged;
+        ++s_unit;
+        break;
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sub = lane % kColSplit, slot = lane / kColSplit;
+  const int low = (1 << (col_bits + 3)) - 1;
+  auto test = [&](const float4* g, const Unit& w) {
+    float f[2][10], tmin[2], tmax[2];
+    int p[2], rank_bits[2];
+    bool on[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      p[i] = w.p0 + warp * kWarpRays + slot + kWarpPairs * i;
+      on[i] = false;
+      if (p[i] < w.p1) {
+        const int word = load_ray(Fp, p[i], f[i], tmin[i], tmax[i]);
+        on[i] = (word & kClusterMask) == w.cluster;
+        rank_bits[i] = static_cast<int>(static_cast<unsigned>(word) >> kRankShift)
+                       << col_bits;
+      }
+      if (!on[i]) {
+#pragma unroll
+        for (int q = 0; q < 10; ++q) f[i][q] = 0.0f;
+        tmin[i] = tmax[i] = 0.0f;
+        rank_bits[i] = 0;
+      }
+    }
+    if (!__any_sync(0xffffffffu, on[0] || on[1])) return;
+    int m[2] = {kIntMax, kIntMax};
+    if (on[0] || on[1]) {
+#pragma unroll 2
+      for (int c = sub; c < C; c += kColSplit) {
+        bool inside[2];
+        float ad[2], ts[2];
+        decode2(g, c, C, f, inside, ad, ts);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          // Only a column that passes every test packs a word (with the
+          // IEEE reciprocal): a failed one would pack 3e38, above the miss
+          // marker the minimum is clamped to.
+          if (inside[i] && ts[i] > ad[i] * tmin[i] &&
+              (!Guard || ts[i] < ad[i] * tmax[i])) {
+            const float score = ts[i] * __frcp_rn(ad[i]);
+            m[i] = min(m[i], (__float_as_int(score) & ~low) | rank_bits[i] | c);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int o = 1; o < kColSplit; o <<= 1)
+        m[i] = min(m[i], __shfl_xor_sync(0xffffffffu, m[i], o));
+      if (sub == 0 && on[i]) out[p[i]] = min(m[i], kMissBits);
+    }
+  };
+
+  stage_next();
+  stage_next();
+  cp_async_wait<1>();  // the first cluster has landed
+  __syncthreads();
+  int item = first, segment = -1, cluster = -1;
+  for (int u = u0; u < u1; ++u) {
+    const Unit w = locate(u, item);
+    if (w.cluster != cluster) {
+      if (segment >= 0) {
+        cp_async_wait<0>();  // the next cluster has landed
+        // After the barrier every thread's copies are visible and the
+        // stage of the cluster just left is free for the one after next.
+        __syncthreads();
+        stage_next();
+      }
+      ++segment;
+      cluster = w.cluster;
+    }
+    test(ring + (segment % kRingStages) * stage_f4, w);
+  }
+  cp_async_wait<0>();
+  if (stats != nullptr && threadIdx.x == 0) {
+    atomicAdd(stats, static_cast<unsigned long long>(u1 - u0));
+    atomicAdd(stats + 1, 1ULL);
+    atomicAdd(stats + 2, static_cast<unsigned long long>(staged));
+  }
+}
+
+template <bool Guard>
+int launch(const float* Fp, const float* G3, const int* items, int* ustart,
+           int* out, unsigned long long* stats, int n_items, int P, int C,
+           int col_bits, cudaStream_t stream) {
+  // The CTAs of this kernel the card holds at once (asked once).
+  static int resident = 0;
+  auto kernel = pair_hit_kernel<Guard>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ring_bytes(kMaxC));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kCtaThreads, ring_bytes(kMaxC))) != cudaSuccess)
+      return static_cast<int>(e);
+    if (sms * per_sm <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    resident = sms * per_sm;
+  }
+  // No launch has more units than this; a CTA without a unit exits.
+  const long long most = n_items + static_cast<long long>(P) / kUnitPairs;
+  const int grid = static_cast<int>(most < resident ? most : resident);
+  kernel<<<grid, kCtaThreads, ring_bytes(C), stream>>>(
+      Fp, G3, items, ustart, out, stats, n_items, C, col_bits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -68,13 +272,25 @@ pair_hit_kernel(const float* __restrict__ Fp, const float* __restrict__ G3,
 
 // Fp (P, 16) pair feature rows [d, o, d x o, 1, tmin, tmax, lane word,
 // 0...]; G3 (n_c, 4C, 16); items (n_items, 3) int32 [start, end, cluster];
-// out (P,) int32, pre-filled with the miss marker by the caller.
+// ustart (n_items + 1,) int32 scratch; out (P,) int32, pre-filled with the
+// miss marker by the caller. stats (nullable, 3 counters) gains the work
+// units, the CTAs that took any, and the clusters staged.
 extern "C" int racc_pair_hit(const float* Fp, const float* G3, const int* items,
-                             int n_items, int* out, int C, int col_bits,
-                             int guard_tmax, void* stream) {
-  if (C < 1 || C > racc::kMaxC) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_items == 0) return static_cast<int>(cudaSuccess);
-  racc::pair_hit_kernel<<<n_items, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      Fp, G3, items, out, C, col_bits, guard_tmax);
-  return static_cast<int>(cudaGetLastError());
+                             int* ustart, int n_items, int* out,
+                             unsigned long long* stats, int P, int n_c, int C,
+                             int col_bits, int guard_tmax, void* stream) {
+  using namespace racc;
+  if (C < 1 || C > kMaxC || n_items < 0 || P < 0 || n_c < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_items == 0 || P == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  pair_hit_units_kernel<<<1, kScanThreads, 0, st>>>(items, n_items, n_c, P,
+                                                   ustart);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return guard_tmax
+             ? launch<true>(Fp, G3, items, ustart, out, stats, n_items, P, C,
+                            col_bits, st)
+             : launch<false>(Fp, G3, items, ustart, out, stats, n_items, P, C,
+                             col_bits, st);
 }

@@ -24,9 +24,14 @@ t-shrink on restarts, and the occlusion OR-merged across passes.
 The JAX wrappers dispatched over static capacity ladders (pair buckets,
 item buckets, live-tile buckets) because a Pallas grid is static. Here a
 pass reads its pair and item counts on the host (one sync each) and sizes
-its launches to them; the caps that truncate, and so the overflow counts,
-are the JAX package's. Restart widths keep the JAX ladder, whose top
-bucket bounds how many rays one pass takes.
+its pair arrays to them; the caps that truncate, and so the overflow
+counts, are the JAX package's. Restart widths keep the JAX ladder, whose
+top bucket bounds how many rays one pass takes, so the kernels meet
+launches from 1,024 lanes to the whole pool. Both size themselves to the
+launch inside their launchers: K2 splits a lane's boxes across 1-32
+threads by the launch width and answers dead lanes without testing them;
+K3 cuts the runs into work units of 64 pairs and spreads them over a grid
+the size of the card.
 """
 
 from __future__ import annotations
@@ -50,7 +55,8 @@ _INT_MIN = -0x80000000
 
 # ---------------------------------------------------------------- K2 ----
 
-def select_nearest(F8, prev, live, bb, k: int, id_bits: int) -> torch.Tensor:
+def select_nearest(F8, prev, live, bb, k: int, id_bits: int, *,
+                   tested=None) -> torch.Tensor:
     """K2: fused cull + nearest-k select.
 
     F8 (R, 8) float32 rows [o, inv_d, tmin, tmax_eff]; prev (R,) int32
@@ -61,63 +67,124 @@ def select_nearest(F8, prev, live, bb, k: int, id_bits: int) -> torch.Tensor:
     order, row k the (k+1)-th (the spill word), row k+1 the number of
     overlapped clusters. Dead lanes get 0x7FFFFFFF words and count 0.
 
-    On a CUDA tensor this launches ``csrc/select_nearest.cu``; on a CPU
+    On a CUDA tensor this launches ``csrc/select_nearest.cu``, whose
+    launcher picks from R how many threads share a lane's boxes
+    (:func:`select_split`); ``tested`` (optional, a (1,) int64 CUDA tensor)
+    gains the lanes that ran the box loop (the rest are lanes of dead
+    tiles, or dead lanes answered by :func:`dead_lane_words`). On a CPU
     tensor it runs :func:`select_nearest_plain`."""
     if F8.device.type == "cpu":
         return select_nearest_plain(F8, prev, live, bb, k, id_bits)
+    return _launch_select(F8, prev, live, bb, k, id_bits, 0, tested)
+
+
+select_nearest.launches = 0
+
+
+def _launch_select(F8, prev, live, bb, k: int, id_bits: int, split: int,
+                   tested) -> torch.Tensor:
+    """Validate K2's arguments and launch it. ``split`` 0 leaves the split
+    to the launcher, as every caller of the package does; the card tests
+    force each power of two up to 32 to hold it against the plain
+    version."""
     R = F8.shape[0]
     n_cp = bb.shape[0]
     _kernels.require(F8, "F8", torch.float32, (R, 8))
     _kernels.require(prev, "prev", torch.int32, (R,))
     _kernels.require(live, "live", torch.uint8, (R,))
     _kernels.require(bb, "bb", torch.float32, (n_cp, 6))
+    if tested is not None:
+        _kernels.require(tested, "tested", torch.int64, (1,))
     if not 1 <= k <= 8:
         raise ValueError(f"k must be in [1, 8], got {k}")
-    out = torch.empty((k + 2, R), dtype=torch.int32, device=F8.device)
+    if split not in (0, 1, 2, 4, 8, 16, 32):
+        raise ValueError(f"split must be a power of two up to 32, got {split}")
     lib = _kernels.library()
+    most = lib.racc_select_max_boxes()
+    if not 1 <= n_cp <= most:
+        raise ValueError(
+            f"bb holds {n_cp} boxes; the select kernel keeps them all in "
+            f"one CTA's shared memory (24 bytes a box) and takes 1 to {most}")
+    out = torch.empty((k + 2, R), dtype=torch.int32, device=F8.device)
     _kernels.check(lib.racc_select_nearest(
         _kernels.ptr(F8), _kernels.ptr(prev), _kernels.ptr(live),
-        _kernels.ptr(bb), _kernels.ptr(out), R, n_cp, id_bits, k,
-        _kernels.stream()), "racc_select_nearest")
+        _kernels.ptr(bb), _kernels.ptr(out),
+        None if tested is None else _kernels.ptr(tested), R, n_cp, id_bits,
+        k, split, _kernels.stream()), "racc_select_nearest")
     select_nearest.launches += 1
     return out
 
 
-select_nearest.launches = 0
+def select_split(R: int) -> int:
+    """The threads that share a lane's boxes in a K2 launch of R lanes, as
+    the kernel's launcher picks them (from R and the card alone)."""
+    return int(_kernels.library().racc_select_split(R))
+
+
+def _packed_entries(f, prev, bb, id_bits: int):
+    """(n, n_cp) int32: every box's packed (entry bits | box id) word for
+    the rays ``f`` (rows of F8), 0x7FFFFFFF where below ``prev``."""
+    n_cp = bb.shape[0]
+    low = (1 << id_bits) - 1
+    ids = torch.arange(n_cp, dtype=torch.int32, device=f.device)
+    t0 = f[:, 6:7].expand(-1, n_cp)
+    t1 = f[:, 7:8].expand(-1, n_cp)
+    for a in range(3):
+        tn = (bb[None, :, a] - f[:, a:a + 1]) * f[:, 3 + a:4 + a]
+        tf = (bb[None, :, 3 + a] - f[:, a:a + 1]) * f[:, 3 + a:4 + a]
+        t0 = torch.maximum(t0, torch.minimum(tn, tf))
+        t1 = torch.minimum(t1, torch.maximum(tn, tf))
+    # "+ 0.0" turns a -0.0 entry into +0.0, as the kernel does.
+    e = torch.where(t0 <= t1, torch.clamp_min(t0, 0.0) + 0.0,
+                    torch.full_like(t0, float("inf")))
+    ep = (e.view(torch.int32) & ~low) | ids
+    return torch.where(ep >= prev[:, None], ep, torch.full_like(ep, _NONE))
+
+
+def _smallest(words, n: int):
+    """The n smallest of each row of ``words`` in order, 0x7FFFFFFF where a
+    row has fewer."""
+    short = n - words.shape[1]
+    if short > 0:
+        words = torch.nn.functional.pad(words, (0, short), value=_NONE)
+    return torch.topk(words, n, dim=1, largest=False, sorted=True).values
 
 
 def select_nearest_plain(F8, prev, live, bb, k: int, id_bits: int,
-                         chunk: int = 32768) -> torch.Tensor:
+                         chunk: int = 32768, split: int = 1) -> torch.Tensor:
     """Plain torch version of K2, over chunks of rays (an (R, n_cp) entry
-    matrix at frame width would be gigabytes)."""
+    matrix at frame width would be gigabytes). ``split`` is the kernel's
+    box split: part s of ``split`` takes boxes s, s + split, ..., keeps its
+    own k + 1 smallest words and its count, and the parts are merged. It
+    never changes the answer (the words are distinct), which
+    tests/test_torch_split.py holds."""
     R = F8.shape[0]
-    n_cp = bb.shape[0]
-    low = (1 << id_bits) - 1
-    ids = torch.arange(n_cp, dtype=torch.int32, device=F8.device)
     out = torch.empty((k + 2, R), dtype=torch.int32, device=F8.device)
     for s in range(0, R, chunk):
-        f = F8[s:s + chunk]
-        t0 = f[:, 6:7].expand(-1, n_cp)
-        t1 = f[:, 7:8].expand(-1, n_cp)
-        for a in range(3):
-            tn = (bb[None, :, a] - f[:, a:a + 1]) * f[:, 3 + a:4 + a]
-            tf = (bb[None, :, 3 + a] - f[:, a:a + 1]) * f[:, 3 + a:4 + a]
-            t0 = torch.maximum(t0, torch.minimum(tn, tf))
-            t1 = torch.minimum(t1, torch.maximum(tn, tf))
-        # "+ 0.0" turns a -0.0 entry into +0.0, as the kernel does.
-        e = torch.where(t0 <= t1, torch.clamp_min(t0, 0.0) + 0.0,
-                        torch.full_like(t0, float("inf")))
-        ep = (e.view(torch.int32) & ~low) | ids
-        ep = torch.where(ep >= prev[s:s + chunk, None], ep,
-                         torch.full_like(ep, _NONE))
-        cnt = (ep < _INF_PACK).sum(dim=1).to(torch.int32)
-        top = torch.topk(ep, k + 1, dim=1, largest=False, sorted=True).values
+        ep = _packed_entries(F8[s:s + chunk], prev[s:s + chunk], bb, id_bits)
+        parts = [ep[:, p::split] for p in range(split)]
+        cnt = sum((part < _INF_PACK).sum(dim=1) for part in parts)
+        top = _smallest(torch.cat([_smallest(part, k + 1) for part in parts],
+                                  dim=1) if split > 1 else ep, k + 1)
         dead = live[s:s + chunk] == 0
         top[dead] = _NONE
         cnt[dead] = 0
         out[:k + 1, s:s + chunk] = top.T
-        out[k + 1, s:s + chunk] = cnt
+        out[k + 1, s:s + chunk] = cnt.to(torch.int32)
     return out
+
+
+def dead_lane_words(prev, n_cp: int, k: int) -> torch.Tensor:
+    """(k + 2, n) int32: K2's answer for dead lanes of a live tile, in the
+    closed form the kernel writes without testing a box. A lane whose
+    window is empty (tmax_eff < tmin, neither a NaN) overlaps nothing, so
+    box c's word is 0x7F800000 | c, dropped when below ``prev``; the k + 1
+    smallest are the boxes from max(0, prev - 0x7F800000) on, 0x7FFFFFFF
+    past the last box, and the count is 0."""
+    first = torch.clamp_min(prev.to(torch.int64) - _INF_PACK, 0)
+    c = first[None, :] + torch.arange(k + 1, device=prev.device)[:, None]
+    words = torch.where(c < n_cp, c | _INF_PACK, _NONE).to(torch.int32)
+    return torch.cat([words, torch.zeros_like(words[:1])])
 
 
 def _select_tile(R: int, n_cp: int) -> int:
@@ -154,7 +221,8 @@ def _select(cs: ClusterScene, o, inv_d, tmin, tmax_eff, k: int,
 
 # ---------------------------------------------------------------- K3 ----
 
-def pair_hit(Fp, G3, items, col_bits: int, guard_tmax: bool) -> torch.Tensor:
+def pair_hit(Fp, G3, items, col_bits: int, guard_tmax: bool, *,
+             stats=None) -> torch.Tensor:
     """K3: the pair kernel.
 
     Fp (P, 16) float32 pair rows [d, o, d x o, 1, tmin, tmax, lane word,
@@ -166,26 +234,38 @@ def pair_hit(Fp, G3, items, col_bits: int, guard_tmax: bool) -> torch.Tensor:
     miss marker 0x7F000000 elsewhere. ``guard_tmax`` adds the exact
     t < tmax test (the any-hit form).
 
-    On a CUDA tensor this launches ``csrc/pair_hit.cu``, one CTA per item
-    (the caller counted the items on the host); on a CPU tensor it runs
-    :func:`pair_hit_plain`. ``pair_hit.guard_launches`` counts the
+    On a CUDA tensor this launches ``csrc/pair_hit.cu``: a one-CTA pass
+    cuts the runs into work units of 64 pairs, and a grid the size of the
+    card shares the units out, each CTA staging a cluster once for the
+    consecutive units that name it. Nothing is read on the host.
+    ``stats`` (optional, a (3,) int64 CUDA tensor) gains the work units,
+    the CTAs that took any and the clusters staged. On a CPU tensor it
+    runs :func:`pair_hit_plain`. ``pair_hit.guard_launches`` counts the
     launches with ``guard_tmax`` (the any-hit form) among
     ``pair_hit.launches``."""
     if Fp.device.type == "cpu":
         return pair_hit_plain(Fp, G3, items, col_bits, guard_tmax)
     P = Fp.shape[0]
+    n_items = items.shape[0]
     _kernels.require(Fp, "Fp", torch.float32, (P, 16))
     _kernels.require(G3, "G3", torch.float32)
-    _kernels.require(items, "items", torch.int32)
+    if G3.dim() != 3 or G3.shape[1] % 4 or G3.shape[2] != 16:
+        raise ValueError(f"G3 must have shape (n_c, 4C, 16), got "
+                         f"{tuple(G3.shape)}")
+    _kernels.require(items, "items", torch.int32, (n_items, 3))
+    if stats is not None:
+        _kernels.require(stats, "stats", torch.int64, (3,))
     out = torch.full((P,), _MISS_BITS, dtype=torch.int32, device=Fp.device)
-    n_items = items.shape[0]
-    if n_items == 0:
+    if n_items == 0 or P == 0:
         return out
+    unit_start = torch.empty(n_items + 1, dtype=torch.int32, device=Fp.device)
     lib = _kernels.library()
     _kernels.check(lib.racc_pair_hit(
-        _kernels.ptr(Fp), _kernels.ptr(G3), _kernels.ptr(items), n_items,
-        _kernels.ptr(out), G3.shape[1] // 4, col_bits, int(guard_tmax),
-        _kernels.stream()), "racc_pair_hit")
+        _kernels.ptr(Fp), _kernels.ptr(G3), _kernels.ptr(items),
+        _kernels.ptr(unit_start), n_items, _kernels.ptr(out),
+        None if stats is None else _kernels.ptr(stats), P, G3.shape[0],
+        G3.shape[1] // 4, col_bits, int(guard_tmax), _kernels.stream()),
+        "racc_pair_hit")
     pair_hit.launches += 1
     pair_hit.guard_launches += bool(guard_tmax)
     return out
@@ -196,11 +276,13 @@ pair_hit.guard_launches = 0
 
 
 def pair_hit_plain(Fp, G3, items, col_bits: int, guard_tmax: bool,
-                   chunk: int = 4096) -> torch.Tensor:
+                   chunk: int = 4096, col_split: int = 1) -> torch.Tensor:
     """Plain torch version of K3, over chunks of covered pairs. The
     bilinear products are summed feature by feature with elementwise
     operations, so a pair's result does not depend on where it sits in the
-    array."""
+    array. ``col_split`` is the kernel's column split: part s takes columns
+    s, s + col_split, ... and the parts' packed minima are merged; it never
+    changes the answer (tests/test_torch_split.py)."""
     P = Fp.shape[0]
     C = G3.shape[1] // 4
     out = torch.full((P,), _MISS_BITS, dtype=torch.int32, device=Fp.device)
@@ -238,7 +320,9 @@ def pair_hit_plain(Fp, G3, items, col_bits: int, guard_tmax: bool,
                             torch.full_like(ts, 3e38))
         rank = (lanes[q] >> _RANK_SHIFT) << col_bits
         sp = (score.view(torch.int32) & ~low) | rank[:, None] | col
-        out[q] = torch.clamp_max(sp.amin(dim=1), _MISS_BITS)
+        parts = torch.stack([sp[:, p::col_split].amin(dim=1)
+                             for p in range(col_split)])
+        out[q] = torch.clamp_max(parts.amin(dim=0), _MISS_BITS)
     return out
 
 

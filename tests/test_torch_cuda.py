@@ -45,7 +45,8 @@ def scenes(scene_data, cuda):
 
 def _rays(cs, n, seed, device):
     rs = np.random.default_rng(seed)
-    lo, hi = cs.cl_bbmin.amin(0).numpy(), cs.cl_bbmax.amax(0).numpy()
+    lo, hi = (cs.cl_bbmin.amin(0).cpu().numpy(),
+              cs.cl_bbmax.amax(0).cpu().numpy())
     o = rs.uniform(lo, hi, (n, 3)).astype(np.float32)
     d = rs.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
@@ -145,10 +146,181 @@ def test_launch_validates_arguments(cuda, scenes):
     """A CUDA launch checks its arguments and raises; it never falls back
     to the plain version."""
     _, gpu_cs = scenes
+    Fp = torch.zeros((4, 16), device=cuda)
     with pytest.raises(ValueError, match="items"):
-        sparse.pair_hit(torch.zeros((4, 16), device=cuda), gpu_cs.G3,
+        sparse.pair_hit(Fp, gpu_cs.G3,
                         torch.zeros((1, 3), dtype=torch.int64, device=cuda),
                         7, False)
+    with pytest.raises(ValueError, match="items"):
+        sparse.pair_hit(Fp, gpu_cs.G3,
+                        torch.zeros((1, 2), dtype=torch.int32, device=cuda),
+                        7, False)
+    with pytest.raises(ValueError, match="G3"):
+        sparse.pair_hit(Fp, gpu_cs.G3[:, :, :10].contiguous(),
+                        torch.zeros((1, 3), dtype=torch.int32, device=cuda),
+                        7, False)
+    with pytest.raises(ValueError, match="takes 1 to"):
+        sparse.select_nearest(
+            torch.zeros((8, 8), device=cuda),
+            torch.zeros(8, dtype=torch.int32, device=cuda),
+            torch.ones(8, dtype=torch.uint8, device=cuda),
+            torch.zeros((1 << 14, 6), device=cuda), 4, 14)
+
+
+def _restart_select_inputs(cs, R, seed):
+    """K2's arguments for a restart-style launch of R lanes, on the CPU:
+    scattered rays whose last third is dead padding, with warps and single
+    lanes of dead rays inside live tiles and a few empty windows with both
+    ends positive; prev is a first pass's spill words (k = 4)."""
+    r = _rays(cs, R, seed, "cpu")
+    lane = torch.arange(R)
+    tmin = r.tmin.clone()
+    tmax = torch.where(lane % 7 == 0, -1.0, r.tmax)
+    tmax[(lane // 64) % 3 == 1] = -1.0           # whole warps dead
+    tmax[R - R // 3:] = -1.0                     # padding lanes
+    tmin[5:R:97], tmax[5:R:97] = 6.0, 2.0
+    tmax[1024:2048] = -1.0                       # a dead select tile
+    n_cp = cs.bb.shape[0]
+    id_bits = max((n_cp - 1).bit_length(), 1)
+    tile = sparse._select_tile(R, n_cp)
+    live = ((tmax > 0).reshape(-1, tile).any(dim=1).repeat_interleave(tile)
+            .to(torch.uint8))
+    F8 = torch.cat([r.o, 1 / r.d, tmin[:, None], tmax[:, None]], dim=1)
+    none = torch.full((R,), -0x80000000, dtype=torch.int32)
+    prev = sparse.select_nearest_plain(F8, none, live, cs.bb, 4,
+                                       id_bits)[4].contiguous()
+    return F8, prev, live, cs.bb, id_bits
+
+
+def _on(device, *tensors):
+    return tuple(t.to(device) for t in tensors)
+
+
+@pytest.mark.parametrize("R", [1024, 4096, 65536])
+def test_select_kernel_bitwise_at_launch_widths(cuda, scenes, R):
+    """K2 at the widths of the bounce loop's restart passes, at the split
+    its launcher picks: bitwise equal to the plain version, and only the
+    lanes that are neither in a dead tile nor dead ran the box loop."""
+    cpu_cs, _ = scenes
+    F8, prev, live, bb, id_bits = _restart_select_inputs(cpu_cs, R, R)
+    need = int(((live == 1) & ~(F8[:, 7] < F8[:, 6])).sum())
+    assert 0 < need < R and (R == 1024 or (live == 0).any())
+    assert sparse.select_split(R) > sparse.select_split(1 << 20) == 1
+    for k in (4, 8):
+        want = sparse.select_nearest_plain(F8, prev, live, bb, k, id_bits)
+        tested = torch.zeros(1, dtype=torch.int64, device=cuda)
+        got = sparse.select_nearest(*_on(cuda, F8, prev, live, bb), k,
+                                    id_bits, tested=tested)
+        assert torch.equal(got.cpu(), want)
+        assert int(tested) == need
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8, 16, 32])
+def test_select_kernel_bitwise_at_every_split(cuda, scenes, split):
+    """Every split the launcher can pick, forced, on all the boxes and on
+    the first 13 (fewer boxes than threads on a lane, and than k + 1 on
+    each)."""
+    cpu_cs, _ = scenes
+    F8, prev, live, bb, id_bits = _restart_select_inputs(cpu_cs, 4096, split)
+    for boxes in (bb, bb[:13].contiguous()):
+        for k in (1, 3, 4, 6, 8):
+            want = sparse.select_nearest_plain(F8, prev, live, boxes, k,
+                                               id_bits)
+            got = sparse._launch_select(*_on(cuda, F8, prev, live, boxes), k,
+                                        id_bits, split, None)
+            assert torch.equal(got.cpu(), want)
+
+
+def _pair_case(cs, R, seed, device):
+    """Pairs of a k = 8 pass over R scattered rays, as _sparse_pass builds
+    them at SP = 512, and the same runs cut into items of 1-5 pairs."""
+    r = _rays(cs, R, seed, device)
+    tmax = torch.full_like(r.tmax, 9.0)
+    lat_valid, lat_id, _, _ = sparse._select(cs, r.o, 1 / r.d, r.tmin, tmax, 8)
+    cl, ray, rank, _ = sparse._lattice_pairs(lat_valid, lat_id, 8 * R)
+    Fp, items = sparse._pair_inputs(r.o, r.d, r.tmin, tmax, cl, ray, rank,
+                                    512)
+    rs = np.random.default_rng(seed)
+    cuts = []
+    for s, e, c in items.tolist():
+        while s < e:
+            n = min(int(rs.integers(1, 6)), e - s)
+            cuts.append((s, s + n, c))
+            s += n
+    short = torch.tensor(cuts, dtype=torch.int32, device=device)
+    return Fp, items, short
+
+
+def _same_words(got, want, low):
+    """Packed pair words at the oracle bar: hit or miss agrees on >= 99.95%
+    of pairs and the score (the word without its rank and column bits) is
+    within 1e-3 relative on >= 99.95% of common hits."""
+    hg, hw = got < sparse._MISS_BITS, want < sparse._MISS_BITS
+    assert hw.any() and not hw.all()
+    assert (hg == hw).float().mean() >= 0.9995
+    both = hg & hw
+    tg = (got & ~low).view(torch.float32)[both]
+    tw = (want & ~low).view(torch.float32)[both]
+    assert (((tg - tw).abs() / tw.clamp_min(1e-6)) < 1e-3).float().mean() \
+        >= 0.9995
+
+
+@pytest.mark.parametrize("guard_tmax", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("R", [1024, 4096, 65536])
+def test_pair_kernel_matches_plain_at_launch_widths(cuda, scenes, R,
+                                                    guard_tmax):
+    """K3 against its plain version (both on the card) on runs longer than
+    one work unit, a cluster on both sides of an SP boundary, and the same
+    pairs as items of 1-5; the counters report every unit and at most one
+    staging a unit."""
+    _, cs = scenes
+    Fp, items, short = _pair_case(cs, R, R, cuda)
+    runs = items[:, 1] - items[:, 0]
+    if R > 1024:
+        assert (runs > 64).any()
+        assert ((items[1:, 2] == items[:-1, 2])
+                & (items[1:, 0] % 512 == 0)).any()
+    assert ((short[:, 1] - short[:, 0]) <= 5).all()
+    col_bits = max((cs.cluster_size - 1).bit_length(), 1)
+    low = (1 << (col_bits + 3)) - 1
+    want = sparse.pair_hit_plain(Fp, cs.G3, items, col_bits, guard_tmax)
+    for it in (items, short):
+        stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+        got = sparse.pair_hit(Fp, cs.G3, it, col_bits, guard_tmax,
+                              stats=stats)
+        _same_words(got, want, low)
+        units, ctas, staged = stats.tolist()
+        assert units == int(((it[:, 1] - it[:, 0] + 63) // 64).sum())
+        assert 0 < ctas <= units and ctas <= staged <= units
+    part = sparse.pair_hit(Fp, cs.G3, items[::2].contiguous(), col_bits,
+                           guard_tmax)
+    covered = torch.zeros(Fp.shape[0], dtype=torch.bool, device=cuda)
+    for s, e, _ in items[::2].tolist():
+        covered[s:e] = True
+    assert torch.equal(part[covered], sparse.pair_hit(
+        Fp, cs.G3, items, col_bits, guard_tmax)[covered])
+    assert (part[~covered] == sparse._MISS_BITS).all()
+
+
+def test_pair_kernel_matches_plain_on_small_clusters(cuda, scene_data):
+    """K3 on clusters of 16 triangles (a ring stage of 3 KB)."""
+    cs = cluster_scene_from_numpy(
+        **compile_clusters_np(scene_data, cluster_size=16), device=cuda)
+    Fp, items, short = _pair_case(cs, 4096, 7, cuda)
+    col_bits = max((cs.cluster_size - 1).bit_length(), 1)
+    want = sparse.pair_hit_plain(Fp, cs.G3, items, col_bits, False)
+    for it in (items, short):
+        _same_words(sparse.pair_hit(Fp, cs.G3, it, col_bits, False), want,
+                    (1 << (col_bits + 3)) - 1)
+
+
+def test_pair_kernel_without_items_writes_misses(cuda, scenes):
+    _, cs = scenes
+    Fp, items, _ = _pair_case(cs, 1024, 3, cuda)
+    launches = sparse.pair_hit.launches
+    out = sparse.pair_hit(Fp, cs.G3, items[:0], 7, False)
+    assert sparse.pair_hit.launches == launches
+    assert out.shape == (Fp.shape[0],) and (out == sparse._MISS_BITS).all()
 
 
 def _primaries(sd, n, device):
