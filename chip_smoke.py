@@ -52,7 +52,29 @@ is missing. Phases, one JSON line each:
 8. gate ``whitted_gate``: ``WhittedRenderer(shadows=True)`` at depth 8 and
    320x180, one frame on the card and on the host CPU with the same key,
    through the two-class gate; on the card all four kernels, and K3 in
-   its tmax-guarded any-hit form, must launch.
+   its tmax-guarded any-hit form, must launch;
+9. slice ``pt_wave``: ``PathTracingRenderer`` with ``regroup=False`` at
+   1280x720, depth 2: every wave traced to completion on its own (K1
+   primaries, K2 + K3 bounces), one warm-up and two timed frames; K1, K2
+   and K3 must launch, ``dropped`` 0;
+10. ``pt_stratified``: the pooled path tracer with ``sampler="stratified"``
+    at 1280x720, depth 2: frame ms, ``dropped`` 0, and the host ms of one
+    wave's jitter alone;
+11. ``whitted_wave``: ``whitted_trace_wave`` with its between-bounce
+    regroup and shadows at depth 4 on one 65,536-lane wave (the parked
+    stacks move with the lanes, each bounce traces the live prefix): all
+    four kernels must launch, ``dropped`` 0, and the radiance must pass
+    the two-class gate against the same wave without the regroup;
+12. ``engines``: the plain engines (``mxu``, ``xla``, ``bruteforce``) and
+    sparse primaries on the full scene, one wave of the 320x180 viewport:
+    each engine's hits against the dense engine's on the same rays by the
+    oracle bar, ``trace_occlusion_mxu`` and ``trace_occlusion_bvh`` flags
+    against K4's on the wave's shadow rays (>= 99.95%), and each engine's
+    ms for the wave;
+13. gate ``wave_gate``: the per-wave path tracer at 320x180 and 2 spp, card
+    against host CPU with the same keys, through the two-class gate;
+14. ``scene_io``: ``save_scene`` / ``load_scene`` round trip of the scene
+    through a temporary file, arrays bitwise equal.
 
 Each slice sets every launch count to 0 just before its timed frames and
 reads them just after. After them, each slice renders two more frames:
@@ -62,7 +84,8 @@ must launch and whose device time reads 0 fails the run), and one in which
 every kernel launch keeps a copy of its inputs; each launch is then timed
 again alone at its own width and its bound taken from its own inputs (the
 ``launches`` line: per kernel, ms, bound ms and share summed over the
-frame's launches, and the gap, ms - bound ms). Then the kernel table as
+frame's launches, and the gap, ms - bound ms); ``pt_stratified`` renders
+its timed frames only. Then the kernel table as
 one JSON line (each row with its launches, ms, bound ms and gap per frame
 of each slice from those lines), and last ``{"ok": true, "device":
 {...}}``. A failing phase raises.
@@ -72,6 +95,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -306,12 +330,19 @@ def main() -> int:
     from rayaccel_tpu_torch.ops import _kernels
     from rayaccel_tpu_torch.ops import trace_dense as dense
     from rayaccel_tpu_torch.ops import trace_sparse as sparse
+    from rayaccel_tpu_torch.ops.bruteforce import trace_bruteforce
     from rayaccel_tpu_torch.ops.intersect import safe_inv_dir
+    from rayaccel_tpu_torch.ops.trace import trace_bvh, trace_occlusion_bvh
+    from rayaccel_tpu_torch.ops.trace_mxu import (trace_mxu,
+                                                  trace_occlusion_mxu)
     from rayaccel_tpu_torch.render import pathtracer, whitted
     from rayaccel_tpu_torch.render.shading import surface_from_attrs
     from rayaccel_tpu_torch.scene.clusters import (cluster_scene_from_numpy,
                                                    compile_clusters_np)
-    from rayaccel_tpu_torch.scene.loader import make_battlefield_like
+    from rayaccel_tpu_torch.scene.compile import compile_scene
+    from rayaccel_tpu_torch.scene.loader import (load_scene,
+                                                 make_battlefield_like,
+                                                 save_scene)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -343,7 +374,7 @@ def main() -> int:
     cam = racc.Camera.look_at(sd.cam_origin, sd.cam_dir, sd.cam_up,
                               sd.cam_fov, sd.viewport_width,
                               sd.viewport_height)
-    renderer = racc.PathTracingRenderer(ctx, cam, sd, cluster_scene=cs)
+    renderer = racc.PathTracingRenderer(ctx, cam, sd, tpu_scene=cs)
     opts = ctx.configuration.engine_opts()
     emit(dict(phase="scene", seconds=time.perf_counter() - t0,
               triangles=sd.triangle_count, clusters=cs.n_clusters,
@@ -630,11 +661,13 @@ def main() -> int:
             raise AssertionError(f"{name}: {missing} never launched: "
                                  f"{launches}")
 
-    def drive(name, renderer, keys, needed, **extra):
+    def drive(name, renderer, keys, needed, deep=True, **extra):
         """One warm-up frame, then ``keys`` timed, with every launch count
         set to 0 just before them and read just after. Emits the slice's
         line; raises unless each kernel in ``needed`` launched, ``dropped``
-        is 0 and the image is finite and not black."""
+        is 0 and the image is finite and not black. With ``deep``, the
+        slice's profiled frame and launch frame follow and its counts enter
+        the kernel table."""
         torch.cuda.reset_peak_memory_stats()
         renderer.render_frame(rng.PRNGKey(100))          # warm-up
         torch.cuda.synchronize()
@@ -664,6 +697,8 @@ def main() -> int:
         require_launches(name, launches, needed)
         if not (line["image_finite"] and line["image_max"] > 0):
             raise AssertionError(f"{name} image is not finite or is black")
+        if not deep:
+            return
         kernel_ms = profile_frame(name, renderer, line["frame_ms"])
         unseen = [k for k in needed if not kernel_ms[k] > 0]
         if unseen:
@@ -755,16 +790,17 @@ def main() -> int:
                            "viewport_height": height,
                            "max_depth": max_depth})
 
-    def renderer_on(cls, scene, **kw):
-        """A factory of ``cls`` renderers of ``scene`` on a device, with the
-        default configuration and the headline cluster scene."""
+    def renderer_on(cls, scene, config=None, **kw):
+        """A factory of ``cls`` renderers of ``scene`` on a device, with
+        ``config`` (default: the default configuration) and the headline
+        cluster scene."""
         def make(device):
-            c = racc.create_context(racc.default_configuration(),
+            c = racc.create_context(config or racc.default_configuration(),
                                     device=device)
             cam_s = racc.Camera.look_at(
                 scene.cam_origin, scene.cam_dir, scene.cam_up, scene.cam_fov,
                 scene.viewport_width, scene.viewport_height)
-            return cls(c, cam_s, scene, cluster_scene=(
+            return cls(c, cam_s, scene, tpu_scene=(
                 cs if device == dev else
                 cluster_scene_from_numpy(**arrays, device=device)), **kw)
         return make
@@ -808,7 +844,194 @@ def main() -> int:
                      ["dense_closest_hit", "dense_occluded", "select_nearest",
                       "pair_hit", "pair_hit_guard_tmax"])
 
-    # Launches of each kernel over the timed frames of the three slices and
+    def wall_ms(fn):
+        """Milliseconds of one ``fn()`` on the host's clock, the device
+        drained before and after. Returns (ms, result)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    # ---- 9. the per-wave path tracer (regroup=False) ----
+    per_wave = racc.Configuration(regroup=False)
+    drive("pt_wave",
+          renderer_on(racc.PathTracingRenderer, scene_at(*full, 2),
+                      per_wave)(dev),
+          [rng.PRNGKey(101 + i) for i in range(2)],
+          ["dense_closest_hit", "select_nearest", "pair_hit"])
+
+    # ---- 10. the stratified sampler on the pooled path (config 4) ----
+    r = renderer_on(racc.PathTracingRenderer, scene_at(*full, 2),
+                    racc.Configuration(sampler="stratified"))(dev)
+    drive("pt_stratified", r, [rng.PRNGKey(101 + i) for i in range(2)],
+          ["dense_closest_hit", "select_nearest", "pair_hit"], deep=False,
+          # One wave's rotation draws and jitter alone (host clock).
+          jitter_ms_a_wave=lambda: wall_ms(
+              lambda: pathtracer._stratified_jitter(
+                  r._wave_x[0], r._wave_y[0], 1, r._sampler_key))[0])
+    del r
+
+    # ---- 11. one wave of Whitted trees with the between-bounce regroup ----
+    probe = renderer_on(racc.WhittedRenderer, scene_at(*full, 4),
+                        shadows=True)(dev)
+    w = probe.n_waves // 2
+
+    def tree_wave(regroup):
+        return whitted.whitted_trace_wave(
+            cs, probe.environment, cam_arrays, probe._wave_x[w],
+            probe._wave_y[w], probe._wave_alive[w], rng.fold_in(key, w), 4,
+            stack_size=probe.stack_size, backend="pallas", tile=tile,
+            shadows=True, bounce_backend="sparse", regroup=regroup, opts=opts)
+
+    tree_wave(True)                                         # warm-up
+    reset_counts()
+    ms, (rad, traced, dropped) = wall_ms(lambda: tree_wave(True))
+    launches = read_counts()
+    flat_ms, (rad_flat, traced_flat, _) = wall_ms(lambda: tree_wave(False))
+    alive_w = probe._wave_alive[w].cpu().numpy()
+    line = two_class_gate(rad.cpu().numpy()[alive_w],
+                          rad_flat.cpu().numpy()[alive_w])
+    line.update(phase="whitted_wave", lanes=int(rad.shape[0]), max_depth=4,
+                stack_columns=probe.stack_size * 10, ms=ms,
+                no_regroup_ms=flat_ms, rays=int(traced),
+                rays_no_regroup=int(traced_flat), dropped=int(dropped),
+                launches=launches,
+                radiance_finite=bool(torch.isfinite(rad).all()),
+                radiance_max=float(rad.max()))
+    emit(line)
+    require_launches("whitted_wave", launches,
+                     ["dense_closest_hit", "dense_occluded", "select_nearest",
+                      "pair_hit", "pair_hit_guard_tmax"])
+    if not (line["dropped"] == 0 and line["radiance_finite"]
+            and line["radiance_max"] > 0 and line["rmse_trimmed"] < 1e-3
+            and line["frac_flip"] < 0.005):
+        raise AssertionError(f"whitted_wave failed: {line}")
+    del probe, rad, rad_flat
+
+    # ---- 12. the plain engines against the dense engine ----
+    t0 = time.perf_counter()
+    ts = compile_scene(sd, device=dev)
+    compile_s = time.perf_counter() - t0
+    small = renderer_on(racc.PathTracingRenderer, scene_at(320, 180, 2))(dev)
+    if small.n_waves != 1:
+        raise AssertionError("the 320x180 viewport is not one wave")
+    cam_small = small.camera.as_arrays(dev)
+    e_rays = pathtracer._primary_rays(cam_small, small._wave_x[0],
+                                      small._wave_y[0], rng.fold_in(key, 0))
+    e_alive = small._wave_alive[0]
+
+    def dense_hits():
+        return dense.trace_dense(cs, e_rays, active=e_alive, tile=tile,
+                                 k_step=opts.k_step, tile_cap=opts.tile_cap)
+
+    def sparse_hits():
+        return sparse.trace_sparse(
+            cs, e_rays, active=e_alive, k_pairs=opts.k_pairs,
+            pair_budget=opts.pair_budget, sp_tile=opts.sp_tile,
+            max_passes=opts.max_passes, k_first=opts.k_first,
+            k_restart=opts.k_restart)
+
+    dense_hits()                                            # warm-up
+    dense_ms, (ref_res, ref_ov) = wall_ms(dense_hits)
+    ref = ref_res.hits
+    engines = {
+        "sparse": lambda: sparse_hits()[0].hits,
+        "mxu": lambda: trace_mxu(cs, e_rays, active=e_alive, tile=tile).hits,
+        "xla": lambda: trace_bvh(ts, e_rays, active=e_alive),
+        # The oracle takes no mask: it is compared on the live lanes.
+        "bruteforce": lambda: trace_bruteforce(ts.tri_verts, e_rays),
+    }
+    engine_lines = {}
+    for name, fn in engines.items():
+        reset_counts()
+        ms, got = wall_ms(fn)
+        counts = read_counts()
+        st = hit_stats((got.tri >= 0)[e_alive], (ref.tri >= 0)[e_alive],
+                       got.tri[e_alive], ref.tri[e_alive], got.t[e_alive],
+                       ref.t[e_alive])
+        st.update(ms=ms, launches=counts)
+        engine_lines[name] = st
+        require_oracle_bar(f"engine {name}", st)
+        del got
+    sparse_ov = int(sparse_hits()[1])
+    plain_launched = {n: sum(engine_lines[n]["launches"].values())
+                      for n in ("mxu", "xla", "bruteforce")}
+    if any(plain_launched.values()):
+        raise AssertionError(f"a plain engine launched a kernel: "
+                             f"{plain_launched}")
+    require_launches("sparse primaries", engine_lines["sparse"]["launches"],
+                     ["select_nearest", "pair_hit"])
+
+    # The wave's shadow rays, as the Whitted step builds them.
+    e_surf = surface_from_attrs(ref_res.attrs, cs.mat_params, e_rays, ref)
+    e_srays = whitted.shadow_rays(e_surf)
+    e_sactive = e_alive & (ref.tri >= 0)
+
+    def k4_flags():
+        return dense.trace_occlusion_dense(
+            cs, e_srays, active=e_sactive, tile=tile, k_step=opts.k_step,
+            tile_cap=opts.tile_cap)
+
+    k4_flags()                                              # warm-up
+    k4_ms, (occ_ref, occ_ov) = wall_ms(k4_flags)
+    occl_lines = {}
+    for name, fn in (
+            ("mxu", lambda: trace_occlusion_mxu(cs, e_srays,
+                                                active=e_sactive, tile=tile)),
+            ("xla", lambda: trace_occlusion_bvh(ts, e_srays,
+                                                active=e_sactive))):
+        ms, occ = wall_ms(fn)
+        occl_lines[name] = dict(
+            ms=ms, occluded=int(occ.sum()),
+            flag_agree=float((occ == occ_ref).float().mean()))
+        if occl_lines[name]["flag_agree"] < 0.9995:
+            raise AssertionError(f"trace_occlusion on {name} disagrees with "
+                                 f"K4: {occl_lines[name]}")
+    emit(dict(phase="engines", viewport=[320, 180],
+              lanes=int(e_alive.numel()), rays=int(e_alive.sum()),
+              triangles=sd.triangle_count, nodes=ts.node_count,
+              pairs=ts.pair_count, compile_scene_seconds=compile_s,
+              dense_ms=dense_ms, dense_overflow=int(ref_ov),
+              sparse_overflow=sparse_ov, engines=engine_lines,
+              shadow_rays=int(e_sactive.sum()), k4_ms=k4_ms,
+              k4_occluded=int(occ_ref.sum()), k4_overflow=int(occ_ov),
+              occlusion=occl_lines))
+    if int(ref_ov) or sparse_ov or int(occ_ov):
+        raise AssertionError("an engine dropped work on the engines wave")
+    del small, ts, ref_res, ref, e_surf, e_srays, occ_ref
+
+    # ---- 13. per-wave gate: card against host CPU ----
+    launches = card_vs_cpu(
+        "wave_gate",
+        renderer_on(racc.PathTracingRenderer, scene_at(320, 180, 2),
+                    per_wave),
+        [rng.fold_in(rng.PRNGKey(7), i) for i in range(2)],
+        viewport=[320, 180], spp=2, max_depth=2, regroup=False)
+    require_launches("wave_gate", launches,
+                     ["dense_closest_hit", "select_nearest", "pair_hit"])
+
+    # ---- 14. scene file round trip ----
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scene.bin")
+        t0 = time.perf_counter()
+        save_scene(path, sd)
+        loaded = load_scene(path)
+        io_line = dict(phase="scene_io", bytes=os.path.getsize(path),
+                       seconds=time.perf_counter() - t0)
+    fields = ("vertices", "indices", "triangle_materials",
+              "triangle_normals", "normals", "texcoords", "materials",
+              "env_pixels", "cam_origin", "cam_dir", "cam_up")
+    differing = [f for f in fields
+                 if getattr(loaded, f).dtype != getattr(sd, f).dtype
+                 or not np.array_equal(getattr(loaded, f), getattr(sd, f))]
+    scalars = ("max_depth", "viewport_width", "viewport_height", "cam_fov")
+    differing += [f for f in scalars if getattr(loaded, f) != getattr(sd, f)]
+    emit(dict(io_line, arrays=len(fields), differing=differing))
+    if differing:
+        raise AssertionError(f"scene_io: {differing} did not round-trip")
+
+    # Launches of each kernel over the timed frames of the deep slices and
     # per frame; its device ms in each slice's profiled frame; and, from
     # each slice's launch frame, its launches timed alone at their own
     # widths, their bound and the gap between the two.

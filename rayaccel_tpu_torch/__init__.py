@@ -6,13 +6,18 @@ package is the reference the port is tested against. The port imports
 ``torch`` and never ``jax``.
 
 Two renderers run: ``PathTracingRenderer`` (the headline path tracer) and
-``WhittedRenderer`` (ray trees, with optional shadow rays), both with the
-dense work-queue engine for primaries and the sparse pair engine for
-bounces. The four TPU kernels on those paths (closest hit and any hit on
-the dense queue, the nearest-k select and the pair kernel) are
-hand-written CUDA kernels (``csrc/``), built by nvcc at first use on a
-CUDA tensor; on CPU tensors each wrapper runs its plain PyTorch version
-instead. ``create_context`` runs on the current CUDA device unless it is
+``WhittedRenderer`` (ray trees, with optional shadow rays). By default
+both trace primaries on the dense work-queue engine and bounces on the
+sparse pair engine, in one frame-pooled bounce loop; ``Configuration``
+picks another engine (``backend="mxu"``, ``"sparse"`` or ``"xla"``), the
+stratified sampler (``sampler="stratified"``) or the per-wave path
+(``regroup=False``). The four TPU kernels (closest hit and any hit on the
+dense queue, the nearest-k select and the pair kernel) are hand-written
+CUDA kernels (``csrc/``), built by nvcc at first use on a CUDA tensor; on
+CPU tensors each wrapper runs its plain PyTorch version instead. The
+"mxu", "xla" and "bruteforce" engines are plain tensor code on either
+device, as they are plain XLA in the JAX package. ``load_scene`` /
+``save_scene`` read and write the demo's scene files. ``create_context`` runs on the current CUDA device unless it is
 given ``device="cpu"``; it raises when no CUDA device is visible and no
 device is named::
 
@@ -35,7 +40,10 @@ from rayaccel_tpu_torch.context import Context, create_context, init
 from rayaccel_tpu_torch.types import Hits, INVALID_TRIANGLE, Rays, Stats
 from rayaccel_tpu_torch.camera import Camera
 from rayaccel_tpu_torch.environment import Environment, create_environment
-from rayaccel_tpu_torch.scene import ClusterScene, SceneData, compile_clusters
+from rayaccel_tpu_torch.scene import (ClusterScene, SceneData, TpuScene,
+                                      compile_clusters, compile_scene,
+                                      create_scene, load_scene, save_scene)
+from rayaccel_tpu_torch.ops.trace import trace
 from rayaccel_tpu_torch.render.tiled import TiledRenderer
 from rayaccel_tpu_torch.render.pathtracer import PathTracingRenderer
 from rayaccel_tpu_torch.render.whitted import WhittedRenderer
@@ -45,7 +53,8 @@ __all__ = [
     "Context", "create_context", "init",
     "Rays", "Hits", "Stats", "INVALID_TRIANGLE",
     "Camera", "Environment", "create_environment",
-    "ClusterScene", "SceneData", "compile_clusters",
+    "ClusterScene", "SceneData", "TpuScene", "compile_clusters",
+    "compile_scene", "create_scene", "load_scene", "save_scene", "trace",
     "TiledRenderer", "PathTracingRenderer", "WhittedRenderer",
 ]
 

@@ -2,12 +2,11 @@
 
 Counterpart of ``rayaccel_tpu/config.py``: the same fields, defaults and
 validation, so one configuration reads the same in both packages. The
-port runs the headline path tracer and the Whitted renderer (the dense
-work-queue engine for primaries and their shadow rays, the sparse pair
-engine for bounces, the frame-pooled bounce loops, the uniform sampler,
-one device). Values that select anything else pass the shared validation
-and then raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
-(queue 1) that brings them, or its "Do not port" list.
+port runs every engine, both samplers and the per-wave and frame-pooled
+paths on one device. The three values it does not run (``mesh_shape``,
+``precision="default"``, ``whitted_bounce_scan``) pass the shared
+validation and then raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item (queue 1) that brings them, or its "Do not port" list.
 """
 
 from __future__ import annotations
@@ -20,9 +19,12 @@ from typing import Optional, Tuple
 class Configuration:
     """Runtime configuration; field meanings as in ``rayaccel_tpu/config.py``.
 
-    ``backend="pallas"`` names the dense work-queue engine
-    (``ops/trace_dense.py``) in the port too: the name is kept so that a
-    configuration reads the same in both packages.
+    ``backend`` picks the engine that traces the primaries: "pallas" the
+    dense work-queue engine (``ops/trace_dense.py``; the name is kept so
+    that a configuration reads the same in both packages), "mxu" the plain
+    cluster engine, "sparse" the pair engine, "xla" the lockstep BVH
+    engine. "bruteforce" is the oracle of ``ops/trace.py:trace`` and runs
+    no renderer.
     """
 
     backend: str = "pallas"                 # "pallas" | "mxu" | "xla" | "sparse"
@@ -92,18 +94,7 @@ class Configuration:
             raise ValueError("whitted_stage_ratio must be >= 2")
         if self.whitted_hot_levels < 1:
             raise ValueError("whitted_hot_levels must be >= 1")
-        # What the port does not run yet (ROADMAP.md, queue 1).
-        if self.backend != "pallas":
-            raise NotImplementedError(
-                f"backend {self.backend!r}: the mxu, xla and bruteforce "
-                "engines (and sparse primaries) are ROADMAP queue 1 item 12")
-        if self.sampler == "stratified":
-            raise NotImplementedError(
-                "the stratified sampler is ROADMAP queue 1 item 11")
-        if not self.regroup:
-            raise NotImplementedError(
-                "regroup=False (the per-wave pt_trace_wave path) is ROADMAP "
-                "queue 1 item 10")
+        # What the port does not run (ROADMAP.md, queue 1).
         if self.precision != "highest":
             raise NotImplementedError(
                 "precision='default' is on ROADMAP's 'Do not port' list: "

@@ -1,14 +1,19 @@
-"""Frame-pooled wavefront path tracer.
+"""Wavefront path tracer: per wave, and frame-pooled.
 
 Counterpart of ``rayaccel_tpu/render/pathtracer.py``: ``pt_shade``,
-``_trace_and_surface`` (the ``"pallas"`` and ``"sparse"`` engines),
-``_shade_advance``, the uniform ``_primary_rays``, ``pt_trace_frame``
-(``:361-669``) on one device with the fast width shrink, and the
-frame-pooled ``PathTracingRenderer``. The random streams follow the JAX
-key chains exactly: stage 1 draws positionally from ``fold_in(key, w)``
-(camera jitter from ``fold_in(wkey, 0)``, the first BSDF sample from
-``fold_in(wkey, 1)``), bounce b draws per lane id from
-``fold_in(key, 4096 + b)``.
+``_trace_and_surface`` (the ``"pallas"``, ``"sparse"``, ``"mxu"`` and
+``"xla"`` engines), ``_shade_advance``, ``_primary_rays`` with the uniform
+and the stratified sampler, ``pt_trace_wave`` (``:188-333``, one wave
+traced to completion, with or without the between-bounce regroup),
+``pt_trace_frame`` (``:361-669``) on one device with the fast width
+shrink, and ``PathTracingRenderer``, which takes the pooled frame when the
+configuration regroups on a cluster engine and the per-wave body
+otherwise. The random streams follow the JAX key chains exactly. Pooled:
+stage 1 draws positionally from ``fold_in(key, w)`` (camera jitter from
+``fold_in(wkey, 0)``, the first BSDF sample from ``fold_in(wkey, 1)``),
+bounce b draws per lane id from ``fold_in(key, 4096 + b)``. Per wave, with
+``wave_key = fold_in(key, w)``: jitter from ``fold_in(wave_key, 0)``,
+bounce b per wave-local lane id from ``fold_in(wave_key, b + 1)``.
 
 The JAX function is one compiled program with ``lax.scan`` /
 ``while_loop`` / ``cond``; here the same control flow runs eagerly, with
@@ -17,6 +22,7 @@ the loop conditions read on the host.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from rayaccel_tpu_torch import rng
@@ -26,15 +32,25 @@ from rayaccel_tpu_torch.context import Context
 from rayaccel_tpu_torch.environment import (Environment, create_environment,
                                             sample_environment)
 from rayaccel_tpu_torch.materials import sample_reflective_diffuse
+from rayaccel_tpu_torch.ops.trace import trace_bvh
 from rayaccel_tpu_torch.ops.trace_dense import trace_dense
+from rayaccel_tpu_torch.ops.trace_mxu import trace_mxu
 from rayaccel_tpu_torch.ops.trace_sparse import trace_sparse
+from rayaccel_tpu_torch.render.regroup import coherence_key, regroup_state
 from rayaccel_tpu_torch.render.shading import (SECONDARY_TMAX, SECONDARY_TMIN,
+                                               SurfaceSample,
+                                               interpolate_surface,
                                                merge_rays, spawn_secondary,
                                                surface_from_attrs)
 from rayaccel_tpu_torch.render.tiled import TiledRenderer
 from rayaccel_tpu_torch.scene.clusters import ClusterScene, compile_clusters
+from rayaccel_tpu_torch.scene.compile import compile_scene
 from rayaccel_tpu_torch.scene.data import SceneData
-from rayaccel_tpu_torch.types import INVALID_TRIANGLE, Rays
+from rayaccel_tpu_torch.types import INVALID_TRIANGLE, Hits, Rays
+
+CLUSTER_BACKENDS = ("mxu", "pallas", "sparse")
+SAMPLER_SEED = 0x5EED      # the stratified sampler's per-pixel rotation key
+_R2 = (0.7548776662466927, 0.5698402909980532)   # plastic-constant R2
 
 # Piece rows carrying this lane value are live-lane duplicates emitted by
 # the fast shrink; reassembly skips them.
@@ -59,11 +75,19 @@ def pt_shade(surf, rays, weight, key, lane=None):
 
 
 def _trace_and_surface(scene, rays, alive, bk, tile, opts=EngineOpts(),
-                       env=None):
-    """One closest-hit trace on engine ``bk`` ("pallas": the dense
-    work-queue engine; "sparse": the pair engine) and the shading frame.
-    With ``env``, the environment's radiance along active misses is folded
-    into ``hits.miss_rgb``. Returns (hits, surf, overflow)."""
+                       env=None, stack_depth: int = 48):
+    """One closest-hit trace on engine ``bk`` and the shading frame:
+    "pallas" the dense work-queue engine, "sparse" the pair engine, "mxu"
+    the plain cluster engine (all over a ClusterScene), "xla" the lockstep
+    BVH engine (over a TpuScene, its frame built by gathers). With ``env``,
+    the environment's radiance along active misses is folded into
+    ``hits.miss_rgb``. Returns (hits, surf, overflow)."""
+    if bk == "xla":
+        hits = trace_bvh(scene, rays, env=env, active=alive,
+                         stack_depth=stack_depth)
+        surf = interpolate_surface(scene, rays, hits,
+                                   alive & (hits.tri >= 0))
+        return hits, surf, 0
     if bk == "pallas":
         res, overflow = trace_dense(scene, rays, env=env, active=alive,
                                     tile=tile, k_step=opts.k_step,
@@ -74,11 +98,41 @@ def _trace_and_surface(scene, rays, alive, bk, tile, opts=EngineOpts(),
             pair_budget=opts.pair_budget, sp_tile=opts.sp_tile,
             max_passes=opts.max_passes, k_first=opts.k_first,
             k_restart=opts.k_restart)
+    elif bk == "mxu":
+        res, overflow = trace_mxu(scene, rays, env=env, active=alive,
+                                  tile=tile), 0
     else:
-        raise NotImplementedError(
-            f"engine {bk!r} is ROADMAP queue 1 item 12")
+        raise ValueError(f"no renderer runs on engine {bk!r}")
     surf = surface_from_attrs(res.attrs, scene.mat_params, rays, res.hits)
     return res.hits, surf, overflow
+
+
+def _live_prefix_sizes(R: int, tile: int):
+    """The widths a regrouped wave's bounce trace may take: the live lanes
+    sit in front, so the smallest of (R/4, R/2, R) that holds them is
+    traced. The sizes are the JAX function's, so that the dense engines'
+    tiling (and with it their queue clamp and overflow count) is too."""
+    return [s for s in (R // 4, R // 2) if s >= tile and s % tile == 0] + [R]
+
+
+def _trace_prefix(trace_fn, rays: Rays, alive, sizes):
+    """``trace_fn(rays, alive)`` over the smallest live prefix in
+    ``sizes``, its hits and frame padded back to full width with misses
+    and zeros."""
+    R = alive.shape[0]
+    n_live = int(alive.sum())
+    size = next(s for s in sizes if n_live <= s)
+    if size == R:
+        return trace_fn(rays, alive)
+    hits, surf, ov = trace_fn(Rays(*(a[:size] for a in rays)), alive[:size])
+
+    def tail(a, fill=0):
+        pad = a.new_full((R - size, *a.shape[1:]), fill)
+        return torch.cat([a, pad])
+
+    hits = Hits(tri=tail(hits.tri, INVALID_TRIANGLE), t=tail(hits.t),
+                u=tail(hits.u), v=tail(hits.v), miss_rgb=tail(hits.miss_rgb))
+    return hits, SurfaceSample(*(tail(a) for a in surf)), ov
 
 
 def _shade_advance(hits, surf, rays, weight, depth, alive, miss_d, miss_w,
@@ -99,14 +153,110 @@ def _shade_advance(hits, surf, rays, weight, depth, alive, miss_d, miss_w,
     return rays2, weight2, depth2, alive2, miss_d, miss_w
 
 
-def _primary_rays(cam_arrays, x, y, wave_key):
-    """Per-wave primary rays with uniform jitter."""
+def _stratified_jitter(x, y, spp_index, sampler_key):
+    """The stratified sampler's sub-pixel offsets: the progressive R2
+    low-discrepancy sequence advanced per sample ``spp_index`` and rotated
+    per pixel by a frame-independent random offset (a function of the
+    pixel, not the lane: waves reuse lane offsets). Returns (rot (R, 2),
+    jx, jy)."""
+    pix = (y.to(torch.int64) << 16) | x.to(torch.int64)
+    rot = rng.uniform_pair_each(*rng.fold_in_each(sampler_key, pix))
+    s_f = np.float32(int(spp_index))
+    # The products are rounded to float32 on the host, as the device would
+    # round them.
+    jx = torch.remainder(rot[:, 0] + float(s_f * np.float32(_R2[0])), 1.0)
+    jy = torch.remainder(rot[:, 1] + float(s_f * np.float32(_R2[1])), 1.0)
+    return rot, jx, jy
+
+
+def _primary_rays(cam_arrays, x, y, wave_key, sampler="uniform",
+                  spp_index=None, sampler_key=None):
+    """Per-wave primary rays: uniform jitter from ``fold_in(wave_key, 0)``,
+    or the stratified sampler's."""
+    if sampler == "stratified":
+        assert spp_index is not None and sampler_key is not None
+        _, jx, jy = _stratified_jitter(x, y, spp_index, sampler_key)
+        return generate_pixel_rays(cam_arrays, x, y, jitter=(jx, jy))
     return generate_pixel_rays(cam_arrays, x, y,
                                key=rng.fold_in(wave_key, 0))
 
 
+def pt_trace_wave(scene, env: Environment, cam_arrays, x: torch.Tensor,
+                  y: torch.Tensor, alive0: torch.Tensor, key, max_depth: int,
+                  backend: str = "pallas", tile: int = 512,
+                  stack_depth: int = 48, regroup: bool = True,
+                  sampler: str = "uniform", spp_index=None, sampler_key=None,
+                  bounce_backend: str | None = None,
+                  opts: EngineOpts = EngineOpts()):
+    """Trace one wave of pixels to completion (all bounces): the primary
+    trace on ``backend``, then bounces on ``bounce_backend`` while any lane
+    is alive.
+
+    With ``regroup`` (cluster engines only), the whole lane state is
+    re-sorted between bounces by a spatial coherence key, dead lanes last,
+    each bounce traces only the live prefix, and the radiance is unsorted
+    by lane id at the end. The BSDF draws are keyed per lane id, so the
+    radiance is the same with and without.
+
+    Returns (radiance (R, 3), traced, dropped): ``dropped`` counts the
+    dense and sparse engines' overflow (0 elsewhere)."""
+    R = x.shape[0]
+    device = x.device
+    if bounce_backend is None:
+        bounce_backend = backend
+    rays = _primary_rays(cam_arrays, x, y, key, sampler, spp_index,
+                         sampler_key)
+    do_regroup = regroup and backend in CLUSTER_BACKENDS
+    if do_regroup:
+        bmin = scene.cl_bbmin.amin(dim=0)
+        bext = scene.cl_bbmax.amax(dim=0) - bmin
+        binv = 1.0 / torch.clamp_min(bext, 1e-20)
+    sizes = _live_prefix_sizes(R, tile)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    st = dict(rays=rays, weight=torch.ones_like(rays.o),
+              depth=torch.zeros((R,), dtype=torch.int32, device=device),
+              alive=alive0,
+              lane=torch.arange(R, dtype=torch.int32, device=device),
+              miss_d=rays.d, miss_w=torch.zeros_like(rays.o))
+    traced, dropped = zero, zero
+
+    def trace_fn(bk):
+        return lambda r, a: _trace_and_surface(scene, r, a, bk, tile, opts,
+                                               stack_depth=stack_depth)
+
+    bounce = 0
+    while bool(st["alive"].any()):
+        bk = backend if bounce == 0 else bounce_backend
+        if do_regroup and bounce > 0:
+            hits, surf, ov = _trace_prefix(trace_fn(bk), st["rays"],
+                                           st["alive"], sizes)
+        else:
+            hits, surf, ov = trace_fn(bk)(st["rays"], st["alive"])
+        traced = traced + st["alive"].sum()
+        dropped = dropped + ov
+        rays, weight, depth, alive, miss_d, miss_w = _shade_advance(
+            hits, surf, st["rays"], st["weight"], st["depth"], st["alive"],
+            st["miss_d"], st["miss_w"], rng.fold_in(key, bounce + 1),
+            max_depth, lane=st["lane"])
+        lane = st["lane"]
+        if do_regroup:
+            k = coherence_key(rays, alive, bmin, binv)
+            rays, (weight, depth, alive, lane, miss_d, miss_w) = \
+                regroup_state(k, rays, [weight, depth, alive, lane, miss_d,
+                                        miss_w])
+        st = dict(rays=rays, weight=weight, depth=depth, alive=alive,
+                  lane=lane, miss_d=miss_d, miss_w=miss_w)
+        bounce += 1
+
+    radiance = st["miss_w"] * sample_environment(env, st["miss_d"])
+    if do_regroup:
+        # Unsort back to the original lane order for the framebuffer.
+        _, (radiance,) = regroup_state(st["lane"], st["rays"], [radiance])
+    return radiance, traced, dropped
+
+
 def _stage1(scene, cam_arrays, xs, ys, alives, key, max_depth, backend,
-            tile, opts):
+            tile, opts, sampler=("uniform", None, None)):
     """Primary trace + first shade, wave by wave, pooled into frame-order
     lane state. Returns (state dict, overflow)."""
     W, R = xs.shape
@@ -116,7 +266,7 @@ def _stage1(scene, cam_arrays, xs, ys, alives, key, max_depth, backend,
     overflow = torch.zeros((), dtype=torch.int64, device=device)
     for w in range(W):
         wkey = rng.fold_in(key, w)
-        rays = _primary_rays(cam_arrays, xs[w], ys[w], wkey)
+        rays = _primary_rays(cam_arrays, xs[w], ys[w], wkey, *sampler)
         alive0 = alives[w]
         zero3 = torch.zeros((R, 3), dtype=torch.float32, device=device)
         ones3 = torch.ones((R, 3), dtype=torch.float32, device=device)
@@ -193,8 +343,10 @@ def pt_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
                    xs: torch.Tensor, ys: torch.Tensor, alives: torch.Tensor,
                    key, max_depth: int, backend: str = "pallas",
                    tile: int = 512, bounce_backend: str = "sparse",
-                   min_stage_width: int = 8192, opts: EngineOpts = EngineOpts()):
-    """Trace a whole frame with one pooled bounce loop.
+                   min_stage_width: int = 8192, opts: EngineOpts = EngineOpts(),
+                   sampler: str = "uniform", spp_index=None,
+                   sampler_key=None):
+    """Trace a whole frame with one pooled bounce loop (cluster engines).
 
     1. Primaries are traced and shaded wave by wave (dense engine).
     2. All surviving lanes are pooled in frame order and run one bounce
@@ -213,7 +365,8 @@ def pt_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
     device = xs.device
 
     state, dropped = _stage1(scene, cam_arrays, xs, ys, alives, key,
-                             max_depth, backend, tile, opts)
+                             max_depth, backend, tile, opts,
+                             (sampler, spp_index, sampler_key))
     traced = alives.sum()
     state["lane"] = torch.arange(N, dtype=torch.int32, device=device)
     state["n_fresh"] = N
@@ -277,24 +430,52 @@ def pt_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
     return rad.reshape(W, R, 3), traced, dropped
 
 
+def bind_scene(backend: str, scene_data: SceneData, tpu_scene, device):
+    """The renderers' engine choice: (backend, compiled scene). A scene
+    handed in decides the engine family (a ClusterScene moves a non-cluster
+    backend to "mxu", a TpuScene a cluster backend to "xla"); otherwise the
+    scene is compiled for the backend."""
+    if backend == "bruteforce":
+        raise ValueError(
+            "backend 'bruteforce' is the test oracle and runs no renderer: "
+            "call ops.trace.trace(scene, rays, backend='bruteforce')")
+    if tpu_scene is not None:
+        if isinstance(tpu_scene, ClusterScene):
+            if backend not in CLUSTER_BACKENDS:
+                backend = "mxu"
+        elif backend in CLUSTER_BACKENDS:
+            backend = "xla"
+        return backend, tpu_scene
+    if backend in CLUSTER_BACKENDS:
+        return backend, compile_clusters(scene_data, device=device)
+    return backend, compile_scene(scene_data, device=device)
+
+
 class PathTracingRenderer(TiledRenderer):
-    """Progressive frame-pooled path tracer over a compiled cluster scene:
-    dense work-queue engine for primaries, sparse pair engine for bounces
-    (hybrid routing; without ``hybrid_tracing`` the dense engine traces
-    bounces too)."""
+    """Progressive wavefront path tracer over a compiled scene. The
+    configuration's ``backend`` traces the primaries; under
+    ``hybrid_tracing`` the bounces of the dense engines ("pallas", "mxu")
+    go to the sparse pair engine. With ``regroup`` on a cluster engine the
+    frame runs on the pooled bounce loop (:func:`pt_trace_frame`),
+    otherwise wave by wave (:func:`pt_trace_wave`).
+
+    ``tpu_scene`` may be a ClusterScene or a TpuScene; without one the
+    scene is compiled for the backend. The "bruteforce" oracle runs no
+    renderer (``ops/trace.py:trace`` serves it)."""
 
     def __init__(self, context: Context, camera: Camera, scene_data: SceneData,
-                 cluster_scene: ClusterScene | None = None,
-                 environment: Environment | None = None):
+                 tpu_scene=None, environment: Environment | None = None):
         super().__init__(context, scene_data.viewport_width,
                          scene_data.viewport_height)
         cfg = context.configuration
         self.camera = camera
         self.scene_data = scene_data
-        self.backend = cfg.backend
-        self.scene = (cluster_scene if cluster_scene is not None
-                      else compile_clusters(scene_data, device=self.device))
-        self.bounce_backend = "sparse" if cfg.hybrid_tracing else self.backend
+        self.backend, self.scene = bind_scene(cfg.backend, scene_data,
+                                              tpu_scene, self.device)
+        self.bounce_backend = (
+            "sparse" if cfg.hybrid_tracing and self.backend in ("mxu",
+                                                                "pallas")
+            else self.backend)
         if environment is None:
             env_px = scene_data.env_pixels
             assert env_px is not None, "scene has no environment probe"
@@ -303,14 +484,31 @@ class PathTracingRenderer(TiledRenderer):
                                              device=self.device)
         self.environment = environment
         self.max_depth = int(scene_data.max_depth)
+        self.sampler = cfg.sampler
+        self._sampler_key = rng.PRNGKey(SAMPLER_SEED)
         self.opts = cfg.engine_opts()
         self.tile = min(cfg.trace_block, self.wave_size)
+        self.stack_depth = cfg.traversal_stack_depth
         self.min_stage_width = cfg.min_stage_width
+        self.pooled = cfg.regroup and self.backend in CLUSTER_BACKENDS
 
     def _render(self, key):
+        if not self.pooled:
+            return super()._render(key)
         return pt_trace_frame(
             self.scene, self.environment, self.camera.as_arrays(self.device),
             self._wave_x, self._wave_y, self._wave_alive, key, self.max_depth,
             backend=self.backend, tile=self.tile,
             bounce_backend=self.bounce_backend,
-            min_stage_width=self.min_stage_width, opts=self.opts)
+            min_stage_width=self.min_stage_width, opts=self.opts,
+            sampler=self.sampler, spp_index=self.spp,
+            sampler_key=self._sampler_key)
+
+    def _trace_wave(self, x, y, alive, wave_key):
+        return pt_trace_wave(
+            self.scene, self.environment, self.camera.as_arrays(self.device),
+            x, y, alive, wave_key, self.max_depth, backend=self.backend,
+            tile=self.tile, stack_depth=self.stack_depth,
+            regroup=self.context.configuration.regroup, sampler=self.sampler,
+            spp_index=self.spp, sampler_key=self._sampler_key,
+            bounce_backend=self.bounce_backend, opts=self.opts)

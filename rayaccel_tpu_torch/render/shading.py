@@ -1,9 +1,10 @@
 """Shared shading geometry: the surface frame from a hit's attribute row,
 and the spawn rules for secondary rays.
 
-Counterpart of ``rayaccel_tpu/render/shading.py`` (``surface_from_attrs``
-``:77-133``, ``spawn_secondary`` and ``merge_rays`` ``:136-179``, and the
-constants ``:29-33``). Normals are stored outward, as in the JAX package.
+Counterpart of ``rayaccel_tpu/render/shading.py`` (``interpolate_surface``
+``:45-74``, ``surface_from_attrs`` ``:77-133``, ``spawn_secondary`` and
+``merge_rays`` ``:136-179``, and the constants ``:29-33``). Normals are
+stored outward, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,6 +41,36 @@ def _unpack_bf16_pairs(words: torch.Tensor):
     hi = (pk & -0x10000).view(torch.float32)
     lo = (pk << 16).view(torch.float32)
     return hi, lo
+
+
+def interpolate_surface(scene, rays: Rays, hits: Hits,
+                        active: torch.Tensor) -> SurfaceSample:
+    """Gather per-triangle and per-vertex attributes of a
+    ``scene/compile.py:TpuScene`` and build the shading frame (the lockstep
+    BVH engine's path): texcoord and normal interpolation with weights
+    (1-u-v, u, v), normalization, two-sided flip."""
+    tri = torch.where(active, hits.tri, 0).long()
+    idx3 = scene.tri_index[tri].long()                     # (R, 3)
+    vn = scene.vert_normal[idx3]                           # (R, 3, 3)
+    vt = scene.vert_uv[idx3]                               # (R, 3, 2)
+
+    u = hits.u[:, None]
+    v = hits.v[:, None]
+    w = 1.0 - u - v
+    ns = vn[:, 0] * w + vn[:, 1] * u + vn[:, 2] * v
+    ns = ns * torch.rsqrt(dot3(ns, ns))[:, None]
+    uv = vt[:, 0] * w + vt[:, 1] * u + vt[:, 2] * v
+
+    ng = scene.tri_normal[tri]
+    params = scene.mat_params[scene.tri_mat[tri].long()]
+
+    d_dot_ng = dot3(rays.d, ng)
+    entering = d_dot_ng < 0
+    # Two-sided flip toward the incoming ray (outward-normal convention).
+    ns = torch.where(entering[:, None], ns, -ns)
+    pos = rays.o + hits.t[:, None] * rays.d
+    return SurfaceSample(pos=pos, ns=ns, ng=ng, uv=uv, mat_params=params,
+                         d_dot_ng=d_dot_ng, entering=entering)
 
 
 def surface_from_attrs(attrs: torch.Tensor, mat_table: torch.Tensor,

@@ -3,8 +3,11 @@
 Counterpart of ``rayaccel_tpu/render/tiled.py``: ``block_swizzle``
 (``:46-71``) and a single-device ``TiledRenderer`` that keeps the HDR
 accumulation buffer in block-swizzled lane order, one contiguous slice per
-wave, and un-permutes it in :meth:`TiledRenderer.image`. There is no mesh
-(ROADMAP queue 1 item 15).
+wave, and un-permutes it in :meth:`TiledRenderer.image`. The default frame
+body (``:220-249``) is a loop over waves around the subclass's
+:meth:`TiledRenderer._trace_wave`, each wave keyed ``fold_in(key, w)``; a
+subclass with a frame-pooled body overrides :meth:`TiledRenderer._render`.
+There is no mesh (ROADMAP queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rayaccel_tpu_torch import rng
 from rayaccel_tpu_torch.context import Context
 from rayaccel_tpu_torch.types import Stats
 
@@ -49,7 +53,8 @@ def block_swizzle(width: int, height: int, pad_to: int):
 
 class TiledRenderer:
     """Owns the lane-order framebuffer and the frame's wave inputs; a
-    subclass supplies :meth:`_render` for one progressive sample."""
+    subclass supplies :meth:`_trace_wave` (one wave of one progressive
+    sample) and may override :meth:`_render` (the whole sample)."""
 
     def __init__(self, context: Context, width: int, height: int):
         self.context = context
@@ -77,8 +82,31 @@ class TiledRenderer:
         self.spp = 0
         self._rays = torch.zeros((), dtype=torch.int64, device=self.device)
         self._dropped = torch.zeros((), dtype=torch.int64, device=self.device)
-        self._fb3 = torch.zeros((self.n_waves, self.wave_size, 3),
-                                dtype=torch.float32, device=self.device)
+        self._fb3 = self._make_fb()
+
+    def _make_fb(self) -> torch.Tensor:
+        return torch.zeros((self.n_waves, self.wave_size, 3),
+                           dtype=torch.float32, device=self.device)
+
+    def clear(self):
+        """Reset progressive accumulation."""
+        self._fb3 = self._make_fb()
+        self.spp = 0
+
+    @property
+    def frame_buffer(self) -> torch.Tensor:
+        """Swizzled lane-order accumulation buffer (flat view)."""
+        return self._fb3.reshape(self.n_lanes, 3)
+
+    def set_frame_buffer(self, fb_flat):
+        """Restore a flat (n_lanes, 3) buffer (checkpoint resume)."""
+        self._fb3 = torch.as_tensor(fb_flat, dtype=torch.float32).to(
+            self.device).reshape(self.n_waves, self.wave_size, 3).clone()
+
+    def set_camera(self, camera):
+        """Move the camera and reset progressive accumulation."""
+        self.camera = camera
+        self.clear()
 
     @property
     def dropped(self) -> int:
@@ -111,5 +139,18 @@ class TiledRenderer:
 
     def _render(self, key):
         """(radiance (n_waves, wave_size, 3), traced, dropped) of one
-        sample."""
+        sample: by default every wave traced to completion on its own,
+        with ``wave_key = fold_in(key, w)``."""
+        rads, traced, dropped = [], 0, 0
+        for w in range(self.n_waves):
+            rad, n, d = self._trace_wave(
+                self._wave_x[w], self._wave_y[w], self._wave_alive[w],
+                rng.fold_in(key, w))
+            rads.append(rad)
+            traced = traced + n
+            dropped = dropped + d
+        return torch.stack(rads), traced, dropped
+
+    def _trace_wave(self, x, y, alive, wave_key):
+        """(radiance (wave_size, 3), traced, dropped) of one wave."""
         raise NotImplementedError

@@ -2,12 +2,12 @@
 
 Counterpart of ``rayaccel_tpu/render/whitted.py``: ``whitted_shade``
 (``:57-107``) and its constants (``:52-54``), ``_occlusion_query``
-(``:110-142``, the "pallas" and "sparse" engines), the trace of
-``_whitted_trace`` (``:145-178``, through ``pathtracer._trace_and_surface``
-with the environment folded at trace time), ``_whitted_step``
-(``:181-274``), ``whitted_trace_wave`` (``:277-420``) without the
-between-bounce regroup, ``whitted_trace_frame`` (``:423-768``) on one
-device with the fast shrink, and ``WhittedRenderer`` (``:771-891``).
+(``:110-142``, every engine), the trace of ``_whitted_trace``
+(``:145-178``, through ``pathtracer._trace_and_surface`` with the
+environment folded at trace time), ``_whitted_step`` (``:181-274``),
+``whitted_trace_wave`` (``:277-420``) with its between-bounce regroup,
+``whitted_trace_frame`` (``:423-768``) on one device with the fast
+shrink, and ``WhittedRenderer`` (``:771-891``).
 
 Each wavefront lane owns one pixel's whole ray tree. When a hit spawns
 both a reflection and a refraction ray, the reflection continues and the
@@ -37,15 +37,21 @@ from rayaccel_tpu_torch.config import EngineOpts
 from rayaccel_tpu_torch.context import Context
 from rayaccel_tpu_torch.environment import Environment, create_environment
 from rayaccel_tpu_torch.ops.intersect import dot3
+from rayaccel_tpu_torch.ops.trace import trace_occlusion_bvh
 from rayaccel_tpu_torch.ops.trace_dense import trace_occlusion_dense
+from rayaccel_tpu_torch.ops.trace_mxu import trace_occlusion_mxu
 from rayaccel_tpu_torch.ops.trace_sparse import trace_occlusion_sparse
-from rayaccel_tpu_torch.render.pathtracer import (_by_lane, _final_piece,
-                                                  _shrink, _trace_and_surface)
+from rayaccel_tpu_torch.render.pathtracer import (CLUSTER_BACKENDS, _by_lane,
+                                                  _final_piece,
+                                                  _live_prefix_sizes, _shrink,
+                                                  _trace_and_surface,
+                                                  _trace_prefix, bind_scene)
+from rayaccel_tpu_torch.render.regroup import coherence_key, regroup_state
 from rayaccel_tpu_torch.render.shading import (ORIGIN_EPSILON, SECONDARY_TMAX,
                                                SECONDARY_TMIN, WEIGHT_CUTOFF,
                                                merge_rays)
 from rayaccel_tpu_torch.render.tiled import TiledRenderer
-from rayaccel_tpu_torch.scene.clusters import ClusterScene, compile_clusters
+from rayaccel_tpu_torch.scene.clusters import ClusterScene
 from rayaccel_tpu_torch.scene.data import SceneData
 from rayaccel_tpu_torch.types import INVALID_TRIANGLE, Rays
 
@@ -128,10 +134,11 @@ def shadow_rays(surf) -> Rays:
 
 
 def _occlusion_query(scene, srays: Rays, active, bk: str, tile: int,
-                     opts: EngineOpts = EngineOpts()):
+                     opts: EngineOpts = EngineOpts(), stack_depth: int = 48):
     """Any-hit shadow query on engine ``bk``. Returns (occluded,
     uncounted): the dense engine's queue-clamp overflow or the sparse
-    engine's under-resolved rays, which the caller adds to ``dropped``."""
+    engine's under-resolved rays, which the caller adds to ``dropped``
+    (the plain engines drop nothing)."""
     if bk == "pallas":
         return trace_occlusion_dense(scene, srays, active=active, tile=tile,
                                      k_step=opts.k_step,
@@ -141,7 +148,12 @@ def _occlusion_query(scene, srays: Rays, active, bk: str, tile: int,
             scene, srays, active=active, k_pairs=opts.k_pairs,
             pair_budget=opts.pair_budget, sp_tile=opts.sp_tile,
             max_passes=opts.max_passes, k_restart=opts.k_restart)
-    raise NotImplementedError(f"engine {bk!r} is ROADMAP queue 1 item 12")
+    if bk == "mxu":
+        return trace_occlusion_mxu(scene, srays, active=active, tile=tile), 0
+    if bk == "xla":
+        return trace_occlusion_bvh(scene, srays, active=active,
+                                   stack_depth=stack_depth), 0
+    raise ValueError(f"no renderer runs on engine {bk!r}")
 
 
 def _initial_state(rays: Rays, alive, stack_size: int):
@@ -162,7 +174,7 @@ def _initial_state(rays: Rays, alive, stack_size: int):
 
 def _whitted_step(scene, s, hits, surf, bk: str, tile: int, max_depth: int,
                   stack_size: int, shadows: bool, primary_only: bool,
-                  opts: EngineOpts = EngineOpts()):
+                  opts: EngineOpts = EngineOpts(), stack_depth: int = 48):
     """Advance the lane state after a trace: environment on miss, direct
     light (with the optional shadow query), reflection and refraction
     spawn, refraction parking, and terminated-head pops. Writes the stacks
@@ -190,7 +202,8 @@ def _whitted_step(scene, s, hits, surf, bk: str, tile: int, max_depth: int,
     if shadows:
         # An occluded hit gets no direct light.
         occluded, uncounted = _occlusion_query(scene, shadow_rays(surf),
-                                               active, bk, tile, opts)
+                                               active, bk, tile, opts,
+                                               stack_depth)
         traced = traced + active.sum()
         direct = torch.where(occluded[:, None], 0.0, direct)
         dropped = dropped + uncounted
@@ -236,40 +249,88 @@ def _whitted_step(scene, s, hits, surf, bk: str, tile: int, max_depth: int,
 
 
 def _trace_step(scene, env, st, bk, tile, max_depth, stack_size, shadows,
-                primary_only, opts):
-    """One trace on engine ``bk`` and the step after it."""
-    hits, surf, ov = _trace_and_surface(scene, st["rays"], st["alive"], bk,
-                                        tile, opts, env)
+                primary_only, opts, stack_depth: int = 48, sizes=None):
+    """One trace on engine ``bk`` and the step after it. With ``sizes``
+    (a regrouped wave: live lanes in front) only the smallest live prefix
+    of those widths is traced."""
+    def trace_fn(rays, alive):
+        return _trace_and_surface(scene, rays, alive, bk, tile, opts, env,
+                                  stack_depth)
+
+    if sizes is None:
+        hits, surf, ov = trace_fn(st["rays"], st["alive"])
+    else:
+        hits, surf, ov = _trace_prefix(trace_fn, st["rays"], st["alive"],
+                                       sizes)
     st = dict(st, dropped=st["dropped"] + ov)
     return _whitted_step(scene, st, hits, surf, bk, tile, max_depth,
-                         stack_size, shadows, primary_only, opts)
+                         stack_size, shadows, primary_only, opts, stack_depth)
 
 
-def whitted_trace_wave(scene: ClusterScene, env: Environment, cam_arrays,
+def _regroup_trees(st, bmin, binv):
+    """The between-bounce regroup of a wave of ray trees: the parked-ray
+    stacks flatten into per-lane columns and move with the lane state, so
+    a lane's pending subtree goes where the lane goes; the accumulated
+    radiance and the lane id move too. Dead lanes sort last."""
+    R = st["alive"].shape[0]
+    S = st["stk"].shape[0]
+    ck = coherence_key(st["rays"], st["alive"], bmin, binv)
+    stk_cols = st["stk"].reshape(S * 7, R).T                  # (R, S*7)
+    stkw_cols = st["stk_w"].reshape(S * 3, R).T               # (R, S*3)
+    rays, (weight, depth, alive, sp, lane, radiance, stk_cols,
+           stkw_cols) = regroup_state(
+        ck, st["rays"], [st["weight"], st["depth"], st["alive"], st["sp"],
+                         st["lane"], st["radiance"], stk_cols, stkw_cols])
+    return dict(st, rays=rays, weight=weight, depth=depth, alive=alive,
+                sp=sp, lane=lane, radiance=radiance,
+                stk=stk_cols.T.reshape(S, 7, R).contiguous(),
+                stk_w=stkw_cols.T.reshape(S, 3, R).contiguous())
+
+
+def whitted_trace_wave(scene, env: Environment, cam_arrays,
                        x: torch.Tensor, y: torch.Tensor, alive0: torch.Tensor,
                        key, max_depth: int, stack_size: int = 9,
                        backend: str = "pallas", tile: int = 512,
-                       shadows: bool = False,
+                       stack_depth: int = 48, shadows: bool = False,
                        bounce_backend: str | None = None,
-                       primary_only: bool = False,
+                       primary_only: bool = False, regroup: bool = True,
                        opts: EngineOpts = EngineOpts()):
     """Trace one wave of pixels through their full Whitted ray trees: the
     primary trace on ``backend``, then bounces on ``bounce_backend`` while
-    any lane is alive. The lanes keep their places (no between-bounce
-    regroup: the JAX function's ``regroup=False`` path, which is also the
-    path it takes with ``primary_only``).
+    any lane is alive.
+
+    With ``regroup`` the lane state, parked stacks included, is re-sorted
+    between bounces by the coherence key (dead lanes last), each bounce
+    traces only the live prefix, and the radiance is unsorted by lane id
+    at the end. It is off for ``primary_only`` (no bounce follows the first
+    shade) and for the "xla" engine.
 
     Returns (radiance (R, 3), traced, dropped)."""
+    R = x.shape[0]
     if bounce_backend is None:
         bounce_backend = backend
     rays = generate_pixel_rays(cam_arrays, x, y, key=key)
+    do_regroup = (regroup and not primary_only
+                  and backend != "xla" and bounce_backend != "xla")
     st = _initial_state(rays, alive0, stack_size)
+    sizes = None
+    if do_regroup:
+        bmin = scene.cl_bbmin.amin(dim=0)
+        binv = 1.0 / torch.clamp_min(scene.cl_bbmax.amax(dim=0) - bmin,
+                                     1e-20)
+        st["lane"] = torch.arange(R, dtype=torch.int32, device=x.device)
     bk = backend
     while bool(st["alive"].any()):
         st = _trace_step(scene, env, st, bk, tile, max_depth, stack_size,
-                         shadows, primary_only, opts)
+                         shadows, primary_only, opts, stack_depth, sizes)
+        if do_regroup:
+            st = _regroup_trees(st, bmin, binv)
+            sizes = _live_prefix_sizes(R, tile)
         bk = bounce_backend
-    return st["radiance"], st["traced"], st["dropped"]
+    radiance = st["radiance"]
+    if do_regroup:
+        _, (radiance,) = regroup_state(st["lane"], st["rays"], [radiance])
+    return radiance, st["traced"], st["dropped"]
 
 
 def _stage_widths(N: int, stage_ratio: int, min_stage_width: int):
@@ -400,15 +461,19 @@ def whitted_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
 
 
 class WhittedRenderer(TiledRenderer):
-    """Whitted ray tracer over a compiled cluster scene: dense primaries
-    (and their shadow rays on K4), bounces on the sparse pair engine under
-    ``hybrid_tracing``. ``primary_only`` traces primaries and shadows wave
-    by wave (``whitted_trace_wave``); otherwise the frame runs on the
-    pooled tree loop (``whitted_trace_frame``)."""
+    """Whitted ray tracer over a compiled scene. The configuration's
+    ``backend`` traces the primaries (and their shadow rays); under
+    ``hybrid_tracing`` the bounces of the dense engines ("pallas", "mxu")
+    go to the sparse pair engine. The frame runs on the pooled tree loop
+    (``whitted_trace_frame``) when the configuration regroups on a cluster
+    engine and the trees bounce; ``primary_only``, ``regroup=False`` and
+    the "xla" engine trace wave by wave (``whitted_trace_wave``).
+
+    ``tpu_scene`` may be a ClusterScene or a TpuScene; without one the
+    scene is compiled for the backend."""
 
     def __init__(self, context: Context, camera: Camera, scene_data: SceneData,
-                 cluster_scene: ClusterScene | None = None,
-                 environment: Environment | None = None,
+                 tpu_scene=None, environment: Environment | None = None,
                  shadows: bool = False, primary_only: bool = False):
         super().__init__(context, scene_data.viewport_width,
                          scene_data.viewport_height)
@@ -417,10 +482,12 @@ class WhittedRenderer(TiledRenderer):
         self.scene_data = scene_data
         self.shadows = shadows
         self.primary_only = primary_only
-        self.backend = cfg.backend
-        self.scene = (cluster_scene if cluster_scene is not None
-                      else compile_clusters(scene_data, device=self.device))
-        self.bounce_backend = "sparse" if cfg.hybrid_tracing else self.backend
+        self.backend, self.scene = bind_scene(cfg.backend, scene_data,
+                                              tpu_scene, self.device)
+        self.bounce_backend = (
+            "sparse" if cfg.hybrid_tracing and self.backend in ("mxu",
+                                                                "pallas")
+            else self.backend)
         if environment is None:
             env_px = scene_data.env_pixels
             assert env_px is not None, "scene has no environment probe"
@@ -433,32 +500,33 @@ class WhittedRenderer(TiledRenderer):
         self.stack_size = max(cfg.max_shading_depth, self.max_depth + 1)
         self.opts = cfg.engine_opts()
         self.tile = min(cfg.trace_block, self.wave_size)
+        self.stack_depth = cfg.traversal_stack_depth
         self.min_stage_width = cfg.min_stage_width
         self.stage_ratio = cfg.whitted_stage_ratio
         self.hot_levels = cfg.whitted_hot_levels
+        self.pooled = (not primary_only and cfg.regroup
+                       and self.backend in CLUSTER_BACKENDS)
         self.last_info: dict = {}
 
+    def _wave_kwargs(self):
+        return dict(stack_size=self.stack_size, backend=self.backend,
+                    tile=self.tile, shadows=self.shadows,
+                    bounce_backend=self.bounce_backend, opts=self.opts)
+
     def _render(self, key):
-        cam = self.camera.as_arrays(self.device)
-        kw = dict(stack_size=self.stack_size, backend=self.backend,
-                  tile=self.tile, shadows=self.shadows,
-                  bounce_backend=self.bounce_backend, opts=self.opts)
-        if not self.primary_only:
-            return whitted_trace_frame(
-                self.scene, self.environment, cam, self._wave_x,
-                self._wave_y, self._wave_alive, key, self.max_depth,
-                min_stage_width=self.min_stage_width,
-                stage_ratio=self.stage_ratio, hot_levels=self.hot_levels,
-                info=self.last_info, **kw)
-        # Primary + shadow rays die after the first shade: the per-wave
-        # body, one key fold_in(key, w) per wave.
-        rads, traced, dropped = [], 0, 0
-        for w in range(self.n_waves):
-            rad, n, d = whitted_trace_wave(
-                self.scene, self.environment, cam, self._wave_x[w],
-                self._wave_y[w], self._wave_alive[w], rng.fold_in(key, w),
-                self.max_depth, primary_only=True, **kw)
-            rads.append(rad)
-            traced = traced + n
-            dropped = dropped + d
-        return torch.stack(rads), traced, dropped
+        if not self.pooled:
+            return super()._render(key)
+        return whitted_trace_frame(
+            self.scene, self.environment, self.camera.as_arrays(self.device),
+            self._wave_x, self._wave_y, self._wave_alive, key, self.max_depth,
+            min_stage_width=self.min_stage_width,
+            stage_ratio=self.stage_ratio, hot_levels=self.hot_levels,
+            info=self.last_info, **self._wave_kwargs())
+
+    def _trace_wave(self, x, y, alive, wave_key):
+        return whitted_trace_wave(
+            self.scene, self.environment, self.camera.as_arrays(self.device),
+            x, y, alive, wave_key, self.max_depth,
+            stack_depth=self.stack_depth, primary_only=self.primary_only,
+            regroup=self.context.configuration.regroup,
+            **self._wave_kwargs())

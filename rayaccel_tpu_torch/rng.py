@@ -67,6 +67,27 @@ def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
     return f - 1.0
 
 
+def fold_in_each(key: Key, data: torch.Tensor):
+    """``vmap(lambda p: fold_in(key, p))(data)``: one key per element of an
+    integer tensor (each taken mod 2^32). Returns the two key words as
+    int64 tensors of ``data``'s shape."""
+    x1 = data.to(torch.int64) & _M32
+    return threefry2x32(key[0], key[1], torch.zeros_like(x1), x1)
+
+
+def uniform_pair_each(k0: torch.Tensor, k1: torch.Tensor) -> torch.Tensor:
+    """``vmap(lambda k: uniform(k, (2,)))`` over per-element keys (the word
+    tensors :func:`fold_in_each` returns): (..., 2) float32. Each key
+    hashes the counters (0, 0) and (0, 1), as :func:`uniform` does for a
+    shape of two elements."""
+    draws = []
+    for lo in (0, 1):
+        b0, b1 = threefry2x32(k0, k1, torch.zeros_like(k0),
+                              torch.full_like(k0, lo))
+        draws.append(b0 ^ b1)
+    return _bits_to_unit_float(torch.stack(draws, dim=-1))
+
+
 def uniform(key: Key, shape, device="cpu") -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32)`` on ``device``."""
     n = 1

@@ -1,25 +1,113 @@
-"""Synthetic scene generation.
+"""Binary scene file IO and synthetic scene generation.
 
-Counterpart of the synthetic-scene half of ``rayaccel_tpu/scene/loader.py``
-(``:115-244``), copied as NumPy so the port never imports the JAX package:
-the small test scene and the battlefield-like benchmark scene, built from
-the same seeds to the same arrays. Scene-file IO (``load_scene`` /
-``save_scene``) is ROADMAP queue 1 item 13.
+Counterpart of ``rayaccel_tpu/scene/loader.py``, copied as NumPy so the
+port never imports the JAX package: ``load_scene`` / ``save_scene`` in the
+format of the original demo's scene files, and the small test scene and
+the battlefield-like benchmark scene, built from the same seeds to the
+same arrays.
+
+The file format (packed little-endian):
+
+    header (60 bytes):
+        u32 maxDepth, u32 vertexCount, u32 triangleCount,
+        u16 viewportWidth, u16 viewportHeight,
+        u16 environmentWidth, u16 environmentHeight,
+        float3 origin, float3 dir, float3 up, f32 fov
+    body (in order):
+        u32  indices           [triangleCount*3]
+        u16  triangleMaterials [triangleCount]
+        f32x4 triangleNormals  [triangleCount]
+        f32x4 vertices         [vertexCount]
+        f32x4 normals          [vertexCount]
+        f32x2 texcoords        [vertexCount]
+        f32x4 environmentPixels[envW*envH]
+
+The material table is not in the file: a loaded scene gets the four demo
+materials.
 """
 
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 
 from rayaccel_tpu_torch.scene.data import (SceneData, compute_face_normals,
                                            compute_vertex_normals)
 
+_HEADER = struct.Struct("<IIIHHHH3f3f3ff")
 DEFAULT_MATERIALS = np.array([
     [0.8, 0.8, 0.8, 1.0 / 1.4],
     [0.1, 0.1, 0.1, 1.0 / 1.4],
     [0.6, 0.6, 0.6, 1.0 / 1.2],
     [0.3, 0.3, 0.3, 1.0 / 1.2],
 ], np.float32)
+
+
+def load_scene(path: str) -> SceneData:
+    """Load a scene in the binary format of the module docstring."""
+    with open(path, "rb") as f:
+        raw = f.read(_HEADER.size)
+        fields = _HEADER.unpack(raw)
+        (max_depth, vertex_count, triangle_count,
+         vw, vh, ew, eh) = fields[:7]
+        origin = np.array(fields[7:10], np.float32)
+        cam_dir = np.array(fields[10:13], np.float32)
+        up = np.array(fields[13:16], np.float32)
+        fov = fields[16]
+
+        def read(dtype, count, cols=None):
+            arr = np.fromfile(f, dtype=dtype, count=count * (cols or 1))
+            return arr.reshape(count, cols) if cols else arr
+
+        indices = read(np.uint32, triangle_count, 3)
+        tri_mats = read(np.uint16, triangle_count)
+        tri_normals = read(np.float32, triangle_count, 4)[:, :3].copy()
+        vertices = read(np.float32, vertex_count, 4)[:, :3].copy()
+        normals = read(np.float32, vertex_count, 4)[:, :3].copy()
+        texcoords = read(np.float32, vertex_count, 2)
+        env = read(np.float32, ew * eh, 4).reshape(eh, ew, 4)
+
+    return SceneData(
+        vertices=vertices, indices=indices,
+        triangle_materials=tri_mats, triangle_normals=tri_normals,
+        normals=normals, texcoords=texcoords,
+        materials=DEFAULT_MATERIALS.copy(),
+        max_depth=int(max_depth),
+        viewport_width=int(vw), viewport_height=int(vh),
+        cam_origin=origin, cam_dir=cam_dir, cam_up=up, cam_fov=float(fov),
+        env_pixels=env,
+    ).validate()
+
+
+def save_scene(path: str, scene: SceneData):
+    """Write a scene in the binary format of the module docstring."""
+    env = scene.env_pixels
+    if env is None:
+        env = np.zeros((1, 1, 4), np.float32)
+    eh, ew = env.shape[:2]
+    origin = scene.cam_origin if scene.cam_origin is not None else np.zeros(3)
+    cam_dir = scene.cam_dir if scene.cam_dir is not None else np.array([0, 0, 1.0])
+    up = scene.cam_up if scene.cam_up is not None else np.array([0, 1.0, 0])
+
+    def pad4(a):
+        out = np.zeros((a.shape[0], 4), np.float32)
+        out[:, :3] = a
+        return out
+
+    with open(path, "wb") as f:
+        f.write(_HEADER.pack(
+            scene.max_depth, scene.vertex_count, scene.triangle_count,
+            scene.viewport_width, scene.viewport_height, ew, eh,
+            *np.asarray(origin, np.float32), *np.asarray(cam_dir, np.float32),
+            *np.asarray(up, np.float32), float(scene.cam_fov)))
+        scene.indices.astype(np.uint32).tofile(f)
+        scene.triangle_materials.astype(np.uint16).tofile(f)
+        pad4(scene.triangle_normals).tofile(f)
+        pad4(scene.vertices).tofile(f)
+        pad4(scene.normals).tofile(f)
+        scene.texcoords.astype(np.float32).tofile(f)
+        env.astype(np.float32).tofile(f)
 
 
 # ---------------------------------------------------------------------------

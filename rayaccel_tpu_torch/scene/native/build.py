@@ -1,6 +1,7 @@
-"""Compile-on-demand + ctypes bindings for the native BVH builder.
+"""Compile-on-demand + ctypes bindings for the native scene compiler.
 
-Counterpart of the BVH entry points of ``rayaccel_tpu/scene/native/build.py``.
+Counterpart of ``rayaccel_tpu/scene/native/build.py``: the BVH build and
+the whole-scene leaf pairing.
 The repository keeps ONE copy of the host builder: this module compiles the
 existing ``rayaccel_tpu/scene/native/scene_compiler.cpp`` (reading a source
 file imports nothing) with the same g++ flags, into the port's git-ignored
@@ -61,6 +62,12 @@ def get_library() -> ctypes.CDLL:
         lib.racc_fetch_bvh.argtypes = [ctypes.c_void_p] * 7
         lib.racc_release.restype = None
         lib.racc_release.argtypes = []
+        lib.racc_pair_all.restype = i64
+        lib.racc_pair_all.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, i64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -92,3 +99,26 @@ def build_bvh_native(vertices: np.ndarray, indices: np.ndarray,
                        _ptr(bbmin), _ptr(bbmax), _ptr(prim_order))
     lib.racc_release()
     return kind, first, last, parent, bbmin, bbmax, prim_order
+
+
+def pair_all_native(vertices: np.ndarray, indices: np.ndarray, bvh):
+    """Pair every leaf's triangles in one native call. Returns (pair_rows,
+    remap, leaf_first, leaf_last), the arrays of
+    ``scene/pairs.py:PairedScene``."""
+    lib = get_library()
+    verts = np.ascontiguousarray(vertices, np.float32)
+    idx = np.ascontiguousarray(indices, np.uint32)
+    kind = np.ascontiguousarray(bvh.kind, np.uint8)
+    first = np.ascontiguousarray(bvh.first, np.int64)
+    last = np.ascontiguousarray(bvh.last, np.int64)
+    prim = np.ascontiguousarray(bvh.prim_order, np.int64)
+    T = idx.shape[0]
+    n_nodes = len(kind)
+    rows = np.empty((T, 12), np.float32)
+    remap = np.empty(2 * T, np.uint32)
+    leaf_first = np.empty(n_nodes, np.int64)
+    leaf_last = np.empty(n_nodes, np.int64)
+    n = lib.racc_pair_all(_ptr(verts), _ptr(idx), _ptr(kind), _ptr(first),
+                          _ptr(last), n_nodes, _ptr(prim), _ptr(rows),
+                          _ptr(remap), _ptr(leaf_first), _ptr(leaf_last))
+    return rows[:n].copy(), remap[:2 * n].copy(), leaf_first, leaf_last

@@ -392,3 +392,62 @@ def test_dense_kernels_refuse_a_tile_they_do_not_take(cuda, scenes,
         dense.dense_closest_hit(*a)
     with pytest.raises(ValueError, match="multiple"):
         dense.dense_occluded(*a)
+
+
+def test_regroup_permutation_matches_cpu(cuda, scenes):
+    """The coherence key and the stable sort give the card the CPU's
+    permutation, ties (dead lanes, repeated origins) included: every column
+    of the regrouped state is equal, narrow or wide."""
+    from rayaccel_tpu_torch.render.regroup import (coherence_key,
+                                                   regroup_state)
+    from rayaccel_tpu_torch.types import Rays
+    cpu_cs, _ = scenes
+    n = 65536
+    r = _rays(cpu_cs, n, 11, "cpu")
+    r.o[: n // 4] = r.o[n // 4: n // 2]               # live lanes that tie
+    rs = np.random.default_rng(12)
+    alive = torch.tensor(rs.uniform(size=n) < 0.6)
+    bmin = cpu_cs.cl_bbmin.amin(0)
+    binv = 1.0 / (cpu_cs.cl_bbmax.amax(0) - bmin).clamp_min(1e-20)
+    cols = [torch.arange(n, dtype=torch.int32), alive,
+            torch.tensor(rs.uniform(size=(n, 3)).astype(np.float32)),
+            torch.tensor(rs.uniform(size=(n, 90)).astype(np.float32))]
+    want_key = coherence_key(r, alive, bmin, binv)
+    got_key = coherence_key(Rays(*(a.to(cuda) for a in r)), alive.to(cuda),
+                            bmin.to(cuda), binv.to(cuda))
+    assert torch.equal(got_key.cpu(), want_key)
+    want_rays, want_cols = regroup_state(want_key, r, cols)
+    got_rays, got_cols = regroup_state(
+        got_key, Rays(*(a.to(cuda) for a in r)), [c.to(cuda) for c in cols])
+    for a, b in zip([*got_rays, *got_cols], [*want_rays, *want_cols]):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    n_live = int(alive.sum())
+    assert bool(got_cols[1][:n_live].all()) and not bool(
+        got_cols[1][n_live:].any())
+
+
+def test_trace_mxu_matches_dense_on_the_card(cuda, scenes):
+    """The plain cluster engine (``torch.bmm`` at fp32, TF32 off) against
+    the dense work-queue engine (K1) on the same rays on the card, and its
+    any-hit form against K4, by the oracle bar."""
+    from rayaccel_tpu_torch.context import init
+    from rayaccel_tpu_torch.ops.trace_mxu import (trace_mxu,
+                                                  trace_occlusion_mxu)
+    init()
+    cpu_cs, gpu_cs = scenes
+    rays = _rays(cpu_cs, 8192, 13, cuda)
+    active = torch.arange(8192, device=cuda) % 5 != 0
+    launches = dense.dense_closest_hit.launches
+    got = trace_mxu(gpu_cs, rays, active=active, tile=1024)
+    assert dense.dense_closest_hit.launches == launches    # no kernel of ours
+    want, ov = dense.trace_dense(gpu_cs, rays, active=active, tile=1024)
+    assert int(ov) == 0 and got.hits.tri.device.type == "cuda"
+    _same_hits(got.hits, want.hits)
+    assert bool((got.hits.tri[~active] == -1).all())
+    short = make_rays(rays.o, rays.d, tmin=1e-3, tmax=8.0)
+    occ = trace_occlusion_mxu(gpu_cs, short, active=active, tile=1024)
+    occ_k4, ov = dense.trace_occlusion_dense(gpu_cs, short, active=active,
+                                             tile=1024)
+    assert int(ov) == 0
+    assert (occ == occ_k4).float().mean() >= 0.9995
+    assert 0 < int(occ.sum()) < int(active.sum())

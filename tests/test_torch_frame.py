@@ -106,7 +106,7 @@ def test_renderer_end_to_end(frame_inputs):
     ctx = racc.create_context(cfg, device="cpu")
     cam = racc.Camera.look_at(sd.cam_origin, sd.cam_dir, sd.cam_up,
                               sd.cam_fov, SIZE, SIZE)
-    r = racc.PathTracingRenderer(ctx, cam, sd, cluster_scene=cs)
+    r = racc.PathTracingRenderer(ctx, cam, sd, tpu_scene=cs)
     stats = [r.render_frame(rng.PRNGKey(s)) for s in (5, 6)]
     assert r.spp == 2 and r.dropped == 0
     assert r.rays_traced_total == sum(int(s.rays_traced) for s in stats)

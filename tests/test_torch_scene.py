@@ -1,7 +1,7 @@
 """The port's host data against the JAX package's, bitwise: synthetic
 scenes, the compiled cluster scene, the environment quad table and the
-block swizzle. Also: importing the port loads no JAX, and configuration
-values the port does not run raise."""
+block swizzle. Also: importing the port loads no JAX, configuration
+values the port does not run raise, and those it once refused render."""
 
 import os
 import subprocess
@@ -16,7 +16,8 @@ from rayaccel_tpu.render.tiled import block_swizzle as jax_swizzle
 from rayaccel_tpu.scene import loader as jax_loader
 from rayaccel_tpu.scene.clusters import compile_clusters as jax_compile
 
-from rayaccel_tpu_torch import Configuration
+import rayaccel_tpu_torch as racc
+from rayaccel_tpu_torch import Configuration, rng
 from rayaccel_tpu_torch.environment import create_environment
 from rayaccel_tpu_torch.render.tiled import block_swizzle
 from rayaccel_tpu_torch.scene import loader
@@ -100,13 +101,32 @@ def test_import_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("kw", [dict(backend="mxu"),
-                                dict(sampler="stratified"),
-                                dict(regroup=False),
-                                dict(mesh_shape=(1,)),
-                                dict(whitted_bounce_scan=1024)])
+@pytest.mark.parametrize("kw", [dict(mesh_shape=(1,)),
+                                dict(whitted_bounce_scan=1024),
+                                dict(precision="default")])
 def test_unported_configuration_raises(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Configuration(**kw)
     with pytest.raises(ValueError):
         Configuration(pallas_tile_cap=6)    # shared validation runs first
+
+
+@pytest.mark.parametrize("kw", [dict(backend="mxu"),
+                                dict(sampler="stratified"),
+                                dict(regroup=False)])
+def test_ported_configuration_renders(kw):
+    """Values the port once refused: each builds a context on the CPU and
+    renders a finite, lit 64x64 frame with nothing dropped."""
+    sd = loader.make_test_scene(viewport=(64, 64), max_depth=2)
+    ctx = racc.create_context(
+        Configuration(wave_size=1024, trace_block=512, min_stage_width=1024,
+                      **kw), device="cpu")
+    cam = racc.Camera.look_at(sd.cam_origin, sd.cam_dir, sd.cam_up,
+                              sd.cam_fov, 64, 64)
+    r = racc.PathTracingRenderer(ctx, cam, sd)
+    stats = r.render_frame(rng.PRNGKey(1))
+    img = r.image()
+    assert r.dropped == 0 and int(stats.rays_traced) >= 64 * 64
+    assert img.shape == (64, 64, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.05
+    assert r.pooled == (kw != dict(regroup=False))

@@ -10,6 +10,7 @@ from rayaccel_tpu.camera import Camera, generate_pixel_rays
 from rayaccel_tpu.types import make_rays
 
 from rayaccel_tpu_torch.scene.clusters import cluster_scene_from_numpy
+from rayaccel_tpu_torch.scene.compile import tpu_scene_from_numpy
 from rayaccel_tpu_torch.types import Rays
 
 CLUSTER_FIELDS = ("G", "attrs", "tri_id", "cl_bbmin", "cl_bbmax",
@@ -20,6 +21,12 @@ def port_scene(jax_cluster_scene):
     """The port's ClusterScene holding the JAX scene's arrays."""
     return cluster_scene_from_numpy(
         *(np.asarray(getattr(jax_cluster_scene, f)) for f in CLUSTER_FIELDS))
+
+
+def port_tpu_scene(jax_tpu_scene):
+    """The port's TpuScene holding the JAX scene's arrays."""
+    return tpu_scene_from_numpy(
+        *(np.asarray(a) for a in jax_tpu_scene))
 
 
 def port_rays(rays):
