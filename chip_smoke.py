@@ -74,7 +74,25 @@ is missing. Phases, one JSON line each:
 13. gate ``wave_gate``: the per-wave path tracer at 320x180 and 2 spp, card
     against host CPU with the same keys, through the two-class gate;
 14. ``scene_io``: ``save_scene`` / ``load_scene`` round trip of the scene
-    through a temporary file, arrays bitwise equal.
+    through a temporary file, arrays bitwise equal;
+15. ``cli``: the port's CLI in process, ``--synthetic battlefield --spp 4
+    --profile --out pt.pfm`` (1280x720, ``PathTracingRenderer`` at the
+    scene's depth 8, the default configuration): each frame's ms and
+    Mrays/s from its ``RenderStats``, ``dropped`` (must be 0), the
+    launches of K1, K2 and K3 over the render (each must be > 0) and over
+    the ``--profile`` stage timing after it, the stage breakdown, the PFM
+    (720 x 1280 x 3, finite, not black), the same render as PNG
+    (signature and size), and a ``profile`` line of one more frame;
+16. ``cli_resume``: at depth 2, ``--spp 4 --seed 5`` against ``--spp 2
+    --seed 5 --checkpoint ck`` then ``--spp 4 --seed 999 --checkpoint
+    ck``: the two PFMs must be bitwise equal;
+17. ``cli_whitted``: ``--synthetic battlefield --whitted --spp 1`` (depth
+    8): K1, K2 and K3 must launch, ``dropped`` 0;
+18. ``viewer``: the live viewer on ``port=0`` in a thread, on the scene at
+    320x180: ``/frame.png`` (PNG signature) and ``/stats`` once frames
+    accumulate; ``/input?key=w`` must move the camera, reset the
+    accumulation and let it grow again, then ms a frame over four steady
+    frames; K1, K2 and K3 must launch.
 
 Each slice sets every launch count to 0 just before its timed frames and
 reads them just after. After them, each slice renders two more frames:
@@ -318,6 +336,17 @@ def two_class_gate(img, ref):
                 max_abs=float(pix.max()), n_pixels=int(len(pix)))
 
 
+def read_pfm(path):
+    """(H, W, 3) float32 of a PFM file (bottom-up rows, little-endian)."""
+    import numpy as np
+    with open(path, "rb") as f:
+        if f.readline().strip() != b"PF":
+            raise AssertionError(f"{path} is not a colour PFM")
+        w, h = map(int, f.readline().split())
+        f.readline()
+        return np.flipud(np.fromfile(f, np.float32).reshape(h, w, 3))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -343,6 +372,9 @@ def main() -> int:
     from rayaccel_tpu_torch.scene.loader import (load_scene,
                                                  make_battlefield_like,
                                                  save_scene)
+    from rayaccel_tpu_torch import cli as racc_cli
+    from rayaccel_tpu_torch.utils import image, profiling
+    from rayaccel_tpu_torch.utils.viewer import Viewer
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1031,18 +1063,225 @@ def main() -> int:
     if differing:
         raise AssertionError(f"scene_io: {differing} did not round-trip")
 
+    # Launches of the app-shell phases, read around each phase's run.
+    app_launches = {}
+
+    def run_cli(argv):
+        """The port's CLI in process, every launch count set to 0 just
+        before and read just after. Returns (renderer, stats, launches,
+        seconds)."""
+        args = racc_cli.build_parser().parse_args(argv)
+        reset_counts()
+        t0 = time.perf_counter()
+        renderer, stats = racc_cli.run(args)
+        torch.cuda.synchronize()
+        return renderer, stats, read_counts(), time.perf_counter() - t0
+
+    def frame_lines(stats):
+        return [dict(ms=s * 1e3, mrays_per_s=r / s / 1e6, rays=r)
+                for r, s in stats._window]
+
+    # ---- 15. the CLI: the path tracer at depth 8 and 1280x720 ----
+    # The launches over the render alone are read when the CLI starts its
+    # --profile stage timing.
+    render_counts = {}
+    original_profile = profiling.profile_stages
+
+    def counted_profile(renderer, *a, **kw):
+        render_counts.update(read_counts())
+        return original_profile(renderer, *a, **kw)
+
+    profiling.profile_stages = counted_profile
+    with tempfile.TemporaryDirectory() as tmp:
+        pfm = os.path.join(tmp, "pt.pfm")
+        try:
+            r, stats, launches, seconds = run_cli(
+                ["--synthetic", "battlefield", "--spp", "4", "--profile",
+                 "--out", pfm])
+        finally:
+            profiling.profile_stages = original_profile
+        hdr = read_pfm(pfm)
+        png = os.path.join(tmp, "pt.png")
+        image.write_png(png, image.tonemap(r.image(), 1))
+        with open(png, "rb") as f:
+            png_head = f.read(24)
+        png_bytes = os.path.getsize(png)
+    frames = stats.summary()["frames"]
+    line = dict(
+        phase="cli", viewport=[r.width, r.height], max_depth=r.max_depth,
+        renderer=type(r).__name__, backend=r.backend,
+        bounce_backend=r.bounce_backend, spp=r.spp,
+        frames=frame_lines(stats),
+        frame_ms=stats.total_seconds / frames * 1e3,
+        mrays_per_s=stats.total_rays / stats.total_seconds / 1e6,
+        rays_traced_total=stats.summary()["rays_traced_total"],
+        dropped=r.dropped, launches=render_counts,
+        launches_per_frame={k: v / frames for k, v in render_counts.items()},
+        launches_with_profile=launches, stages=stats.stages,
+        seconds=seconds, pfm_shape=list(hdr.shape),
+        image_finite=bool(np.isfinite(hdr).all()),
+        image_mean=float(hdr.mean()), image_max=float(hdr.max()),
+        png_signature=png_head[:8] == b"\x89PNG\r\n\x1a\n",
+        png_size=list(np.frombuffer(png_head[16:24], ">u4").tolist()),
+        png_bytes=png_bytes)
+    emit(line)
+    app_launches["cli"] = (render_counts, frames)
+    require_launches("cli", render_counts,
+                     ["dense_closest_hit", "select_nearest", "pair_hit"])
+    if not (r.dropped == 0 and r.max_depth == 8 and r.spp == 4
+            and line["pfm_shape"] == [720, 1280, 3]
+            and line["image_finite"] and line["image_max"] > 0
+            and line["png_signature"] and line["png_size"] == [1280, 720]
+            and len(stats.stages or ()) == 5):
+        raise AssertionError(f"cli failed: {line}")
+    # One more frame under the profiler: the kernels' device ms and the
+    # idle share of the CLI's frames.
+    cli_kernel_ms = profile_frame("cli", r, line["frame_ms"])
+    unseen = [k for k in ("dense_closest_hit", "select_nearest", "pair_hit")
+              if not cli_kernel_ms[k] > 0]
+    if unseen:
+        raise AssertionError(f"cli: the profile shows no device time for "
+                             f"{unseen}: {cli_kernel_ms}")
+    del r, stats, hdr
+
+    # ---- 16. CLI resume: bitwise against the render with no break ----
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--synthetic", "battlefield", "--max-depth", "2",
+                  "--quiet"]
+        a, c = os.path.join(tmp, "a.pfm"), os.path.join(tmp, "c.pfm")
+        ck = os.path.join(tmp, "ck")
+        runs = {}
+        for name, extra in (
+                ("a", ["--spp", "4", "--seed", "5", "--out", a]),
+                ("b", ["--spp", "2", "--seed", "5", "--checkpoint", ck,
+                       "--out", os.path.join(tmp, "b.pfm")]),
+                ("c", ["--spp", "4", "--seed", "999", "--checkpoint", ck,
+                       "--out", c])):
+            r, stats, launches, seconds = run_cli(common + extra)
+            runs[name] = dict(spp=r.spp, frames=stats.summary()["frames"],
+                              dropped=r.dropped, seconds=seconds,
+                              launches=launches)
+            del r, stats
+        ia, ic = read_pfm(a), read_pfm(c)
+        line = dict(phase="cli_resume", runs=runs,
+                    bitwise_equal=bool(np.array_equal(ia, ic)),
+                    values_differing=int((ia != ic).sum()),
+                    max_abs_diff=float(np.abs(ia - ic).max()))
+    emit(line)
+    if not (line["bitwise_equal"] and runs["c"]["frames"] == 2
+            and all(x["dropped"] == 0 for x in runs.values())):
+        raise AssertionError(f"cli_resume failed: {line}")
+
+    # ---- 17. the CLI's Whitted renderer at depth 8 ----
+    with tempfile.TemporaryDirectory() as tmp:
+        r, stats, launches, seconds = run_cli(
+            ["--synthetic", "battlefield", "--whitted", "--spp", "1",
+             "--quiet", "--out", os.path.join(tmp, "w.pfm")])
+        hdr = read_pfm(os.path.join(tmp, "w.pfm"))
+    line = dict(phase="cli_whitted", viewport=[r.width, r.height],
+                max_depth=r.max_depth, frames=frame_lines(stats),
+                dropped=r.dropped, launches=launches,
+                bounce_iterations=r.last_info.get("iterations"),
+                seconds=seconds, image_finite=bool(np.isfinite(hdr).all()),
+                image_max=float(hdr.max()))
+    emit(line)
+    app_launches["cli_whitted"] = (launches, 1)
+    require_launches("cli_whitted", launches,
+                     ["dense_closest_hit", "select_nearest", "pair_hit"])
+    if not (r.dropped == 0 and r.max_depth == 8 and line["image_finite"]
+            and line["image_max"] > 0):
+        raise AssertionError(f"cli_whitted failed: {line}")
+    del r, stats, hdr
+
+    # ---- 18. the live viewer ----
+    import threading
+    import urllib.request
+    vr = renderer_on(racc.PathTracingRenderer, scene_at(320, 180, 8))(dev)
+    viewer = Viewer(vr, rng.PRNGKey(0), sd.cam_up, port=0)
+    cleared = threading.Event()
+    clear = vr.clear
+
+    def record_clear():
+        clear()
+        cleared.set()
+
+    def wait_for(cond, what, seconds=120):
+        deadline = time.time() + seconds
+        while not cond():
+            if time.time() > deadline:
+                raise AssertionError(f"viewer: {what} within {seconds} s")
+            time.sleep(0.05)
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{viewer.port}{path}",
+                                    timeout=60) as resp:
+            return resp.read()
+
+    reset_counts()
+    thread = threading.Thread(target=viewer.run, kwargs={"quiet": True},
+                              daemon=True)
+    t0 = time.perf_counter()
+    thread.start()
+    try:
+        wait_for(lambda: vr.spp > 0 and viewer.port, "no frame")
+        first_ms = (time.perf_counter() - t0) * 1e3
+        # The frame published after the first.
+        wait_for(lambda: json.loads(get("/stats"))["spp"] > 0,
+                 "no frame published")
+        frame_png = get("/frame.png")
+        served = json.loads(get("/stats"))
+        origin = vr.camera.origin.copy()
+        spp_before = vr.spp
+        vr.clear = record_clear
+        get("/input?key=w")
+        wait_for(cleared.is_set, "no reset after a move")
+        wait_for(lambda: vr.spp >= 2, "no accumulation after the reset")
+        moved = bool(not np.allclose(vr.camera.origin, origin))
+        # Steady frames, the presenter's PNG encoding included.
+        t1, spp1 = time.perf_counter(), vr.spp
+        wait_for(lambda: vr.spp >= spp1 + 4, "no steady frames")
+        frame_ms = (time.perf_counter() - t1) * 1e3 / (vr.spp - spp1)
+    finally:
+        viewer.stop()
+        thread.join(timeout=120)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    line = dict(phase="viewer", viewport=[vr.width, vr.height],
+                max_depth=vr.max_depth, port=viewer.port,
+                first_frame_ms=first_ms, frame_ms=frame_ms,
+                png_signature=frame_png[:8] == b"\x89PNG\r\n\x1a\n",
+                stats=served, spp_before_move=spp_before,
+                camera_moved=moved, reset=cleared.is_set(),
+                spp_at_stop=vr.spp, dropped=vr.dropped, launches=launches,
+                stopped=not thread.is_alive())
+    emit(line)
+    app_launches["viewer"] = (launches, None)
+    require_launches("viewer", launches,
+                     ["dense_closest_hit", "select_nearest", "pair_hit"])
+    if not (line["png_signature"] and served["spp"] >= 1 and moved
+            and line["reset"] and line["stopped"] and vr.dropped == 0):
+        raise AssertionError(f"viewer failed: {line}")
+    del vr, viewer
+
     # Launches of each kernel over the timed frames of the deep slices and
     # per frame; its device ms in each slice's profiled frame; and, from
     # each slice's launch frame, its launches timed alone at their own
     # widths, their bound and the gap between the two.
+    # The app-shell phases add their launches (and the CLI runs its
+    # launches a frame).
     for k in kernels:
         n = k["name"]
         k["launches_by_slice"] = {name: c[n] for name, (c, *_) in
                                   slices.items()}
+        k["launches_by_slice"].update(
+            {name: c[n] for name, (c, _) in app_launches.items()})
         k["launches"] = sum(k["launches_by_slice"].values())
         k["launches_per_frame"] = {name: c[n] / frames for name, (c, frames,
                                                                *_) in
                                    slices.items()}
+        k["launches_per_frame"].update(
+            {name: c[n] / frames for name, (c, frames) in app_launches.items()
+             if frames})
         k["kernel_ms_per_frame"] = {name: ms[n] for name, (_, _, ms, _) in
                                     slices.items()}
         for key in ("ms", "bound_ms", "gap_ms", "share_of_bound"):

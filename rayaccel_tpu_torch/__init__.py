@@ -17,9 +17,11 @@ CUDA kernels (``csrc/``), built by nvcc at first use on a CUDA tensor; on
 CPU tensors each wrapper runs its plain PyTorch version instead. The
 "mxu", "xla" and "bruteforce" engines are plain tensor code on either
 device, as they are plain XLA in the JAX package. ``load_scene`` /
-``save_scene`` read and write the demo's scene files. ``create_context`` runs on the current CUDA device unless it is
-given ``device="cpu"``; it raises when no CUDA device is visible and no
-device is named::
+``save_scene`` read and write the demo's scene files. ``create_context``
+runs on the current CUDA device unless it is given ``device="cpu"``; it
+raises when no CUDA device is visible and no device is named. The app
+shell is ``python -m rayaccel_tpu_torch.cli`` (``utils/``: image output,
+stats, checkpoints, stage profiling, the live viewer)::
 
     import rayaccel_tpu_torch as racc
     from rayaccel_tpu_torch import rng
@@ -34,28 +36,35 @@ device is named::
     img = r.image()
 """
 
-from rayaccel_tpu_torch.config import (Configuration, EngineOpts,
-                                       default_configuration)
-from rayaccel_tpu_torch.context import Context, create_context, init
+from rayaccel_tpu_torch.config import (Configuration, ContextInfo,
+                                       EngineOpts, default_configuration)
+from rayaccel_tpu_torch.context import (Context, create_context, deinit,
+                                        destroy, info, init)
 from rayaccel_tpu_torch.types import Hits, INVALID_TRIANGLE, Rays, Stats
 from rayaccel_tpu_torch.camera import Camera
 from rayaccel_tpu_torch.environment import Environment, create_environment
+from rayaccel_tpu_torch.materials import (MaterialTable, default_materials,
+                                          make_material_table,
+                                          reflective_diffuse)
 from rayaccel_tpu_torch.scene import (ClusterScene, SceneData, TpuScene,
                                       compile_clusters, compile_scene,
                                       create_scene, load_scene, save_scene)
 from rayaccel_tpu_torch.ops.trace import trace
+from rayaccel_tpu_torch.render.api import render
 from rayaccel_tpu_torch.render.tiled import TiledRenderer
 from rayaccel_tpu_torch.render.pathtracer import PathTracingRenderer
 from rayaccel_tpu_torch.render.whitted import WhittedRenderer
 
 __all__ = [
-    "Configuration", "EngineOpts", "default_configuration",
-    "Context", "create_context", "init",
+    "Configuration", "ContextInfo", "EngineOpts", "default_configuration",
+    "Context", "create_context", "destroy", "info", "init", "deinit",
     "Rays", "Hits", "Stats", "INVALID_TRIANGLE",
     "Camera", "Environment", "create_environment",
+    "MaterialTable", "reflective_diffuse", "make_material_table",
+    "default_materials",
     "ClusterScene", "SceneData", "TpuScene", "compile_clusters",
     "compile_scene", "create_scene", "load_scene", "save_scene", "trace",
-    "TiledRenderer", "PathTracingRenderer", "WhittedRenderer",
+    "render", "TiledRenderer", "PathTracingRenderer", "WhittedRenderer",
 ]
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 """Pinhole camera and primary-ray generation.
 
 Counterpart of ``rayaccel_tpu/camera.py`` (``:30-138``): ``Camera`` is the
-same NumPy object, and :func:`generate_pixel_rays` builds the same jittered
+same NumPy object (``look_at``, ``rotate`` and ``forward`` are the same host
+arithmetic), and :func:`generate_pixel_rays` builds the same jittered
 rays with torch on the device of the pixel coordinates:
 
     dir(px, py) = normalize(view + right * px + up * py)
@@ -53,6 +54,36 @@ class Camera:
             up=(camera_up * (-2.0 / height * extent_y)).astype(np.float32),
             view=(forward + right * extent_x + camera_up * extent_y).astype(np.float32),
         )
+
+    def rotate(self, angle: float, axis, pivot=None) -> "Camera":
+        """Rotate by ``angle`` radians about ``axis`` through ``pivot``
+        (default: the origin of the camera); the host arithmetic of
+        ``rayaccel_tpu/camera.py:Camera.rotate``."""
+        axis = _normalize(np.asarray(axis, np.float64))
+        c, s = math.cos(angle), math.sin(angle)
+        x, y, z = axis
+        rot = np.array([
+            [c + x * x * (1 - c), x * y * (1 - c) - z * s, x * z * (1 - c) + y * s],
+            [y * x * (1 - c) + z * s, c + y * y * (1 - c), y * z * (1 - c) - x * s],
+            [z * x * (1 - c) - y * s, z * y * (1 - c) + x * s, c + z * z * (1 - c)],
+        ])
+        pivot = self.origin if pivot is None else np.asarray(pivot, np.float32)
+        origin = (rot @ (self.origin - pivot)) + pivot
+        return Camera(
+            origin=origin.astype(np.float32),
+            view=(rot @ self.view).astype(np.float32),
+            right=(rot @ self.right).astype(np.float32),
+            up=(rot @ self.up).astype(np.float32),
+        )
+
+    def forward(self) -> np.ndarray:
+        """The view direction with its right and up components removed,
+        normalized (``rayaccel_tpu/camera.py:Camera.forward``)."""
+        n = _normalize(self.right)
+        t = _normalize(self.up)
+        fwd = self.view - n * np.dot(self.view, n)
+        fwd = fwd - t * np.dot(fwd, t)
+        return _normalize(fwd)
 
     def as_arrays(self, device="cpu"):
         """(origin, view, right, up) as float32 tensors on ``device``."""

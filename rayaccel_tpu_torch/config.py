@@ -125,6 +125,16 @@ class EngineOpts:
     precision: str = "highest"
 
 
+@dataclasses.dataclass(frozen=True)
+class ContextInfo:
+    """Introspection data, as ``rayaccel_tpu/config.py:ContextInfo``."""
+
+    device_count: int
+    wave_size: int
+    max_rays_in_flight: int
+    backend: str
+
+
 def default_configuration(backend: str = "pallas") -> Configuration:
     """The headline configuration: dense work-queue kernel for primaries,
     hybrid routing of bounces onto the sparse pair engine."""

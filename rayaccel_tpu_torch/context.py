@@ -1,4 +1,5 @@
-"""Context lifecycle: counterpart of ``rayaccel_tpu/context.py``.
+"""Context lifecycle: counterpart of ``rayaccel_tpu/context.py`` (``init``,
+``deinit``, ``create_context``, ``destroy``, ``info``).
 
 The port's context holds the configuration and one explicit
 ``torch.device``; every tensor the renderers create lives there. There is
@@ -12,7 +13,8 @@ from typing import Optional
 
 import torch
 
-from rayaccel_tpu_torch.config import Configuration, default_configuration
+from rayaccel_tpu_torch.config import (Configuration, ContextInfo,
+                                       default_configuration)
 from rayaccel_tpu_torch.ops.trace_dense import check_tile
 
 
@@ -21,6 +23,11 @@ def init() -> None:
     float32 matrix product or convolution may drop to TF32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def deinit() -> None:
+    """Counterpart of ``rayaccel_tpu/context.py:deinit``: nothing to tear
+    down."""
 
 
 @dataclasses.dataclass
@@ -50,3 +57,17 @@ def create_context(configuration: Optional[Configuration] = None,
         check_tile(min(cfg.trace_block, cfg.wave_size,
                        cfg.max_rays_in_flight))
     return Context(configuration=cfg, device=device)
+
+
+def destroy(context: Context) -> None:
+    """Counterpart of ``rayaccel_tpu/context.py:destroy``: tensors are freed
+    with their last reference, there is nothing to join."""
+
+
+def info(context: Context) -> ContextInfo:
+    """Counterpart of ``rayaccel_tpu/context.py:info``. The port runs on
+    one device (no mesh), so ``device_count`` is 1."""
+    cfg = context.configuration
+    return ContextInfo(device_count=1, wave_size=cfg.wave_size,
+                       max_rays_in_flight=cfg.max_rays_in_flight,
+                       backend=cfg.backend)

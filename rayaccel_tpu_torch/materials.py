@@ -1,19 +1,50 @@
-"""Materials: the vectorized reflective-diffuse BSDF.
+"""Materials: the parameter table and the vectorized reflective-diffuse BSDF.
 
-Counterpart of ``rayaccel_tpu/materials.py`` (``sample_reflective_diffuse``
-and ``_orthonormal_basis``, ``:58-137``): a Fresnel-weighted mirror lobe
-plus a cosine-hemisphere diffuse lobe, picked by relative weight, over
-per-ray parameters [kr, kg, kb, eta].
+Counterpart of ``rayaccel_tpu/materials.py``: the table API
+(``MaterialTable``, ``reflective_diffuse``, ``make_material_table``,
+``default_materials``, ``:28-56``) and ``sample_reflective_diffuse`` with
+``_orthonormal_basis`` (``:58-137``): a Fresnel-weighted mirror lobe plus a
+cosine-hemisphere diffuse lobe, picked by relative weight, over per-ray
+parameters [kr, kg, kb, eta].
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from rayaccel_tpu_torch.ops.intersect import dot3
+
+
+class MaterialTable(NamedTuple):
+    """Parameter table: one row per material, ``params[:, 0:3]`` the albedo
+    k (rgb) and ``params[:, 3]`` eta."""
+
+    params: torch.Tensor  # (M, 4) float32
+
+
+def reflective_diffuse(k, eta: float) -> np.ndarray:
+    """One table row [kr, kg, kb, eta]; a scalar ``k`` is grey."""
+    k = np.broadcast_to(np.asarray(k, np.float32), (3,))
+    return np.array([k[0], k[1], k[2], eta], np.float32)
+
+
+def make_material_table(rows) -> MaterialTable:
+    return MaterialTable(params=torch.tensor(np.stack(rows),
+                                             dtype=torch.float32))
+
+
+def default_materials() -> MaterialTable:
+    """The four demo materials (reference main.cpp:163-168)."""
+    return make_material_table([
+        reflective_diffuse(0.8, 1.0 / 1.4),
+        reflective_diffuse(0.1, 1.0 / 1.4),
+        reflective_diffuse(0.6, 1.0 / 1.2),
+        reflective_diffuse(0.3, 1.0 / 1.2),
+    ])
 
 
 def _orthonormal_basis(n: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

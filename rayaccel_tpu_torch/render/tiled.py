@@ -7,6 +7,7 @@ wave, and un-permutes it in :meth:`TiledRenderer.image`. The default frame
 body (``:220-249``) is a loop over waves around the subclass's
 :meth:`TiledRenderer._trace_wave`, each wave keyed ``fold_in(key, w)``; a
 subclass with a frame-pooled body overrides :meth:`TiledRenderer._render`.
+Each frame ends in the :meth:`TiledRenderer.end_frame` hook (``:292``).
 There is no mesh (ROADMAP queue 1 item 15).
 """
 
@@ -55,6 +56,8 @@ class TiledRenderer:
     """Owns the lane-order framebuffer and the frame's wave inputs; a
     subclass supplies :meth:`_trace_wave` (one wave of one progressive
     sample) and may override :meth:`_render` (the whole sample)."""
+
+    tile_size = 128  # reference TiledRenderer.h:37 (kept for API parity)
 
     def __init__(self, context: Context, width: int, height: int):
         self.context = context
@@ -135,7 +138,12 @@ class TiledRenderer:
         self._rays += traced
         self._dropped += dropped
         self.spp += 1
+        self.end_frame()
         return Stats(rays_traced=traced)
+
+    def end_frame(self):
+        """Hook run after each frame, as ``TiledRenderer::endFrame``
+        (reference TiledRenderer.cpp:62-64)."""
 
     def _render(self, key):
         """(radiance (n_waves, wave_size, 3), traced, dropped) of one

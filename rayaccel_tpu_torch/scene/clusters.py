@@ -66,6 +66,30 @@ class ClusterScene(NamedTuple):
         return self.cl_bbmin.shape[0]
 
 
+def unpack_attrs_np(attrs: np.ndarray) -> dict:
+    """Decode the bf16-pair shading words of attribute rows (NumPy, for
+    tests and debugging; the frame unpacks them in
+    ``render/shading.py``). Counterpart of
+    ``rayaccel_tpu/scene/clusters.py:unpack_attrs_np``."""
+    w = np.ascontiguousarray(attrs[:, :ATTR_PACK_COLS],
+                             np.float32).view(np.uint32)
+    hi = (w & np.uint32(0xFFFF0000)).view(np.float32)
+    lo = (w << np.uint32(16)).view(np.float32)
+    wu = np.ascontiguousarray(attrs[:, ATTR_UV_COL:ATTR_UV_COL + 3],
+                              np.float32).view(np.uint32)
+    uhi = (wu & np.uint32(0xFFFF0000)).view(np.float32)
+    ulo = (wu << np.uint32(16)).view(np.float32)
+    return {
+        "n0": np.stack([hi[:, 0], lo[:, 0], hi[:, 1]], -1),
+        "n1": np.stack([lo[:, 1], hi[:, 2], lo[:, 2]], -1),
+        "n2": np.stack([hi[:, 3], lo[:, 3], hi[:, 4]], -1),
+        "mat": lo[:, 4],
+        "uv0": np.stack([uhi[:, 0], ulo[:, 0]], -1),
+        "uv1": np.stack([uhi[:, 1], ulo[:, 1]], -1),
+        "uv2": np.stack([uhi[:, 2], ulo[:, 2]], -1),
+    }
+
+
 def _cluster_cut(bvh: Bvh2, max_tris: int):
     """Cut the BVH into maximal subtrees with <= max_tris triangles.
     Returns list of (start, end) prim_order ranges + their bounds."""

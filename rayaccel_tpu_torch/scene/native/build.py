@@ -1,7 +1,7 @@
 """Compile-on-demand + ctypes bindings for the native scene compiler.
 
-Counterpart of ``rayaccel_tpu/scene/native/build.py``: the BVH build and
-the whole-scene leaf pairing.
+Counterpart of ``rayaccel_tpu/scene/native/build.py``: the BVH build, the
+whole-scene and one-leaf pairing, and ``native_available``.
 The repository keeps ONE copy of the host builder: this module compiles the
 existing ``rayaccel_tpu/scene/native/scene_compiler.cpp`` (reading a source
 file imports nothing) with the same g++ flags, into the port's git-ignored
@@ -62,6 +62,10 @@ def get_library() -> ctypes.CDLL:
         lib.racc_fetch_bvh.argtypes = [ctypes.c_void_p] * 7
         lib.racc_release.restype = None
         lib.racc_release.argtypes = []
+        lib.racc_pair_leaf.restype = i64
+        lib.racc_pair_leaf.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, i64,
+            ctypes.c_void_p, ctypes.c_void_p]
         lib.racc_pair_all.restype = i64
         lib.racc_pair_all.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -70,6 +74,17 @@ def get_library() -> ctypes.CDLL:
             ctypes.c_void_p]
         _lib = lib
         return _lib
+
+
+def native_available() -> bool:
+    """Whether the native BVH library compiles and loads here. The port
+    has no NumPy fallback: a call that needs the library still raises the
+    build's error."""
+    try:
+        get_library()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def _ptr(a: np.ndarray):
@@ -122,3 +137,18 @@ def pair_all_native(vertices: np.ndarray, indices: np.ndarray, bvh):
                           _ptr(last), n_nodes, _ptr(prim), _ptr(rows),
                           _ptr(remap), _ptr(leaf_first), _ptr(leaf_last))
     return rows[:n].copy(), remap[:2 * n].copy(), leaf_first, leaf_last
+
+
+def pair_leaves_native(vertices: np.ndarray, indices: np.ndarray,
+                       tri_ids: np.ndarray):
+    """Pair one leaf's triangles natively. Returns (pair_rows, remap)."""
+    lib = get_library()
+    verts = np.ascontiguousarray(vertices, np.float32)
+    idx = np.ascontiguousarray(indices, np.uint32)
+    ids = np.ascontiguousarray(tri_ids, np.int64)
+    count = len(ids)
+    rows = np.empty((count, 12), np.float32)
+    remap = np.empty(2 * count, np.uint32)
+    n = lib.racc_pair_leaf(_ptr(verts), _ptr(idx), _ptr(ids), count,
+                           _ptr(rows), _ptr(remap))
+    return rows[:n], remap[:2 * n]
