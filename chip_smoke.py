@@ -92,7 +92,18 @@ is missing. Phases, one JSON line each:
     320x180: ``/frame.png`` (PNG signature) and ``/stats`` once frames
     accumulate; ``/input?key=w`` must move the camera, reset the
     accumulation and let it grow again, then ms a frame over four steady
-    frames; K1, K2 and K3 must launch.
+    frames; K1, K2 and K3 must launch;
+19. slice ``mesh1``: BASELINE config 5b, ``PathTracingRenderer`` with
+    ``Configuration(mesh_shape=(1,))`` at 1280x720, depth 2: the frame runs
+    through the mesh code (``parallel/mesh.py``) under a one-rank NCCL
+    group that ``create_context`` forms (its backend and world size are on
+    the line); one warm-up and three timed frames; K1, K2 and K3 must
+    launch, ``dropped`` 0;
+20. gate ``mesh1_gate``: at 320x180, a one-rank mesh on the card against
+    a one-rank mesh on the host CPU (gloo) with the same key, for
+    ``PathTracingRenderer`` at depth 2 (K1, K2, K3 must launch) and for
+    ``WhittedRenderer`` at depth 3 with shadows (K1-K4 must launch),
+    through the two-class gate.
 
 Each slice sets every launch count to 0 just before its timed frames and
 reads them just after. After them, each slice renders two more frames:
@@ -354,6 +365,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
+    import torch.distributed as dist
     import rayaccel_tpu_torch as racc
     from rayaccel_tpu_torch import rng
     from rayaccel_tpu_torch.ops import _kernels
@@ -1262,6 +1274,33 @@ def main() -> int:
             and line["reset"] and line["stopped"] and vr.dropped == 0):
         raise AssertionError(f"viewer failed: {line}")
     del vr, viewer
+
+    # ---- 19. the mesh path at one rank (BASELINE config 5b) ----
+    mesh1 = racc.Configuration(mesh_shape=(1,))
+    r = renderer_on(racc.PathTracingRenderer, scene_at(*full, 2), mesh1)(dev)
+    drive("mesh1", r, [rng.PRNGKey(101 + i) for i in range(3)],
+          ["dense_closest_hit", "select_nearest", "pair_hit"],
+          group_backend=lambda: dist.get_backend(r.mesh.group),
+          world_size=lambda: dist.get_world_size(r.mesh.group),
+          shard_lanes=lambda: r.shard_lanes)
+    if (dist.get_backend(r.mesh.group), r.mesh.size) != ("nccl", 1):
+        raise AssertionError(f"mesh1 ran on {r.mesh}, not one NCCL rank")
+    del r
+
+    # ---- 20. mesh gate: one-rank meshes, card against host CPU ----
+    for name, cls, depth, kw, needed in (
+            ("pt", racc.PathTracingRenderer, 2, {},
+             ["dense_closest_hit", "select_nearest", "pair_hit"]),
+            ("whitted", racc.WhittedRenderer, 3, dict(shadows=True),
+             ["dense_closest_hit", "dense_occluded", "select_nearest",
+              "pair_hit"])):
+        launches = card_vs_cpu(
+            "mesh1_gate",
+            renderer_on(cls, scene_at(320, 180, depth), mesh1, **kw),
+            [rng.PRNGKey(9)], renderer=name, viewport=[320, 180], spp=1,
+            max_depth=depth, shadows=bool(kw))
+        require_launches(f"mesh1_gate {name}", launches, needed)
+    dist.destroy_process_group()
 
     # Launches of each kernel over the timed frames of the deep slices and
     # per frame; its device ms in each slice's profiled frame; and, from

@@ -19,9 +19,12 @@ CPU tensors each wrapper runs its plain PyTorch version instead. The
 device, as they are plain XLA in the JAX package. ``load_scene`` /
 ``save_scene`` read and write the demo's scene files. ``create_context``
 runs on the current CUDA device unless it is given ``device="cpu"``; it
-raises when no CUDA device is visible and no device is named. The app
-shell is ``python -m rayaccel_tpu_torch.cli`` (``utils/``: image output,
-stats, checkpoints, stage profiling, the live viewer)::
+raises when no CUDA device is visible and no device is named. With
+``Configuration(mesh_shape=(D,))`` the frame is split over the D ranks of
+a ``torch.distributed`` process group, one process a rank (``parallel/``:
+NCCL on the card, gloo on the CPU; ``torchrun --nproc_per_node=D``). The
+app shell is ``python -m rayaccel_tpu_torch.cli`` (``utils/``: image
+output, stats, checkpoints, stage profiling, the live viewer)::
 
     import rayaccel_tpu_torch as racc
     from rayaccel_tpu_torch import rng

@@ -3,10 +3,11 @@
 Counterpart of ``rayaccel_tpu/config.py``: the same fields, defaults and
 validation, so one configuration reads the same in both packages. The
 port runs every engine, both samplers and the per-wave and frame-pooled
-paths on one device. The three values it does not run (``mesh_shape``,
-``precision="default"``, ``whitted_bounce_scan``) pass the shared
-validation and then raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item (queue 1) that brings them, or its "Do not port" list.
+paths, on one device or, with ``mesh_shape=(D,)``, on the D ranks of a
+``torch.distributed`` process group (``parallel/mesh.py``). The two values
+it does not run (``precision="default"``, ``whitted_bounce_scan``) pass
+the shared validation and then raise ``NotImplementedError`` naming
+``ROADMAP.md``'s "Do not port" list.
 """
 
 from __future__ import annotations
@@ -94,15 +95,11 @@ class Configuration:
             raise ValueError("whitted_stage_ratio must be >= 2")
         if self.whitted_hot_levels < 1:
             raise ValueError("whitted_hot_levels must be >= 1")
-        # What the port does not run (ROADMAP.md, queue 1).
+        # What the port does not run (ROADMAP.md, "Do not port").
         if self.precision != "highest":
             raise NotImplementedError(
                 "precision='default' is on ROADMAP's 'Do not port' list: "
                 "the port's kernels run fp32 only")
-        if self.mesh_shape is not None:
-            raise NotImplementedError(
-                "mesh_shape (the multi-device tier) is ROADMAP queue 1 "
-                "item 15")
         if self.whitted_bounce_scan is not None:
             raise NotImplementedError(
                 "whitted_bounce_scan (the scanned dense bounce) is on "

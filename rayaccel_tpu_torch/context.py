@@ -1,14 +1,18 @@
 """Context lifecycle: counterpart of ``rayaccel_tpu/context.py`` (``init``,
 ``deinit``, ``create_context``, ``destroy``, ``info``).
 
-The port's context holds the configuration and one explicit
-``torch.device``; every tensor the renderers create lives there. There is
-no mesh: the multi-device tier is ROADMAP queue 1 item 15.
+The port's context holds the configuration, one explicit ``torch.device``
+(every tensor the renderers create lives there) and, with
+``mesh_shape=(D,)``, the :class:`~rayaccel_tpu_torch.parallel.mesh.Mesh`
+of the D ranks of a ``torch.distributed`` process group, one process a
+rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 from typing import Optional
 
 import torch
@@ -16,6 +20,7 @@ import torch
 from rayaccel_tpu_torch.config import (Configuration, ContextInfo,
                                        default_configuration)
 from rayaccel_tpu_torch.ops.trace_dense import check_tile
+from rayaccel_tpu_torch.parallel.mesh import Mesh, make_mesh
 
 
 def init() -> None:
@@ -34,29 +39,45 @@ def deinit() -> None:
 class Context:
     configuration: Configuration
     device: torch.device
+    mesh: Optional[Mesh] = None
 
 
 def create_context(configuration: Optional[Configuration] = None,
                    device=None) -> Context:
-    """Build a context on ``device`` (default: the current CUDA device).
-    The port never picks the CPU by itself: with no CUDA device visible and
-    no ``device`` given this raises; pass ``device="cpu"`` to run the plain
-    versions on the host. On a CUDA device the renderers' queue tile,
-    ``min(trace_block, wave_size, max_rays_in_flight)``, must be a multiple
-    of the dense kernels' CTA (``ops/trace_dense.py:check_tile``); this
-    raises ``ValueError`` otherwise. Calls :func:`init`."""
+    """Build a context on ``device`` (default: the current CUDA device, or
+    with a mesh the rank's own, ``cuda:LOCAL_RANK``). The port never picks
+    the CPU by itself: with no CUDA device visible and no ``device`` given
+    this raises; pass ``device="cpu"`` to run the plain versions on the
+    host.
+
+    With ``mesh_shape=(D,)`` the context holds a mesh of the D ranks of the
+    initialised default process group (from ``torchrun``, or a launcher
+    that calls ``torch.distributed.init_process_group``), in a new group of
+    the device's backend (``parallel/mesh.py:make_mesh``). It raises
+    ``ValueError`` when that group does not have D ranks, as JAX's "needs n
+    devices" does; for D = 1 with no group it forms a one-rank group.
+
+    On a CUDA device the renderers' queue tile, ``min(trace_block,
+    min(wave_size, max_rays_in_flight) // D)`` (a rank's lanes of a wave;
+    D = 1 without a mesh), must be a multiple of the dense kernels' CTA
+    (``ops/trace_dense.py:check_tile``); this raises ``ValueError``
+    otherwise. Calls :func:`init`."""
     init()
     cfg = configuration or default_configuration()
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is visible: pass "
                                "device=\"cpu\" to run on the host")
-        device = torch.device("cuda", torch.cuda.current_device())
+        device = (torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+                  if cfg.mesh_shape is not None else
+                  torch.device("cuda", torch.cuda.current_device()))
     device = torch.device(device)
+    n_shards = math.prod(cfg.mesh_shape or (1,))
     if device.type == "cuda":
-        check_tile(min(cfg.trace_block, cfg.wave_size,
-                       cfg.max_rays_in_flight))
-    return Context(configuration=cfg, device=device)
+        check_tile(min(cfg.trace_block,
+                       min(cfg.wave_size, cfg.max_rays_in_flight) // n_shards))
+    mesh = make_mesh(device, n_shards) if cfg.mesh_shape else None
+    return Context(configuration=cfg, device=device, mesh=mesh)
 
 
 def destroy(context: Context) -> None:
@@ -65,9 +86,11 @@ def destroy(context: Context) -> None:
 
 
 def info(context: Context) -> ContextInfo:
-    """Counterpart of ``rayaccel_tpu/context.py:info``. The port runs on
-    one device (no mesh), so ``device_count`` is 1."""
+    """Counterpart of ``rayaccel_tpu/context.py:info``. ``device_count`` is
+    the mesh's number of ranks, 1 without a mesh; the JAX context counts
+    every device it can see, mesh or not."""
     cfg = context.configuration
-    return ContextInfo(device_count=1, wave_size=cfg.wave_size,
+    return ContextInfo(device_count=context.mesh.size if context.mesh else 1,
+                       wave_size=cfg.wave_size,
                        max_rays_in_flight=cfg.max_rays_in_flight,
                        backend=cfg.backend)

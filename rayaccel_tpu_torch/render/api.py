@@ -23,20 +23,24 @@ def render(context: Context, scene, environment, renderer,
     The renderers read their scene and environment afresh every frame and
     cache nothing derived from them, so a rebind is an assignment. A scene
     that ``bind_scene`` would trace on another engine than the renderer's
-    is refused. With no ``key``, the frame draws ``rng.PRNGKey(spp)``.
-    The JAX function's mesh branch has no counterpart: ``Configuration``
-    already raises ``NotImplementedError`` for ``mesh_shape`` (ROADMAP
-    queue 1 item 15), so no context here has a mesh."""
-    if scene is not None and scene is not renderer.scene:
-        backend, bound = bind_scene(renderer.backend, renderer.scene_data,
-                                    scene, renderer.device)
+    is refused. Under a mesh a rebind replicates rank 0's new scene and
+    environment on every rank (``rayaccel_tpu/render/api.py:46-52``), a
+    collective: every rank re-publishes the same way. Re-passing the bound
+    objects replicates nothing. With no ``key``, the frame draws
+    ``rng.PRNGKey(spp)``."""
+    new_scene, new_env = renderer._bound_scene, renderer._bound_env
+    if scene is not None and scene is not new_scene:
+        backend, new_scene = bind_scene(renderer.backend, renderer.scene_data,
+                                        scene, renderer.device)
         if backend != renderer.backend:
             raise ValueError(
                 f"a {type(scene).__name__} runs on the {backend!r} engine, "
                 f"not on this renderer's {renderer.backend!r}")
-        renderer.scene = bound
-    if environment is not None and environment is not renderer.environment:
-        renderer.environment = environment
+    if environment is not None:
+        new_env = environment
+    if (new_scene is not renderer._bound_scene
+            or new_env is not renderer._bound_env):
+        renderer._bind(new_scene, new_env)
     if key is None:
         key = rng.PRNGKey(renderer.spp)
     return renderer.render_frame(key)

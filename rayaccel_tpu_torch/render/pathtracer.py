@@ -5,13 +5,15 @@ Counterpart of ``rayaccel_tpu/render/pathtracer.py``: ``pt_shade``,
 ``"xla"`` engines), ``_shade_advance``, ``_primary_rays`` with the uniform
 and the stratified sampler, ``pt_trace_wave`` (``:188-333``, one wave
 traced to completion, with or without the between-bounce regroup),
-``pt_trace_frame`` (``:361-669``) on one device with the fast width
-shrink, and ``PathTracingRenderer``, which takes the pooled frame when the
+``pt_trace_frame`` (``:361-669``) with the fast width shrink, on one device
+or on one rank of a mesh with the cross-rank reshard, and
+``PathTracingRenderer``, which takes the pooled frame when the
 configuration regroups on a cluster engine and the per-wave body
 otherwise. The random streams follow the JAX key chains exactly. Pooled:
 stage 1 draws positionally from ``fold_in(key, w)`` (camera jitter from
-``fold_in(wkey, 0)``, the first BSDF sample from ``fold_in(wkey, 1)``),
-bounce b draws per lane id from ``fold_in(key, 4096 + b)``. Per wave, with
+``fold_in(wkey, 0)``, the first BSDF sample from ``fold_in(wkey, 1)``;
+under a mesh ``key`` is ``fold_in(key, rank)`` here), bounce b draws per
+global lane id from ``fold_in(key, 4096 + b)``. Per wave, with
 ``wave_key = fold_in(key, w)``: jitter from ``fold_in(wave_key, 0)``,
 bounce b per wave-local lane id from ``fold_in(wave_key, b + 1)``.
 
@@ -36,6 +38,8 @@ from rayaccel_tpu_torch.ops.trace import trace_bvh
 from rayaccel_tpu_torch.ops.trace_dense import trace_dense
 from rayaccel_tpu_torch.ops.trace_mxu import trace_mxu
 from rayaccel_tpu_torch.ops.trace_sparse import trace_sparse
+from rayaccel_tpu_torch.parallel.mesh import (Mesh, reshard_balance_cols,
+                                              route_rows_home)
 from rayaccel_tpu_torch.render.regroup import coherence_key, regroup_state
 from rayaccel_tpu_torch.render.shading import (SECONDARY_TMAX, SECONDARY_TMIN,
                                                SurfaceSample,
@@ -321,13 +325,48 @@ def _final_piece(lane, n_fresh: int, shrunk: bool, cols):
     return torch.cat([final[:, None], *cols], dim=1)
 
 
-def _by_lane(lane_f, rows, N: int):
-    """(N, cols): each valid piece row scattered to its lane id."""
+def _by_lane(lane_f, rows, N: int, lane0: int = 0):
+    """(N, cols): each valid piece row scattered to its lane id, less the
+    first lane id ``lane0`` of this rank."""
     real = lane_f < _LANE_INVALID
     out = torch.zeros((N, rows.shape[1]), dtype=rows.dtype,
                       device=rows.device)
-    out[lane_f[real].to(torch.int64)] = rows[real]
+    out[lane_f[real].to(torch.int64) - lane0] = rows[real]
     return out
+
+
+def _route_home(lane_f, rows, mesh: Mesh | None, resharded: bool):
+    """Reassembly rows (lane id, ``rows``) of the lanes this rank traced,
+    routed to the ranks that own them when the reshard fired. Each lane
+    this rank held after the exchange is emitted exactly once (fast-shrink
+    pieces mark the other rows invalid), so exactly N rows are valid,
+    N / D of each home rank: the exchange home is
+    ``parallel/mesh.py:route_rows_home``'s. Returns (lane_f, rows)."""
+    if not resharded:
+        return lane_f, rows
+    valid = lane_f < _LANE_INVALID
+    routed = route_rows_home(torch.cat([lane_f[valid, None], rows[valid]],
+                                       dim=1), mesh, True)
+    return routed[:, 0], routed[:, 1:]
+
+
+def _reshard_balance(st, mesh: Mesh, D: int):
+    """Cross-rank bounce balance of the PT pool: the shared striped exchange
+    (``parallel/mesh.py:reshard_balance_cols``) over the 19 lane-state
+    columns. Lane ids are global and the bounce draws are keyed by them,
+    so the radiance is bitwise the same whether it fires or not. Returns
+    (state, resharded)."""
+    r = st["rays"]
+    S = torch.cat([r.o, r.d, r.tmin[:, None], r.tmax[:, None], st["weight"],
+                   st["miss_d"], st["miss_w"],
+                   st["depth"].to(torch.float32)[:, None],
+                   st["alive"].to(torch.float32)[:, None]], dim=1)
+    S, lane, resharded = reshard_balance_cols(S, st["lane"], st["alive"],
+                                              mesh, D)
+    return dict(st, rays=Rays(S[:, 0:3], S[:, 3:6], S[:, 6], S[:, 7]),
+                weight=S[:, 8:11], miss_d=S[:, 11:14], miss_w=S[:, 14:17],
+                depth=S[:, 17].to(torch.int32), alive=S[:, 18] > 0,
+                lane=lane), resharded
 
 
 def _stage_widths(N: int, max_depth: int, min_stage_width: int):
@@ -345,7 +384,9 @@ def pt_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
                    tile: int = 512, bounce_backend: str = "sparse",
                    min_stage_width: int = 8192, opts: EngineOpts = EngineOpts(),
                    sampler: str = "uniform", spp_index=None,
-                   sampler_key=None):
+                   sampler_key=None, mesh: Mesh | None = None,
+                   n_shards: int = 1, reshard: bool = True,
+                   info: dict | None = None):
     """Trace a whole frame with one pooled bounce loop (cluster engines).
 
     1. Primaries are traced and shaded wave by wave (dense engine).
@@ -358,17 +399,41 @@ def pt_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
     3. One deferred environment lookup over all pieces, reassembled by
        lane id.
 
-    Returns (radiance (W, R, 3) in lane order, traced, dropped)."""
+    With ``mesh`` (of ``n_shards`` ranks), ``xs``, ``ys`` and ``alives``
+    are this rank's lanes of each wave, stage 1 draws from ``fold_in(key,
+    rank)``, and lane ids are global (rank * N + local). With ``reshard``
+    and more than one rank, the pools are balanced across the ranks once
+    before the bounce loop (every rank must enter it, dead or not), and
+    the radiance of lanes traced away from home is routed home at
+    reassembly.
+
+    Returns (radiance (W, R, 3) in lane order, traced, dropped): this
+    rank's. With ``info``, whether the reshard fired is written to it."""
     W, R = xs.shape
     N = W * R
-    assert N < (1 << 24), f"frame pool {N} >= 2^24 lanes"
+    # Global lane ids are exact in the float32 reassembly rows only below
+    # 2^24.
+    assert N * n_shards < (1 << 24), \
+        f"frame pool {N} x {n_shards} ranks >= 2^24 lanes"
     device = xs.device
+    lane0 = 0
+    wave_key = key
+    if mesh is not None:
+        assert n_shards == mesh.size
+        lane0 = mesh.rank * N
+        wave_key = rng.fold_in(key, mesh.rank)
 
-    state, dropped = _stage1(scene, cam_arrays, xs, ys, alives, key,
+    state, dropped = _stage1(scene, cam_arrays, xs, ys, alives, wave_key,
                              max_depth, backend, tile, opts,
                              (sampler, spp_index, sampler_key))
     traced = alives.sum()
-    state["lane"] = torch.arange(N, dtype=torch.int32, device=device)
+    state["lane"] = torch.arange(lane0, lane0 + N, dtype=torch.int32,
+                                 device=device)
+    resharded = False
+    if mesh is not None and n_shards > 1 and reshard:
+        state, resharded = _reshard_balance(state, mesh, n_shards)
+    if info is not None:
+        info["resharded"] = resharded
     state["n_fresh"] = N
     bounce = 0
 
@@ -426,7 +491,8 @@ def pt_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
     up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=device)
     miss_dir = torch.where(is_miss[:, None], allp[:, 1:4], up)
     radiance = miss_w * sample_environment(env, miss_dir)
-    rad = _by_lane(allp[:, 0], radiance, N)
+    lane_f, radiance = _route_home(allp[:, 0], radiance, mesh, resharded)
+    rad = _by_lane(lane_f, radiance, N, lane0)
     return rad.reshape(W, R, 3), traced, dropped
 
 
@@ -461,7 +527,10 @@ class PathTracingRenderer(TiledRenderer):
 
     ``tpu_scene`` may be a ClusterScene or a TpuScene; without one the
     scene is compiled for the backend. The "bruteforce" oracle runs no
-    renderer (``ops/trace.py:trace`` serves it)."""
+    renderer (``ops/trace.py:trace`` serves it). Under a mesh every rank
+    traces rank 0's scene and environment (``replicate_scene``) and its
+    own lanes of each wave; the pooled frame balances the ranks' bounce
+    pools when ``reshard_bounces`` is set."""
 
     def __init__(self, context: Context, camera: Camera, scene_data: SceneData,
                  tpu_scene=None, environment: Environment | None = None):
@@ -482,12 +551,12 @@ class PathTracingRenderer(TiledRenderer):
             environment = create_environment(env_px, env_px.shape[1],
                                              env_px.shape[0],
                                              device=self.device)
-        self.environment = environment
+        self._bind(self.scene, environment)
         self.max_depth = int(scene_data.max_depth)
         self.sampler = cfg.sampler
         self._sampler_key = rng.PRNGKey(SAMPLER_SEED)
         self.opts = cfg.engine_opts()
-        self.tile = min(cfg.trace_block, self.wave_size)
+        self.tile = min(cfg.trace_block, self.shard_lanes)
         self.stack_depth = cfg.traversal_stack_depth
         self.min_stage_width = cfg.min_stage_width
         self.pooled = cfg.regroup and self.backend in CLUSTER_BACKENDS
@@ -502,7 +571,7 @@ class PathTracingRenderer(TiledRenderer):
             bounce_backend=self.bounce_backend,
             min_stage_width=self.min_stage_width, opts=self.opts,
             sampler=self.sampler, spp_index=self.spp,
-            sampler_key=self._sampler_key)
+            sampler_key=self._sampler_key, **self._mesh_kwargs())
 
     def _trace_wave(self, x, y, alive, wave_key):
         return pt_trace_wave(

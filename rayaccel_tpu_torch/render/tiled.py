@@ -1,14 +1,22 @@
 """Tiled progressive renderer base.
 
 Counterpart of ``rayaccel_tpu/render/tiled.py``: ``block_swizzle``
-(``:46-71``) and a single-device ``TiledRenderer`` that keeps the HDR
-accumulation buffer in block-swizzled lane order, one contiguous slice per
-wave, and un-permutes it in :meth:`TiledRenderer.image`. The default frame
-body (``:220-249``) is a loop over waves around the subclass's
+(``:46-71``) and ``TiledRenderer``, which keeps the HDR accumulation buffer
+in block-swizzled lane order, one contiguous slice per wave, and
+un-permutes it in :meth:`TiledRenderer.image`. The default frame body
+(``:220-249``) is a loop over waves around the subclass's
 :meth:`TiledRenderer._trace_wave`, each wave keyed ``fold_in(key, w)``; a
 subclass with a frame-pooled body overrides :meth:`TiledRenderer._render`.
 Each frame ends in the :meth:`TiledRenderer.end_frame` hook (``:292``).
-There is no mesh (ROADMAP queue 1 item 15).
+
+With a mesh of D ranks (``context.mesh``), each rank traces and keeps its
+block of every wave, lanes ``[rank*R/D, (rank+1)*R/D)``, as JAX's shard of
+``P(None, "tiles")`` does; the default body folds the rank into the key
+before the wave (``:229-241``), and ``traced`` and ``dropped`` are summed
+over the ranks every frame (``:286-287``). :attr:`frame_buffer`,
+:meth:`set_frame_buffer` and :meth:`image` speak of the whole lane-order
+buffer (gathered from every rank, so every rank must call them), so a
+checkpoint is the JAX package's file.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import torch
 
 from rayaccel_tpu_torch import rng
 from rayaccel_tpu_torch.context import Context
+from rayaccel_tpu_torch.parallel.mesh import replicate_scene
 from rayaccel_tpu_torch.types import Stats
 
 BLOCK_W = 32
@@ -72,23 +81,34 @@ class TiledRenderer:
         n_lanes = n_blocks * BLOCK_W * BLOCK_H
         self.n_waves = -(-n_lanes // self.wave_size)
         self.n_lanes = self.n_waves * self.wave_size
+        self.mesh = context.mesh
+        n_shards = self.mesh.size if self.mesh else 1
+        if self.wave_size % n_shards:
+            raise ValueError(f"wave_size {self.wave_size} does not split "
+                             f"over a mesh of {n_shards} ranks")
+        # This rank's lanes of every wave.
+        self.shard_lanes = self.wave_size // n_shards
+        lo = (self.mesh.rank if self.mesh else 0) * self.shard_lanes
+        self._lanes = slice(lo, lo + self.shard_lanes)
 
         perm, x, y = block_swizzle(self.width, self.height, self.n_lanes)
         self._perm = perm
         shape = (self.n_waves, self.wave_size)
-        self._wave_x = torch.as_tensor(x.reshape(shape), dtype=torch.int32,
-                                       device=self.device)
-        self._wave_y = torch.as_tensor(y.reshape(shape), dtype=torch.int32,
-                                       device=self.device)
-        self._wave_alive = torch.as_tensor((perm >= 0).reshape(shape),
-                                           device=self.device)
+
+        def local(a, dtype=None):
+            return torch.as_tensor(a.reshape(shape)[:, self._lanes],
+                                   dtype=dtype, device=self.device)
+
+        self._wave_x = local(x, torch.int32)
+        self._wave_y = local(y, torch.int32)
+        self._wave_alive = local(perm >= 0)
         self.spp = 0
         self._rays = torch.zeros((), dtype=torch.int64, device=self.device)
         self._dropped = torch.zeros((), dtype=torch.int64, device=self.device)
         self._fb3 = self._make_fb()
 
     def _make_fb(self) -> torch.Tensor:
-        return torch.zeros((self.n_waves, self.wave_size, 3),
+        return torch.zeros((self.n_waves, self.shard_lanes, 3),
                            dtype=torch.float32, device=self.device)
 
     def clear(self):
@@ -98,13 +118,36 @@ class TiledRenderer:
 
     @property
     def frame_buffer(self) -> torch.Tensor:
-        """Swizzled lane-order accumulation buffer (flat view)."""
-        return self._fb3.reshape(self.n_lanes, 3)
+        """Swizzled lane-order accumulation buffer, (n_lanes, 3): with a
+        mesh, every rank's lanes gathered (a collective)."""
+        if self.mesh is None:
+            return self._fb3.reshape(self.n_lanes, 3)
+        return self.mesh.all_gather(self._fb3).transpose(0, 1).reshape(
+            self.n_lanes, 3)
 
     def set_frame_buffer(self, fb_flat):
-        """Restore a flat (n_lanes, 3) buffer (checkpoint resume)."""
-        self._fb3 = torch.as_tensor(fb_flat, dtype=torch.float32).to(
-            self.device).reshape(self.n_waves, self.wave_size, 3).clone()
+        """Restore a flat (n_lanes, 3) buffer (checkpoint resume); with a
+        mesh, each rank keeps its lanes of it."""
+        fb3 = torch.as_tensor(fb_flat, dtype=torch.float32).reshape(
+            self.n_waves, self.wave_size, 3)[:, self._lanes]
+        self._fb3 = fb3.to(self.device).clone()
+
+    def _bind(self, scene, environment):
+        """Bind ``scene`` and ``environment``, the objects
+        ``render/api.py:render`` compares a re-published one with; under a
+        mesh every rank then traces rank 0's copies of them."""
+        self._bound_scene, self._bound_env = scene, environment
+        if self.mesh is not None:
+            scene = replicate_scene(self.mesh, scene)
+            environment = replicate_scene(self.mesh, environment)
+        self.scene, self.environment = scene, environment
+
+    def _mesh_kwargs(self) -> dict:
+        """The pooled frames' mesh arguments (none without a mesh)."""
+        if self.mesh is None:
+            return {}
+        return dict(mesh=self.mesh, n_shards=self.mesh.size,
+                    reshard=self.context.configuration.reshard_bounces)
 
     def set_camera(self, camera):
         """Move the camera and reset progressive accumulation."""
@@ -124,7 +167,7 @@ class TiledRenderer:
     def image(self) -> np.ndarray:
         """Accumulated HDR image divided by spp, un-permuted to (H, W, 3)."""
         spp = max(self.spp, 1)
-        fb = self._fb3.reshape(self.n_lanes, 3).cpu().numpy()
+        fb = self.frame_buffer.cpu().numpy()
         img = np.zeros((self.n_pixels, 3), np.float32)
         valid = self._perm >= 0
         img[self._perm[valid]] = fb[valid]
@@ -132,9 +175,15 @@ class TiledRenderer:
 
     def render_frame(self, key) -> Stats:
         """Render one progressive sample over the full viewport with the
-        :mod:`rng` key ``key``."""
+        :mod:`rng` key ``key``. With a mesh every rank calls it with the
+        same key; ``rays_traced`` is the sum over the ranks."""
         rad, traced, dropped = self._render(key)
         self._fb3 += rad
+        if self.mesh is not None:
+            counts = torch.stack([torch.as_tensor(c, dtype=torch.int64)
+                                  .to(self.device)
+                                  for c in (traced, dropped)])
+            traced, dropped = self.mesh.all_reduce(counts)
         self._rays += traced
         self._dropped += dropped
         self.spp += 1
@@ -146,9 +195,12 @@ class TiledRenderer:
         (reference TiledRenderer.cpp:62-64)."""
 
     def _render(self, key):
-        """(radiance (n_waves, wave_size, 3), traced, dropped) of one
-        sample: by default every wave traced to completion on its own,
-        with ``wave_key = fold_in(key, w)``."""
+        """(radiance (n_waves, shard_lanes, 3), traced, dropped) of this
+        rank's lanes of one sample: by default every wave traced to
+        completion on its own, with ``wave_key = fold_in(key, w)``, the
+        rank folded into ``key`` first under a mesh."""
+        if self.mesh is not None:
+            key = rng.fold_in(key, self.mesh.rank)
         rads, traced, dropped = [], 0, 0
         for w in range(self.n_waves):
             rad, n, d = self._trace_wave(
@@ -160,5 +212,5 @@ class TiledRenderer:
         return torch.stack(rads), traced, dropped
 
     def _trace_wave(self, x, y, alive, wave_key):
-        """(radiance (wave_size, 3), traced, dropped) of one wave."""
+        """(radiance (shard_lanes, 3), traced, dropped) of one wave."""
         raise NotImplementedError

@@ -6,8 +6,9 @@ Counterpart of ``rayaccel_tpu/render/whitted.py``: ``whitted_shade``
 (``:145-178``, through ``pathtracer._trace_and_surface`` with the
 environment folded at trace time), ``_whitted_step`` (``:181-274``),
 ``whitted_trace_wave`` (``:277-420``) with its between-bounce regroup,
-``whitted_trace_frame`` (``:423-768``) on one device with the fast
-shrink, and ``WhittedRenderer`` (``:771-891``).
+``whitted_trace_frame`` (``:423-768``) with the fast shrink, on one device
+or on one rank of a mesh with the cross-rank reshard, and
+``WhittedRenderer`` (``:771-891``).
 
 Each wavefront lane owns one pixel's whole ray tree. When a hit spawns
 both a reflection and a refraction ray, the reflection continues and the
@@ -41,9 +42,11 @@ from rayaccel_tpu_torch.ops.trace import trace_occlusion_bvh
 from rayaccel_tpu_torch.ops.trace_dense import trace_occlusion_dense
 from rayaccel_tpu_torch.ops.trace_mxu import trace_occlusion_mxu
 from rayaccel_tpu_torch.ops.trace_sparse import trace_occlusion_sparse
+from rayaccel_tpu_torch.parallel.mesh import Mesh, reshard_balance_cols
 from rayaccel_tpu_torch.render.pathtracer import (CLUSTER_BACKENDS, _by_lane,
                                                   _final_piece,
-                                                  _live_prefix_sizes, _shrink,
+                                                  _live_prefix_sizes,
+                                                  _route_home, _shrink,
                                                   _trace_and_surface,
                                                   _trace_prefix, bind_scene)
 from rayaccel_tpu_torch.render.regroup import coherence_key, regroup_state
@@ -333,6 +336,34 @@ def whitted_trace_wave(scene, env: Environment, cam_arrays,
     return radiance, st["traced"], st["dropped"]
 
 
+def _reshard_trees(st, mesh: Mesh, D: int):
+    """Cross-rank balance of the pooled trees before the bounce loop: the
+    shared striped exchange (``parallel/mesh.py:reshard_balance_cols``)
+    over 25 columns, o, d, weight, radiance, depth, sp, alive and stack
+    level 0 (7 + 3): after the one primary step only level 0 can be
+    occupied. Whitted shading is deterministic, so the radiance is bitwise
+    the same whether it fires or not. Returns (state, resharded)."""
+    r = st["rays"]
+    S = torch.cat([r.o, r.d, st["weight"], st["radiance"],
+                   st["depth"].to(torch.float32)[:, None],
+                   st["sp"].to(torch.float32)[:, None],
+                   st["alive"].to(torch.float32)[:, None],
+                   st["stk"][0].T, st["stk_w"][0].T], dim=1)
+    S, lane, resharded = reshard_balance_cols(S, st["lane"], st["alive"],
+                                              mesh, D)
+    if not resharded:
+        return st, False
+    stk = torch.zeros_like(st["stk"])
+    stk_w = torch.zeros_like(st["stk_w"])
+    stk[0] = S[:, 15:22].T
+    stk_w[0] = S[:, 22:25].T
+    return dict(st, rays=_secondary(S[:, 0:3].contiguous(),
+                                    S[:, 3:6].contiguous()),
+                weight=S[:, 6:9], radiance=S[:, 9:12],
+                depth=S[:, 12].to(torch.int32), sp=S[:, 13].to(torch.int32),
+                alive=S[:, 14] > 0, stk=stk, stk_w=stk_w, lane=lane), True
+
+
 def _stage_widths(N: int, stage_ratio: int, min_stage_width: int):
     """Width ladder of the pooled bounce loop: divide by ``stage_ratio``
     (rounded up to a multiple of 1024) while the result stays at or above
@@ -352,7 +383,8 @@ def whitted_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
                         min_stage_width: int = 8192,
                         opts: EngineOpts = EngineOpts(),
                         stage_ratio: int = 2, hot_levels: int = 3,
-                        info: dict | None = None):
+                        mesh: Mesh | None = None, n_shards: int = 1,
+                        reshard: bool = True, info: dict | None = None):
     """Trace a whole frame of ray trees with one pooled bounce loop.
 
     1. Stage 1 traces and first-shades the primaries wave by wave on
@@ -367,15 +399,32 @@ def whitted_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
        levels move only when some lane has parked that deep.
     3. The pieces are reassembled by lane id.
 
-    Returns (radiance (W, R, 3) in lane order, traced, dropped). With
-    ``info``, the numbers of bounce-loop iterations, shrinks and shrinks
-    that moved the deep stack levels are written to it."""
+    With ``mesh`` (of ``n_shards`` ranks), ``xs``, ``ys`` and ``alives``
+    are this rank's lanes of each wave, the rank is folded into ``key``
+    first (only the camera jitter draws: Whitted shading is
+    deterministic), and lane ids are global (rank * N + local). With
+    ``reshard`` and more than one rank, the pooled trees are balanced
+    across the ranks once before the bounce loop (every rank must enter
+    it) and their radiance is routed home at reassembly.
+
+    Returns (radiance (W, R, 3) in lane order, traced, dropped): this
+    rank's. With ``info``, the numbers of bounce-loop iterations, shrinks
+    and shrinks that moved the deep stack levels, and whether the reshard
+    fired, are written to it."""
     W, R = xs.shape
     N = W * R
-    assert N < (1 << 24), f"frame pool {N} >= 2^24 lanes"
+    # Global lane ids are exact in the float32 reassembly rows only below
+    # 2^24.
+    assert N * n_shards < (1 << 24), \
+        f"frame pool {N} x {n_shards} ranks >= 2^24 lanes"
     S = stack_size
     device = xs.device
     f32 = dict(dtype=torch.float32, device=device)
+    lane0 = 0
+    if mesh is not None:
+        assert n_shards == mesh.size
+        lane0 = mesh.rank * N
+        key = rng.fold_in(key, mesh.rank)
 
     # ---- stage 1: primary trace + first shade/park, wave by wave ----
     # One step from sp = 0 pushes at most once and pops nothing, so only
@@ -405,10 +454,14 @@ def whitted_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
         weight=pooled("weight"), depth=pooled("depth"),
         alive=pooled("alive"), sp=pooled("sp"), stk=stk, stk_w=stk_w,
         radiance=pooled("radiance"),
-        lane=torch.arange(N, dtype=torch.int32, device=device),
+        lane=torch.arange(lane0, lane0 + N, dtype=torch.int32,
+                          device=device),
         traced=sum(wst["traced"] for wst in waves),
         dropped=sum(wst["dropped"] for wst in waves))
     del waves
+    resharded = False
+    if mesh is not None and n_shards > 1 and reshard:
+        st, resharded = _reshard_trees(st, mesh, n_shards)
 
     # ---- stage 2: one bounce loop over the pooled trees ----
     stage_widths = _stage_widths(N, stage_ratio, min_stage_width)
@@ -452,11 +505,12 @@ def whitted_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
                                (st["radiance"],)))
     if info is not None:
         info.update(iterations=iterations, shrinks=len(stage_widths) - 1,
-                    deep_hauls=deep_hauls)
+                    deep_hauls=deep_hauls, resharded=resharded)
 
     # ---- stage 3: reassembly by lane id ----
     allp = torch.cat(pieces)
-    rad = _by_lane(allp[:, 0], allp[:, 1:4], N)
+    lane_f, radiance = _route_home(allp[:, 0], allp[:, 1:4], mesh, resharded)
+    rad = _by_lane(lane_f, radiance, N, lane0)
     return rad.reshape(W, R, 3), st["traced"], st["dropped"]
 
 
@@ -470,7 +524,9 @@ class WhittedRenderer(TiledRenderer):
     the "xla" engine trace wave by wave (``whitted_trace_wave``).
 
     ``tpu_scene`` may be a ClusterScene or a TpuScene; without one the
-    scene is compiled for the backend."""
+    scene is compiled for the backend. Under a mesh every rank traces rank
+    0's scene and environment and its own lanes of each wave; the pooled
+    frame balances the ranks' trees when ``reshard_bounces`` is set."""
 
     def __init__(self, context: Context, camera: Camera, scene_data: SceneData,
                  tpu_scene=None, environment: Environment | None = None,
@@ -494,12 +550,12 @@ class WhittedRenderer(TiledRenderer):
             environment = create_environment(env_px, env_px.shape[1],
                                              env_px.shape[0],
                                              device=self.device)
-        self.environment = environment
+        self._bind(self.scene, environment)
         # main.cpp:346 forces maxDepth=8 for the Whitted demo.
         self.max_depth = int(scene_data.max_depth)
         self.stack_size = max(cfg.max_shading_depth, self.max_depth + 1)
         self.opts = cfg.engine_opts()
-        self.tile = min(cfg.trace_block, self.wave_size)
+        self.tile = min(cfg.trace_block, self.shard_lanes)
         self.stack_depth = cfg.traversal_stack_depth
         self.min_stage_width = cfg.min_stage_width
         self.stage_ratio = cfg.whitted_stage_ratio
@@ -521,7 +577,7 @@ class WhittedRenderer(TiledRenderer):
             self._wave_x, self._wave_y, self._wave_alive, key, self.max_depth,
             min_stage_width=self.min_stage_width,
             stage_ratio=self.stage_ratio, hot_levels=self.hot_levels,
-            info=self.last_info, **self._wave_kwargs())
+            info=self.last_info, **self._mesh_kwargs(), **self._wave_kwargs())
 
     def _trace_wave(self, x, y, alive, wave_key):
         return whitted_trace_wave(

@@ -89,7 +89,8 @@ def test_context_info_and_lifecycle():
                                            backend="sparse")
     jinfo = jracc.info(jracc.create_context(jracc.Configuration(
         backend="sparse", wave_size=8192, max_rays_in_flight=65536)))
-    # The JAX context counts every visible device; the port has no mesh.
+    # The JAX context counts every visible device; the port counts the
+    # ranks of its mesh, 1 without one.
     assert (dataclasses.asdict(got) | {"device_count": jinfo.device_count}
             == dataclasses.asdict(jinfo))
     assert racc.destroy(ctx) is None

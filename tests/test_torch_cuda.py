@@ -511,3 +511,37 @@ def test_profile_stages_on_the_card(cuda):
     assert set(out) == {"primary_trace_ms", "bounce_trace_ms", "shade_ms",
                         "regroup_ms", "env_sample_ms"}
     assert all(np.isfinite(v) and v > 0 for v in out.values()), out
+
+
+def test_mesh1_frame_on_the_card_matches_the_cpu_mesh(cuda, scenes,
+                                                     scene_data):
+    """A 64x64 path-traced frame under a one-rank mesh on the card (an NCCL
+    group) against the same frame under a one-rank mesh on the CPU (gloo),
+    the same key, through the two-class gate of
+    ``tools/oracle_lib.py:run_image_oracle``."""
+    import rayaccel_tpu_torch as racc
+    from rayaccel_tpu_torch import rng
+    sd = type(scene_data)(**{**scene_data.__dict__, "viewport_width": 64,
+                             "viewport_height": 64, "max_depth": 2})
+    cam = racc.Camera.look_at(sd.cam_origin, sd.cam_dir, sd.cam_up,
+                              sd.cam_fov, 64, 64)
+    images = []
+    try:
+        for device, cs, backend in ((cuda, scenes[1], "nccl"),
+                                    ("cpu", scenes[0], "gloo")):
+            ctx = racc.create_context(racc.Configuration(
+                mesh_shape=(1,), wave_size=4096, trace_block=512),
+                device=device)
+            assert (ctx.mesh.size, ctx.mesh.backend) == (1, backend)
+            r = racc.PathTracingRenderer(ctx, cam, sd, tpu_scene=cs)
+            r.render_frame(rng.PRNGKey(3))
+            assert r.dropped == 0
+            images.append(r.image().reshape(-1, 3))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    diff = images[0] - images[1]
+    flip = np.abs(diff).max(axis=1) > 0.05
+    trim = diff[~flip]
+    assert np.sqrt(np.mean(trim * trim)) < 1e-3 and flip.mean() < 0.005
+    assert np.isfinite(images[0]).all() and images[0].max() > 0

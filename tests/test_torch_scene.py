@@ -101,8 +101,7 @@ def test_import_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("kw", [dict(mesh_shape=(1,)),
-                                dict(whitted_bounce_scan=1024),
+@pytest.mark.parametrize("kw", [dict(whitted_bounce_scan=1024),
                                 dict(precision="default")])
 def test_unported_configuration_raises(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -113,7 +112,8 @@ def test_unported_configuration_raises(kw):
 
 @pytest.mark.parametrize("kw", [dict(backend="mxu"),
                                 dict(sampler="stratified"),
-                                dict(regroup=False)])
+                                dict(regroup=False),
+                                dict(mesh_shape=(1,))])
 def test_ported_configuration_renders(kw):
     """Values the port once refused: each builds a context on the CPU and
     renders a finite, lit 64x64 frame with nothing dropped."""
