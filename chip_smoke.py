@@ -34,7 +34,11 @@ is missing. Phases, one JSON line each:
    ``ctas``, ``pairs_needed`` (the least (ray, cluster) pairs any walk of
    these inputs tests) and ``pairs_walked`` (what the kernel's warps
    tested, from its counter), and K1 ``words_differing`` from its plain
-   version;
+   version. Then the bf16 tensor-core variants of K1, K3 and K4
+   (``precision="default"``) on the same inputs, each against its plain
+   version at "default" (K1 and K3 at the oracle bar, K4's flags on >=
+   99.95% of rays), their bound over the bf16 tensor peak, and their
+   agreement with the fp32 kernel as information (``vs_fp32``);
 4. slice: ``PathTracingRenderer`` at 1280x720, depth 2, the default
    configuration: one warm-up frame and three timed frames, with every
    kernel's launch count over the timed frames (each must be > 0),
@@ -103,7 +107,27 @@ is missing. Phases, one JSON line each:
     a one-rank mesh on the host CPU (gloo) with the same key, for
     ``PathTracingRenderer`` at depth 2 (K1, K2, K3 must launch) and for
     ``WhittedRenderer`` at depth 3 with shadows (K1-K4 must launch),
-    through the two-class gate.
+    through the two-class gate;
+21. slice ``pt_default``: ``PathTracingRenderer`` with
+    ``Configuration(precision="default")`` at 1280x720, depth 2, as
+    ``pt``: the bf16 variants of K1 and K3 must launch and the fp32 forms
+    must not, ``dropped`` 0;
+22. ``default_gate``: at 1280x720, ``precision="default"`` against
+    ``"highest"`` on the card with the same key, for
+    ``PathTracingRenderer`` at depth 2 and ``WhittedRenderer`` at depth 3
+    with shadows: ``rmse_trimmed`` and ``frac_flip`` reported with no bar
+    (the one-pass bf16 product is another function, as on the TPU); the
+    bf16 variants of K1, K3 and K4 must launch, the fp32 forms must not,
+    ``dropped`` 0 on both sides;
+23. ``whitted_scan``: ``WhittedRenderer`` with
+    ``Configuration(hybrid_tracing=False, whitted_bounce_scan=65536)`` at
+    depth 8 and 1280x720 (bounces on the dense engine, the widest stage
+    traced in slices of 65,536 lanes): one warm-up and one timed frame,
+    then the frame with ``whitted_bounce_scan=None`` and the same key;
+    K1 must launch in the bounce loop and K2 and K3 not at all, the
+    radiance must be within 2 ulp of the unscanned frame's and
+    ``dropped`` (the dense queue's clamped clusters, expected non-zero)
+    equal in the two.
 
 Each slice sets every launch count to 0 just before its timed frames and
 reads them just after. After them, each slice renders two more frames:
@@ -133,8 +157,9 @@ import time
 WHITTED_GATE_VIEWPORT = (320, 180)
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): fp32
-# outside the tensor cores, and HBM3.
+# outside the tensor cores, bf16 on the tensor cores, and HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_TENSOR_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # fp32 operations a kernel needs: 40 FMAs (80 FLOP) for the four bilinear
 # dot products of one (ray, triangle) pair (K1, K3, K4), and ~24 for K2's
@@ -142,11 +167,27 @@ PEAK_BYTES_PER_S = 3.35e12
 FLOP_PER_TRIANGLE = 80
 FLOP_PER_SLAB = 24
 NO_LIBRARY = "none: no single PyTorch call computes it"
-# Each kernel's name in a profiler trace (K3's covers its unit pass too).
+# Each kernel's name in a profiler trace; "_bf16" names the bf16
+# tensor-core variant (precision "default") of K1, K3 and K4. K3's unit
+# pass, which both of its forms run, is reported beside them.
 KERNEL_SYMBOLS = {"dense_closest_hit": "dense_hit_kernel",
                   "dense_occluded": "dense_occl_kernel",
                   "select_nearest": "select_kernel",
-                  "pair_hit": "pair_hit_"}
+                  "pair_hit": "pair_hit_kernel",
+                  "dense_closest_hit_bf16": "dense_hit_bf16_kernel",
+                  "dense_occluded_bf16": "dense_occl_bf16_kernel",
+                  "pair_hit_bf16": "pair_hit_bf16_kernel"}
+UNIT_PASS_SYMBOL = "pair_hit_units_kernel"
+BF16_KERNELS = ("dense_closest_hit", "dense_occluded", "pair_hit")
+
+
+def row_name(name, precision):
+    """The kernel-table row of a launch of wrapper ``name``."""
+    return name + "_bf16" if precision == "default" else name
+
+
+def peak_flops(precision):
+    return PEAK_BF16_TENSOR_FLOPS if precision == "default" else PEAK_FP32_FLOPS
 
 
 def emit(obj):
@@ -157,13 +198,14 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def roofline(flop, moved, ms):
-    """The least time the card could take for ``flop`` fp32 operations and
+def roofline(flop, moved, ms, peak=PEAK_FP32_FLOPS):
+    """The least time the card could take for ``flop`` operations at
+    ``peak`` (fp32, or bf16 on the tensor cores for a bf16 variant) and
     ``moved`` bytes (each input read once, each output written once),
     which of the two binds, and the kernel's share of that bound. No
     single PyTorch call computes any of the four kernels, so there is no
     library time."""
-    ops_ms = flop / PEAK_FP32_FLOPS * 1e3
+    ops_ms = flop / peak * 1e3
     bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     return dict(flop=flop, bytes=moved, ops_ms=ops_ms, bytes_ms=bytes_ms,
@@ -198,10 +240,11 @@ def k1_pairs_needed(F, q_cluster, q_entry, q_count, best, tile):
                 & active).sum())
 
 
-def k4_pairs_needed(dense, F, G3, q_cluster, q_entry, q_count, tile):
+def k4_pairs_needed(dense, F, G3, q_cluster, q_entry, q_count, tile,
+                    precision="highest"):
     """(active ray, queued cluster) pairs in queue order up to and
-    including the ray's first blocker, among the clusters whose entry is
-    within its tmax."""
+    including the ray's first blocker (at ``precision``), among the
+    clusters whose entry is within its tmax."""
     import torch
     T = q_cluster.shape[0]
     Fm = F.view(T, tile, 16)
@@ -213,19 +256,20 @@ def k4_pairs_needed(dense, F, G3, q_cluster, q_entry, q_count, tile):
     for j in range(int(q_count.max())):
         need = ~done & valid[:, j:j + 1] & (q_entry[:, j:j + 1] <= t_bits)
         needed += int(need.sum())
-        inside, ad, ts = dense._candidates(Fm[:, :, :10], G3, q_cluster[:, j])
+        inside, ad, ts = dense._candidates(Fm[:, :, :10], G3, q_cluster[:, j],
+                                           precision)
         done |= need & (inside & (ts > ad * tmin)
                         & (ts <= ad * tmax)).any(dim=2)
     return needed
 
 
-def counted(fn, args, name, n):
+def counted(fn, args, name, n, **kw):
     """The ``n`` counters a kernel adds to its ``name=`` tensor in one
-    launch on ``args``: the pairs a dense kernel's warps ``walked``, the
-    lanes K2 ``tested``, K3's ``stats``."""
+    launch on ``args`` (and ``kw``): the pairs a dense kernel's warps
+    ``walked``, the lanes K2 ``tested``, K3's ``stats``."""
     import torch
     count = torch.zeros(n, dtype=torch.int64, device=args[0].device)
-    fn(*args, **{name: count})
+    fn(*args, **{name: count}, **kw)
     return count.tolist()
 
 
@@ -246,7 +290,7 @@ def record_launches(dense, sparse, run):
             if keep.launches > before:         # K3 skips an empty pass
                 calls.append((fn, a, kw, out))
             return out
-        keep.launches = keep.guard_launches = 0
+        keep.launches = keep.guard_launches = keep.launches_bf16 = 0
         return keep
 
     originals = {}
@@ -265,16 +309,16 @@ def record_launches(dense, sparse, run):
     return calls
 
 
-def kernel_work(dense, name, args, out, n_c):
-    """(fp32 operations, bytes) that one launch of a kernel needs on its
-    own inputs ``args`` and output ``out``: K1 and K4 their pairs needed,
-    K2 its live lanes (tmax > 0) against the n_c real boxes (the padding
-    boxes are no work), K3 the pairs its items cover."""
+def kernel_work(dense, name, args, out, n_c, precision="highest"):
+    """(operations, bytes) that one launch of a kernel needs on its own
+    inputs ``args`` and output ``out`` at ``precision``: K1 and K4 their
+    pairs needed, K2 its live lanes (tmax > 0) against the n_c real boxes
+    (the padding boxes are no work), K3 the pairs its items cover."""
     if name in ("dense_closest_hit", "dense_occluded"):
         F, G3, qc, qe, qn, tile = args[:6]
         pairs = (k1_pairs_needed(F, qc, qe, qn, out[0], tile)
                  if name == "dense_closest_hit" else
-                 k4_pairs_needed(dense, F, G3, qc, qe, qn, tile))
+                 k4_pairs_needed(dense, F, G3, qc, qe, qn, tile, precision))
         return (pairs * (G3.shape[1] // 4) * FLOP_PER_TRIANGLE,
                 nbytes(F, qc, qe, qn, out)
                 + cluster_bytes(G3, qc[queued(qc, qn)]))
@@ -474,6 +518,41 @@ def main() -> int:
                         max_abs_err=s1["max_abs_t"],
                         **kernel_row(s1)))
 
+    # The bf16 variants (precision "default") on the inputs of the fp32
+    # lines, each against its plain version at "default"; their rows
+    # follow the four fp32 ones in the kernel table.
+    bf16_rows = []
+    default = dict(precision="default")
+    out_b = dense.dense_closest_hit(*args, **default)
+    out_bp = dense.dense_closest_hit_plain(*args, **default)
+    torch.cuda.synchronize()
+    hb, tb = winner_t(out_b[1])
+    hbp, tbp = winner_t(out_bp[1])
+    s1b = hit_stats(hb, hbp, out_b[1], out_bp[1], tb, tbp)
+    vs = hit_stats(hb, hk, out_b[1], out_k[1], tb, tk)
+    flop, moved = kernel_work(dense, "dense_closest_hit", args, out_bp,
+                              cs.n_clusters, "default")
+    s1b.update(words_differing=int((out_b != out_bp).sum()),
+               ctas=R // dense.CTA_RAYS,
+               pairs_needed=flop // (cs.cluster_size * FLOP_PER_TRIANGLE),
+               pairs_walked=counted(dense.dense_closest_hit, args, "walked",
+                                    1, **default)[0],
+               vs_fp32={k: vs[k] for k in ("hit_agree", "winner_agree",
+                                           "t_within_1e3")},
+               ms=cuda_ms(lambda: dense.dense_closest_hit(*args, **default),
+                          20),
+               plain_ms=cuda_ms(lambda: dense.dense_closest_hit_plain(
+                   *args, **default), 3))
+    s1b.update(roofline(flop, moved, s1b["ms"], PEAK_BF16_TENSOR_FLOPS))
+    emit(dict(phase="kernel", name="K1 dense_closest_hit bf16", rays=R,
+              tiles=T, **s1b))
+    require_oracle_bar("K1 bf16", s1b)
+    bf16_rows.append(dict(name="dense_closest_hit_bf16", route="cuda",
+                          source="rayaccel_tpu_torch/csrc/dense_hit.cu",
+                          replaces="rayaccel_tpu/ops/trace_pallas.py:77",
+                          max_abs_err=s1b["max_abs_t"], **kernel_row(s1b)))
+    del out_b, out_bp
+
     # The 983,040-lane bounce pool: stage 1 of a frame.
     state, _ = pathtracer._stage1(cs, cam_arrays, renderer._wave_x,
                                   renderer._wave_y, renderer._wave_alive, key,
@@ -572,6 +651,34 @@ def main() -> int:
                         source="rayaccel_tpu_torch/csrc/pair_hit.cu",
                         replaces="rayaccel_tpu/ops/trace_sparse.py:77",
                         max_abs_err=s3["max_abs_t"], **kernel_row(s3)))
+
+    pk_b = sparse.pair_hit(*a3, **default)
+    pp_b = sparse.pair_hit_plain(*a3, **default)
+    torch.cuda.synchronize()
+    s3b = hit_stats(*(x for pair in zip(per_ray(pk_b), per_ray(pp_b))
+                      for x in pair))
+    vs = hit_stats(*(x for pair in zip(per_ray(pk_b), per_ray(pk))
+                     for x in pair))
+    s3b.update(pairs=int(cl.numel()), items=int(items.shape[0]),
+               words_differing=int((pk_b != pp_b).sum()),
+               **dict(zip(("units", "ctas", "clusters_staged"),
+                          counted(sparse.pair_hit, a3, "stats", 3,
+                                  **default))),
+               vs_fp32={k: vs[k] for k in ("hit_agree", "winner_agree",
+                                           "t_within_1e3")},
+               ms=cuda_ms(lambda: sparse.pair_hit(*a3, **default), 10),
+               plain_ms=cuda_ms(lambda: sparse.pair_hit_plain(*a3, **default),
+                                2))
+    s3b.update(roofline(*kernel_work(dense, "pair_hit", a3, pk_b,
+                                     cs.n_clusters), s3b["ms"],
+                        PEAK_BF16_TENSOR_FLOPS))
+    emit(dict(phase="kernel", name="K3 pair_hit bf16", **s3b))
+    require_oracle_bar("K3 bf16", s3b)
+    bf16_rows.append(dict(name="pair_hit_bf16", route="cuda",
+                          source="rayaccel_tpu_torch/csrc/pair_hit.cu",
+                          replaces="rayaccel_tpu/ops/trace_sparse.py:77",
+                          max_abs_err=s3b["max_abs_t"], **kernel_row(s3b)))
+    del pk_b, pp_b
 
     # K2 and K3 at a narrow shape: the first restart pass of that bounce,
     # as trace_sparse launches it (the compacted unresolved rays at their
@@ -680,9 +787,39 @@ def main() -> int:
                         max_abs_err=float(s4["flags_differing"] > 0),
                         **kernel_row(s4)))
 
-    del surf, F4, a4, occ_k, occ_p
+    occ_b = dense.dense_occluded(*a4, **default)
+    occ_bp = dense.dense_occluded_plain(*a4, **default)
+    torch.cuda.synchronize()
+    flop, moved = kernel_work(dense, "dense_occluded", a4, occ_b,
+                              cs.n_clusters, "default")
+    s4b = dict(shadow_rays=s4["shadow_rays"], occluded=int(occ_b.sum()),
+               occluded_plain=int(occ_bp.sum()),
+               flag_agree=float((occ_b == occ_bp).float().mean()),
+               flags_differing=int((occ_b != occ_bp).sum()),
+               ctas=R // dense.CTA_RAYS,
+               pairs_needed=flop // (cs.cluster_size * FLOP_PER_TRIANGLE),
+               pairs_walked=counted(dense.dense_occluded, a4, "walked", 1,
+                                    **default)[0],
+               vs_fp32=dict(flag_agree=float((occ_b == occ_k).float()
+                                             .mean())),
+               ms=cuda_ms(lambda: dense.dense_occluded(*a4, **default), 20),
+               plain_ms=cuda_ms(lambda: dense.dense_occluded_plain(
+                   *a4, **default), 3))
+    s4b.update(roofline(flop, moved, s4b["ms"], PEAK_BF16_TENSOR_FLOPS))
+    emit(dict(phase="kernel", name="K4 dense_occluded bf16", rays=R, tiles=T,
+              **s4b))
+    if s4b["flag_agree"] < 0.9995:
+        raise AssertionError(f"K4 bf16 disagrees with its plain version: "
+                             f"{s4b}")
+    bf16_rows.append(dict(name="dense_occluded_bf16", route="cuda",
+                          source="rayaccel_tpu_torch/csrc/dense_occl.cu",
+                          replaces="rayaccel_tpu/ops/trace_pallas.py:265",
+                          max_abs_err=float(s4b["flags_differing"] > 0),
+                          **kernel_row(s4b)))
+
+    del surf, F4, a4, occ_k, occ_p, occ_b, occ_bp
     if sys.argv[1:] == ["--kernels"]:
-        emit(dict(kernels_ok=True, kernels=kernels))
+        emit(dict(kernels_ok=True, kernels=kernels + bf16_rows))
         return 0
 
     wrappers = (dense.dense_closest_hit, dense.dense_occluded,
@@ -692,10 +829,19 @@ def main() -> int:
     def reset_counts():
         for fn in wrappers:
             fn.launches = 0
+            if fn.__name__ in BF16_KERNELS:
+                fn.launches_bf16 = 0
         sparse.pair_hit.guard_launches = 0
 
     def read_counts():
-        c = {fn.__name__: fn.launches for fn in wrappers}
+        """Launches of each kernel-table row: a wrapper's fp32 launches
+        under its name, its bf16 variant's under ``name_bf16``."""
+        c = {}
+        for fn in wrappers:
+            bf16 = fn.launches_bf16 if fn.__name__ in BF16_KERNELS else 0
+            c[fn.__name__] = fn.launches - bf16
+            if fn.__name__ in BF16_KERNELS:
+                c[row_name(fn.__name__, "default")] = bf16
         c["pair_hit_guard_tmax"] = sparse.pair_hit.guard_launches
         return c
 
@@ -752,10 +898,10 @@ def main() -> int:
                         launch_frame(name, renderer))
 
     def profile_frame(name, renderer, frame_ms):
-        """One more frame under torch.profiler: the device ms of each of
-        the four kernels and of all kernels, and the device's idle share
-        of an unprofiled frame (``frame_ms``). Emits the line and returns
-        the four kernels' ms."""
+        """One more frame under torch.profiler: the device ms of each
+        kernel-table row, of K3's unit pass and of all kernels, and the
+        device's idle share of an unprofiled frame (``frame_ms``). Emits
+        the line and returns the rows' ms."""
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             renderer.render_frame(rng.PRNGKey(200))
@@ -766,8 +912,10 @@ def main() -> int:
                             if symbol in e.key) / 1e3
                      for k, symbol in KERNEL_SYMBOLS.items()}
         all_ms = sum(e.device_time_total for e in device) / 1e3
+        units_ms = sum(e.device_time_total for e in device
+                       if UNIT_PASS_SYMBOL in e.key) / 1e3
         emit(dict(phase="profile", name=name, kernel_ms=kernel_ms,
-                  all_kernels_ms=all_ms,
+                  pair_hit_units_ms=units_ms, all_kernels_ms=all_ms,
                   device_idle_share=1 - all_ms / frame_ms))
         return kernel_ms
 
@@ -783,13 +931,15 @@ def main() -> int:
         per = {k: dict(launches=0, widths=[], ms=0.0, bound_ms=0.0)
                for k in KERNEL_SYMBOLS}
         for fn, a, kw, out in calls:
+            precision = kw.get("precision", "highest")
             flop, moved = kernel_work(dense, fn.__name__, a, out,
-                                      cs.n_clusters)
-            row = per[fn.__name__]
+                                      cs.n_clusters, precision)
+            row = per[row_name(fn.__name__, precision)]
             row["launches"] += 1
             row["widths"].append(int(a[0].shape[0]))
             row["ms"] += cuda_ms(lambda: fn(*a, **kw), 5)
-            row["bound_ms"] += roofline(flop, moved, 1.0)["bound_ms"]
+            row["bound_ms"] += roofline(flop, moved, 1.0,
+                                        peak_flops(precision))["bound_ms"]
         for row in per.values():
             row["share_of_bound"] = (row["bound_ms"] / row["ms"]
                                      if row["ms"] else None)
@@ -1302,12 +1452,111 @@ def main() -> int:
         require_launches(f"mesh1_gate {name}", launches, needed)
     dist.destroy_process_group()
 
+    def require_no_fp32(name, launches):
+        """At precision "default" no fp32 form of K1, K3 or K4 runs."""
+        fp32 = {k: launches[k] for k in BF16_KERNELS if launches[k]}
+        if fp32:
+            raise AssertionError(f"{name}: fp32 kernels launched at "
+                                 f"precision='default': {launches}")
+
+    # ---- 21. the path tracer at precision "default" ----
+    cfg_default = racc.Configuration(precision="default")
+    drive("pt_default",
+          renderer_on(racc.PathTracingRenderer, scene_at(*full, 2),
+                      cfg_default)(dev),
+          [rng.PRNGKey(101 + i) for i in range(3)],
+          ["dense_closest_hit_bf16", "select_nearest", "pair_hit_bf16"])
+    require_no_fp32("pt_default", slices["pt_default"][0])
+
+    # ---- 22. "default" against "highest" on the card, no bar ----
+    for name, cls, depth, kw, needed in (
+            ("pt", racc.PathTracingRenderer, 2, {},
+             ["dense_closest_hit_bf16", "select_nearest", "pair_hit_bf16"]),
+            ("whitted", racc.WhittedRenderer, 3, dict(shadows=True),
+             ["dense_closest_hit_bf16", "dense_occluded_bf16",
+              "select_nearest", "pair_hit_bf16"])):
+        t0 = time.perf_counter()
+        images = {}
+        for precision in ("default", "highest"):
+            r = renderer_on(cls, scene_at(*full, depth),
+                            racc.Configuration(precision=precision), **kw)(dev)
+            reset_counts()
+            r.render_frame(rng.PRNGKey(9))
+            torch.cuda.synchronize()
+            images[precision] = (r.image().reshape(-1, 3), r.dropped,
+                                 read_counts())
+            del r
+        launches = images["default"][2]
+        gate = two_class_gate(images["default"][0], images["highest"][0])
+        emit(dict(gate, phase="default_gate", renderer=name,
+                  viewport=list(full), spp=1, max_depth=depth,
+                  shadows=bool(kw), dropped_default=images["default"][1],
+                  dropped_highest=images["highest"][1], launches=launches,
+                  seconds=time.perf_counter() - t0))
+        app_launches[f"default_gate_{name}"] = (launches, 1)
+        require_launches(f"default_gate {name}", launches, needed)
+        require_no_fp32(f"default_gate {name}", launches)
+        if images["default"][1] or images["highest"][1]:
+            raise AssertionError(f"default_gate {name} dropped rays: "
+                                 f"{images['default'][1]}, "
+                                 f"{images['highest'][1]}")
+        if not np.isfinite(images["default"][0]).all():
+            raise AssertionError(f"default_gate {name}: image not finite")
+        del images
+
+    # ---- 23. the scanned dense bounce on the pooled Whitted loop ----
+    scan = 65536
+    runs = {}
+    for bounce_scan in (scan, None):
+        r = renderer_on(racc.WhittedRenderer, scene_at(*full, 8),
+                        racc.Configuration(hybrid_tracing=False,
+                                           whitted_bounce_scan=bounce_scan))(
+                                               dev)
+        if bounce_scan:
+            r.render_frame(rng.PRNGKey(100))                 # warm-up
+            r.clear()
+        before = r.dropped
+        live_waves = int(r._wave_alive.any(dim=1).sum())
+        reset_counts()
+        ms, _ = wall_ms(lambda: r.render_frame(rng.PRNGKey(101)))
+        runs[bounce_scan] = dict(
+            ms=ms, launches=read_counts(), live_waves=live_waves,
+            dropped=r.dropped - before, info=dict(r.last_info),
+            rad=r.frame_buffer.clone())
+        del r
+    a, b = runs[scan], runs[None]
+    ulp = (a["rad"].view(torch.int32).long()
+           - b["rad"].view(torch.int32).long()).abs()
+    line = dict(phase="whitted_scan", viewport=list(full), max_depth=8,
+                bounce_scan=scan, frame_ms=a["ms"], no_scan_ms=b["ms"],
+                dropped=a["dropped"], dropped_no_scan=b["dropped"],
+                launches=a["launches"], launches_no_scan=b["launches"],
+                bounce_k1_launches=a["launches"]["dense_closest_hit"]
+                - a["live_waves"],
+                bounce_iterations=a["info"].get("iterations"),
+                stage_shrinks=a["info"].get("shrinks"),
+                max_ulp=int(ulp.max()), values_differing=int((ulp > 0).sum()),
+                radiance_finite=bool(torch.isfinite(a["rad"]).all()),
+                radiance_max=float(a["rad"].max()))
+    emit(line)
+    app_launches["whitted_scan"] = (a["launches"], 1)
+    if line["bounce_k1_launches"] <= 0:
+        raise AssertionError(f"whitted_scan: K1 did not launch in the "
+                             f"bounce loop: {line}")
+    if a["launches"]["select_nearest"] or a["launches"]["pair_hit"]:
+        raise AssertionError(f"whitted_scan: the sparse engine ran: {line}")
+    if not (line["max_ulp"] <= 2 and line["dropped"] == line["dropped_no_scan"]
+            and line["radiance_finite"] and line["radiance_max"] > 0):
+        raise AssertionError(f"whitted_scan failed: {line}")
+    del runs, a, b
+
     # Launches of each kernel over the timed frames of the deep slices and
     # per frame; its device ms in each slice's profiled frame; and, from
     # each slice's launch frame, its launches timed alone at their own
     # widths, their bound and the gap between the two.
     # The app-shell phases add their launches (and the CLI runs its
     # launches a frame).
+    kernels += bf16_rows
     for k in kernels:
         n = k["name"]
         k["launches_by_slice"] = {name: c[n] for name, (c, *_) in

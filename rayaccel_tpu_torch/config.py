@@ -4,10 +4,10 @@ Counterpart of ``rayaccel_tpu/config.py``: the same fields, defaults and
 validation, so one configuration reads the same in both packages. The
 port runs every engine, both samplers and the per-wave and frame-pooled
 paths, on one device or, with ``mesh_shape=(D,)``, on the D ranks of a
-``torch.distributed`` process group (``parallel/mesh.py``). The two values
-it does not run (``precision="default"``, ``whitted_bounce_scan``) pass
-the shared validation and then raise ``NotImplementedError`` naming
-``ROADMAP.md``'s "Do not port" list.
+``torch.distributed`` process group (``parallel/mesh.py``), at either
+``precision`` (``"default"``: the bf16 tensor-core variants of the K1, K3
+and K4 kernels) and with or without ``whitted_bounce_scan`` (the pooled
+Whitted loop's dense bounces traced in slices).
 """
 
 from __future__ import annotations
@@ -95,15 +95,14 @@ class Configuration:
             raise ValueError("whitted_stage_ratio must be >= 2")
         if self.whitted_hot_levels < 1:
             raise ValueError("whitted_hot_levels must be >= 1")
-        # What the port does not run (ROADMAP.md, "Do not port").
-        if self.precision != "highest":
-            raise NotImplementedError(
-                "precision='default' is on ROADMAP's 'Do not port' list: "
-                "the port's kernels run fp32 only")
-        if self.whitted_bounce_scan is not None:
-            raise NotImplementedError(
-                "whitted_bounce_scan (the scanned dense bounce) is on "
-                "ROADMAP's 'Do not port' list")
+
+    def pool_knobs(self) -> dict:
+        """Frame-pool shape knobs for bench-line echoes."""
+        return dict(min_stage_width=self.min_stage_width,
+                    whitted_stage_ratio=self.whitted_stage_ratio,
+                    whitted_hot_levels=self.whitted_hot_levels,
+                    whitted_bounce_scan=self.whitted_bounce_scan,
+                    max_shading_depth=self.max_shading_depth)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +119,9 @@ class EngineOpts:
     k_step: int = 4
     tile_cap: int = 256
     precision: str = "highest"
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,6 +19,7 @@ import torch
 
 from rayaccel_tpu_torch.config import (Configuration, ContextInfo,
                                        default_configuration)
+from rayaccel_tpu_torch.device import resolve_device
 from rayaccel_tpu_torch.ops.trace_dense import check_tile
 from rayaccel_tpu_torch.parallel.mesh import Mesh, make_mesh
 
@@ -64,14 +65,10 @@ def create_context(configuration: Optional[Configuration] = None,
     otherwise. Calls :func:`init`."""
     init()
     cfg = configuration or default_configuration()
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is visible: pass "
-                               "device=\"cpu\" to run on the host")
-        device = (torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-                  if cfg.mesh_shape is not None else
-                  torch.device("cuda", torch.cuda.current_device()))
-    device = torch.device(device)
+    if (device is None and cfg.mesh_shape is not None
+            and torch.cuda.is_available()):
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    device = resolve_device(device)
     n_shards = math.prod(cfg.mesh_shape or (1,))
     if device.type == "cuda":
         check_tile(min(cfg.trace_block,

@@ -26,6 +26,11 @@
 // was tile-wide. Inside a cluster, a thread leaves its column loop once
 // both its rays are occluded, and the threads of a pair of rays merge
 // their flags after it.
+//
+// The bf16 variant (precision "default") takes the products from the
+// tensor cores as K1's does (common.cuh:mma_pairs, csrc/dense_hit.cu): a
+// lane tests one (ray, triangle) pair a product, and the warp leaves a
+// cluster once a ballot shows each of its 8 rays occluded or inactive.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -83,28 +88,90 @@ dense_occl_kernel(const float* __restrict__ F, const float* __restrict__ G3,
   }
 }
 
+// The bf16 variant: K4's walk, each lane testing one (ray, triangle) pair
+// of a tensor-core product (common.cuh:mma_pairs).
+__global__ void __launch_bounds__(kCtaThreads)
+dense_occl_bf16_kernel(const float* __restrict__ F,
+                       const float* __restrict__ G3,
+                       const int* __restrict__ q_cluster,
+                       const int* __restrict__ q_entry,
+                       const int* __restrict__ q_count,
+                       unsigned char* __restrict__ out,
+                       unsigned long long* __restrict__ walked, int tile,
+                       int cap, int C) {
+  extern __shared__ __align__(128) float4 ring[];
+  __shared__ int red[2 * kWarps];
+  const int lane = threadIdx.x & 31;
+  const int base = blockIdx.x * kCtaRays + (threadIdx.x >> 5) * kWarpRays;
+  const int r = base + mma_ray();
+  const int tl = blockIdx.x * kCtaRays / tile;
+
+  unsigned b[2];
+  ray_fragment(F + static_cast<size_t>(base + (lane >> 2)) * kFeat, b);
+  const float tmin = F[static_cast<size_t>(r) * kFeat + 10];
+  const float tmax = F[static_cast<size_t>(r) * kFeat + 11];
+  // Inactive rays (tmax_eff -1) are never occluded and need no test.
+  const bool idle = __float_as_int(tmax) < 0;
+  bool occ = false;
+  auto warp_bound = [&]() {
+    return warp_max(occ ? kSignBit : __float_as_int(tmax));
+  };
+  // Lanes l, l ^ 8, l ^ 16, l ^ 24 share a ray: bit (l & 7) of the fold
+  // is set when one of them is done.
+  auto all_done = [&]() {
+    unsigned v = __ballot_sync(0xffffffffu, occ || idle);
+    v |= v >> 16;
+    v |= v >> 8;
+    return (v & 0xFFu) == 0xFFu;
+  };
+
+  auto test = [&](const float4* g, int) {
+    for (int c0 = 0; c0 < C && !all_done(); c0 += 4) {
+      float det, u, v, tn, ad, ts;
+      bool inside;
+      mma_pairs(g, c0, C, b, det, u, v, tn);
+      decode1(det, u, v, tn, inside, ad, ts);
+      occ = occ || (c0 + (lane >> 3) < C && inside && ts > ad * tmin &&
+                    ts <= ad * tmax);
+    }
+    occ = __shfl_xor_sync(0xffffffffu, occ, 8) || occ;
+    occ = __shfl_xor_sync(0xffffffffu, occ, 16) || occ;
+    return warp_bound();
+  };
+  const long long tested = walk_queue(
+      G3, q_cluster + static_cast<size_t>(tl) * cap,
+      q_entry + static_cast<size_t>(tl) * cap, q_count[tl], C, warp_bound(),
+      ring, red, test);
+  if (walked != nullptr && lane == 0)
+    atomicAdd(walked, static_cast<unsigned long long>(tested));
+  if (lane < 8) out[r] = occ ? 1 : 0;
+}
+
 }  // namespace
 }  // namespace racc
 
 // F (T*tile, 16) rows [d, o, d x o, 1, tmin, tmax_eff, 0...]; G3 (n_c, 4C,
 // 16); q_cluster / q_entry (T, cap) int32; q_count (T,) int32; out (R,)
 // one byte per ray, 1 = occluded; walked (nullable) gains the (ray,
-// cluster) pairs tested. The tile is a multiple of kCtaRays.
+// cluster) pairs tested. The tile is a multiple of kCtaRays. bf16 != 0
+// launches the bf16 tensor-core variant.
 extern "C" int racc_dense_occluded(const float* F, const float* G3,
                                    const int* q_cluster, const int* q_entry,
                                    const int* q_count, unsigned char* out,
                                    unsigned long long* walked, int T,
-                                   int tile, int cap, int C, void* stream) {
+                                   int tile, int cap, int C, int bf16,
+                                   void* stream) {
   using namespace racc;
   if (!dense_launch_ok(T, tile, C))
     return static_cast<int>(cudaErrorInvalidValue);
   if (T == 0) return 0;
   const int smem = ring_bytes(C);
+  auto kernel = bf16 ? dense_occl_bf16_kernel : dense_occl_kernel;
   cudaError_t e = cudaFuncSetAttribute(
-      dense_occl_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dense_occl_kernel<<<T * (tile / kCtaRays), kCtaThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<T * (tile / kCtaRays), kCtaThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       F, G3, q_cluster, q_entry, q_count, out, walked, tile, cap, C);
   return static_cast<int>(cudaGetLastError());
 }

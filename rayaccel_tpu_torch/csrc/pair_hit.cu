@@ -40,7 +40,11 @@
 //   units of the present one; consecutive units of one cluster (a run cut
 //   in pieces, or a cluster on both sides of an SP boundary) are staged
 //   once.
-// - No tensor cores: the TPU kernel ran Precision.HIGHEST.
+// - No TF32 at precision "highest" (the TPU kernel's Precision.HIGHEST).
+//   At "default" (Precision.DEFAULT, one bf16 pass) the bf16 variant
+//   takes the products from the tensor cores as K1's does
+//   (common.cuh:mma_pairs): a warp's 8 pairs of a unit are the B operand,
+//   and a lane decodes one (pair, triangle) a product.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -106,12 +110,13 @@ struct Unit {
   int p0, p1, cluster;  // pairs [p0, p1) of one item's run
 };
 
-template <bool Guard>
-__global__ void __launch_bounds__(kCtaThreads, kPairMinCtas)
-pair_hit_kernel(const float* __restrict__ Fp, const float* __restrict__ G3,
-                const int* __restrict__ items, const int* __restrict__ ustart,
-                int* __restrict__ out, unsigned long long* __restrict__ stats,
-                int n_items, int C, int col_bits) {
+// The kernel body; kBf16 selects the tensor-core product.
+template <bool Guard, bool kBf16>
+__device__ __forceinline__ void pair_hit(
+    const float* __restrict__ Fp, const float* __restrict__ G3,
+    const int* __restrict__ items, const int* __restrict__ ustart,
+    int* __restrict__ out, unsigned long long* __restrict__ stats,
+    int n_items, int C, int col_bits) {
   static_assert(kRingStages == 2, "the waits below assume two stages");
   extern __shared__ __align__(128) float4 ring[];
   const long long total = ustart[n_items];
@@ -209,6 +214,44 @@ pair_hit_kernel(const float* __restrict__ Fp, const float* __restrict__ G3,
       if (sub == 0 && on[i]) out[p[i]] = min(m[i], kMissBits);
     }
   };
+  auto test_bf16 = [&](const float4* g, const Unit& w) {
+    const int base = w.p0 + warp * kWarpRays;
+    const int p = base + mma_ray();
+    float tmin = 0.0f, tmax = 0.0f;
+    int rank_bits = 0;
+    bool on = false;
+    if (p < w.p1) {
+      const float* row = Fp + static_cast<size_t>(p) * kFeat;
+      const int word = __float_as_int(row[12]);
+      on = (word & kClusterMask) == w.cluster;
+      tmin = row[10];
+      tmax = row[11];
+      rank_bits = static_cast<int>(static_cast<unsigned>(word) >> kRankShift)
+                  << col_bits;
+    }
+    if (!__any_sync(0xffffffffu, on)) return;
+    // The B operand: pair lane / 4 of the warp's 8 (a pair whose lane word
+    // names another cluster is multiplied too, and its lane drops it).
+    unsigned b[2] = {0u, 0u};
+    if (base + (lane >> 2) < w.p1)
+      ray_fragment(Fp + static_cast<size_t>(base + (lane >> 2)) * kFeat, b);
+    int m = kIntMax;
+    for (int c0 = 0; c0 < C; c0 += 4) {
+      float det, u, v, tn, ad, ts;
+      bool inside;
+      mma_pairs(g, c0, C, b, det, u, v, tn);
+      decode1(det, u, v, tn, inside, ad, ts);
+      const int c = c0 + (lane >> 3);
+      if (on && c < C && inside && ts > ad * tmin &&
+          (!Guard || ts < ad * tmax)) {
+        const float score = ts * __frcp_rn(ad);
+        m = min(m, (__float_as_int(score) & ~low) | rank_bits | c);
+      }
+    }
+    m = min(m, __shfl_xor_sync(0xffffffffu, m, 8));
+    m = min(m, __shfl_xor_sync(0xffffffffu, m, 16));
+    if (lane < 8 && on) out[p] = min(m, kMissBits);
+  };
 
   stage_next();
   stage_next();
@@ -228,7 +271,10 @@ pair_hit_kernel(const float* __restrict__ Fp, const float* __restrict__ G3,
       ++segment;
       cluster = w.cluster;
     }
-    test(ring + (segment % kRingStages) * stage_f4, w);
+    if constexpr (kBf16)
+      test_bf16(ring + (segment % kRingStages) * stage_f4, w);
+    else
+      test(ring + (segment % kRingStages) * stage_f4, w);
   }
   cp_async_wait<0>();
   if (stats != nullptr && threadIdx.x == 0) {
@@ -238,13 +284,33 @@ pair_hit_kernel(const float* __restrict__ Fp, const float* __restrict__ G3,
   }
 }
 
+#define RACC_PAIR_HIT_ARGS                                                    \
+  const float* __restrict__ Fp, const float* __restrict__ G3,                \
+      const int* __restrict__ items, const int* __restrict__ ustart,         \
+      int* __restrict__ out, unsigned long long* __restrict__ stats,         \
+      int n_items, int C, int col_bits
+
 template <bool Guard>
+__global__ void __launch_bounds__(kCtaThreads, kPairMinCtas)
+pair_hit_kernel(RACC_PAIR_HIT_ARGS) {
+  pair_hit<Guard, false>(Fp, G3, items, ustart, out, stats, n_items, C,
+                         col_bits);
+}
+
+template <bool Guard>
+__global__ void __launch_bounds__(kCtaThreads, kPairMinCtas)
+pair_hit_bf16_kernel(RACC_PAIR_HIT_ARGS) {
+  pair_hit<Guard, true>(Fp, G3, items, ustart, out, stats, n_items, C,
+                        col_bits);
+}
+
+template <bool Guard, bool kBf16>
 int launch(const float* Fp, const float* G3, const int* items, int* ustart,
            int* out, unsigned long long* stats, int n_items, int P, int C,
            int col_bits, cudaStream_t stream) {
   // The CTAs of this kernel the card holds at once (asked once).
   static int resident = 0;
-  auto kernel = pair_hit_kernel<Guard>;
+  auto kernel = kBf16 ? pair_hit_bf16_kernel<Guard> : pair_hit_kernel<Guard>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ring_bytes(kMaxC));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -274,11 +340,13 @@ int launch(const float* Fp, const float* G3, const int* items, int* ustart,
 // 0...]; G3 (n_c, 4C, 16); items (n_items, 3) int32 [start, end, cluster];
 // ustart (n_items + 1,) int32 scratch; out (P,) int32, pre-filled with the
 // miss marker by the caller. stats (nullable, 3 counters) gains the work
-// units, the CTAs that took any, and the clusters staged.
+// units, the CTAs that took any, and the clusters staged. bf16 != 0
+// launches the bf16 tensor-core variant.
 extern "C" int racc_pair_hit(const float* Fp, const float* G3, const int* items,
                              int* ustart, int n_items, int* out,
                              unsigned long long* stats, int P, int n_c, int C,
-                             int col_bits, int guard_tmax, void* stream) {
+                             int col_bits, int guard_tmax, int bf16,
+                             void* stream) {
   using namespace racc;
   if (C < 1 || C > kMaxC || n_items < 0 || P < 0 || n_c < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -288,9 +356,8 @@ extern "C" int racc_pair_hit(const float* Fp, const float* G3, const int* items,
                                                    ustart);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  return guard_tmax
-             ? launch<true>(Fp, G3, items, ustart, out, stats, n_items, P, C,
-                            col_bits, st)
-             : launch<false>(Fp, G3, items, ustart, out, stats, n_items, P, C,
-                             col_bits, st);
+  auto run = guard_tmax
+                 ? (bf16 ? &launch<true, true> : &launch<true, false>)
+                 : (bf16 ? &launch<false, true> : &launch<false, false>);
+  return run(Fp, G3, items, ustart, out, stats, n_items, P, C, col_bits, st);
 }

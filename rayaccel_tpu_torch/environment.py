@@ -14,6 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from rayaccel_tpu_torch.device import resolve_device
+
 
 class Environment(NamedTuple):
     """Probe image and its (H*W, 12) table of clamped 2x2 neighbourhoods
@@ -32,8 +34,11 @@ class Environment(NamedTuple):
 
 
 def create_environment(colors, width: int, height: int,
-                       device="cpu") -> Environment:
-    """``colors`` is ``(H*W, 4)`` or ``(H, W, 3/4)``; alpha is dropped."""
+                       device=None) -> Environment:
+    """``colors`` is ``(H*W, 4)`` or ``(H, W, 3/4)``; alpha is dropped.
+    The tables go to ``device`` (``device.py:resolve_device``: default the
+    current CUDA device)."""
+    device = resolve_device(device)
     arr = np.asarray(colors, np.float32)
     if arr.ndim == 2:
         arr = arr.reshape(height, width, -1)

@@ -26,6 +26,12 @@ with like and the tests can show that. One decided difference:
 (``:394``), so a shadow ray whose blocker sits in a clamped-away cluster
 is reported lit and nothing counts it; :func:`trace_occlusion_dense`
 returns the count.
+
+``precision`` is the JAX package's: "highest" multiplies in fp32,
+"default" rounds the features (F's columns 0-9, all of G3) to bf16 and
+multiplies with one bf16 pass (the TPU's ``Precision.DEFAULT``); on a card
+the bf16 variants of K1 and K4 run it on the tensor cores. The decode,
+and F's tmin and tmax_eff columns, stay fp32 in both.
 """
 
 from __future__ import annotations
@@ -55,6 +61,21 @@ _INT_MIN = -0x80000000
 # decides when the CTA stops staging clusters.
 CTA_RAYS = 64
 WARP_RAYS = 8
+
+
+def use_bf16(precision: str) -> bool:
+    """Whether ``precision`` ("highest" or "default", the JAX package's
+    values) takes the bf16 product."""
+    if precision not in ("highest", "default"):
+        raise ValueError(f"unknown precision {precision!r}")
+    return precision == "default"
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (nearest even) and back to float32: an
+    operand of the one-pass bf16 product, whose products of two bf16
+    values are exact in float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
 
 
 def check_tile(tile: int) -> None:
@@ -118,13 +139,17 @@ def cull_and_queue(cs: ClusterScene, o, inv_d, tmin, tmax_eff, T: int,
             counts_kept.to(torch.int32), overflow)
 
 
-def _candidates(Ft, G3, cluster):
+def _candidates(Ft, G3, cluster, precision: str = "highest"):
     """The bilinear decode of the dense kernels for tiles of ray features
     Ft (n, tile, 10) against one cluster each (n,): (inside, |det|, ts),
     where ``inside`` is the sign-bit and |u + v| <= |det| test and ts the
-    t numerator with det's sign folded in."""
+    t numerator with det's sign folded in. At ``precision="default"`` both
+    operands are rounded to bf16 first."""
     C = G3.shape[1] // 4
-    S = torch.bmm(Ft, G3[cluster, :, :10].transpose(1, 2))
+    G = G3[cluster, :, :10]
+    if use_bf16(precision):
+        Ft, G = round_bf16(Ft), round_bf16(G)
+    S = torch.bmm(Ft, G.transpose(1, 2))
     det, u, v, tn = S[..., :C], S[..., C:2 * C], S[..., 2 * C:3 * C], S[..., 3 * C:]
     det_i = det.view(torch.int32)
     sign_ok = ((u.view(torch.int32) ^ det_i)
@@ -135,10 +160,11 @@ def _candidates(Ft, G3, cluster):
 
 
 def _dense_launch(fn, name, out, F, G3, q_cluster, q_entry, q_count,
-                  tile: int, walked):
+                  tile: int, walked, bf16: bool):
     """Validate the arguments of a dense kernel and launch it: R / CTA_RAYS
-    CTAs. ``walked`` (optional, a (1,) int64 CUDA tensor) gains the (ray,
-    cluster) pairs the kernel's warps tested."""
+    CTAs, the bf16 variant with ``bf16``. ``walked`` (optional, a (1,)
+    int64 CUDA tensor) gains the (ray, cluster) pairs the kernel's warps
+    tested."""
     T, cap = q_cluster.shape
     R = T * tile
     check_tile(tile)
@@ -153,12 +179,12 @@ def _dense_launch(fn, name, out, F, G3, q_cluster, q_entry, q_count,
         _kernels.ptr(F), _kernels.ptr(G3), _kernels.ptr(q_cluster),
         _kernels.ptr(q_entry), _kernels.ptr(q_count), _kernels.ptr(out),
         None if walked is None else _kernels.ptr(walked), T, tile, cap,
-        G3.shape[1] // 4, _kernels.stream()), name)
+        G3.shape[1] // 4, int(bf16), _kernels.stream()), name)
 
 
 def dense_closest_hit(F, G3, q_cluster, q_entry, q_count, tile: int,
-                      k_step: int = K_PER_STEP, *,
-                      walked=None) -> torch.Tensor:
+                      k_step: int = K_PER_STEP, *, walked=None,
+                      precision: str = "highest") -> torch.Tensor:
     """K1: packed closest hit of each ray over its tile's cluster queue.
 
     F (T*tile, 16) ray rows [d, o, d x o, 1, tmin, tmax_eff, 0...]
@@ -171,24 +197,30 @@ def dense_closest_hit(F, G3, q_cluster, q_entry, q_count, tile: int,
 
     On a CUDA tensor this launches ``csrc/dense_hit.cu`` (R / CTA_RAYS
     CTAs, known without a host sync; ``walked`` counts the pairs its warps
-    tested); on a CPU tensor it runs
-    :func:`dense_closest_hit_plain`."""
+    tested), its bf16 tensor-core variant at ``precision="default"``; on
+    a CPU tensor it runs :func:`dense_closest_hit_plain`.
+    ``dense_closest_hit.launches_bf16`` counts the bf16 launches among
+    ``dense_closest_hit.launches``."""
+    bf16 = use_bf16(precision)
     if F.device.type == "cpu":
         return dense_closest_hit_plain(F, G3, q_cluster, q_entry, q_count,
-                                       tile, k_step)
+                                       tile, k_step, precision=precision)
     out = torch.empty((2, F.shape[0]), dtype=torch.int32, device=F.device)
     _dense_launch(_kernels.library().racc_dense_hit, "racc_dense_hit", out,
-                  F, G3, q_cluster, q_entry, q_count, tile, walked)
+                  F, G3, q_cluster, q_entry, q_count, tile, walked, bf16)
     dense_closest_hit.launches += 1
+    dense_closest_hit.launches_bf16 += bf16
     return out
 
 
 dense_closest_hit.launches = 0
+dense_closest_hit.launches_bf16 = 0
 
 
 def dense_closest_hit_plain(F, G3, q_cluster, q_entry, q_count, tile: int,
                             k_step: int = K_PER_STEP, *,
-                            group: Optional[int] = None) -> torch.Tensor:
+                            group: Optional[int] = None,
+                            precision: str = "highest") -> torch.Tensor:
     """Plain torch version of K1: the same queue walk, cluster by cluster,
     all groups of ``group`` rays in lockstep (default the kernel's warp). A
     group tests a cluster unless its entry passes the largest best hit of
@@ -211,7 +243,8 @@ def dense_closest_hit_plain(F, G3, q_cluster, q_entry, q_count, tile: int,
         if groups.numel() == 0:
             break
         cluster = q_cluster[gtile[groups], j]
-        inside, ad, ts = _candidates(Fm[groups, :, :10], G3, cluster)
+        inside, ad, ts = _candidates(Fm[groups, :, :10], G3, cluster,
+                                     precision)
         score_q = ts * torch.reciprocal(ad)
         valid = inside & (score_q > tmin[groups][:, :, None])
         score = torch.where(valid, score_q, torch.full_like(score_q, 3e38))
@@ -287,7 +320,8 @@ def _dense_inputs(cs: ClusterScene, rays: Rays, active, tile: int,
 
 def trace_dense(cs: ClusterScene, rays: Rays, env=None, active=None,
                 tile: int = 512, k_step: int = K_PER_STEP,
-                tile_cap: int = DEFAULT_TILE_CAP):
+                tile_cap: int = DEFAULT_TILE_CAP,
+                precision: str = "highest"):
     """Closest hit of every ray on the dense work-queue engine (the
     counterpart of ``trace_mxu_pallas``), with the environment's radiance
     folded into ``miss_rgb`` when ``env`` is given. Returns (MxuHits,
@@ -295,7 +329,7 @@ def trace_dense(cs: ClusterScene, rays: Rays, env=None, active=None,
     F, q_cluster, q_entry, q_count, overflow = _dense_inputs(
         cs, rays, active, tile, k_step, tile_cap)
     out = dense_closest_hit(F, cs.G3, q_cluster, q_entry, q_count, tile,
-                            k_step)
+                            k_step, precision=precision)
     slot = out[1]
     hit = slot >= 0
     attr, tri, t, u, v = reconstruct(cs, rays, torch.where(hit, slot, 0))
@@ -306,7 +340,8 @@ def trace_dense(cs: ClusterScene, rays: Rays, env=None, active=None,
 # ---------------------------------------------------------------- K4 ----
 
 def dense_occluded(F, G3, q_cluster, q_entry, q_count, tile: int,
-                   k_step: int = K_PER_STEP, *, walked=None) -> torch.Tensor:
+                   k_step: int = K_PER_STEP, *, walked=None,
+                   precision: str = "highest") -> torch.Tensor:
     """K4: any hit of each ray over its tile's cluster queue.
 
     Inputs as for :func:`dense_closest_hit` (rows 10/11 of F are tmin and
@@ -316,25 +351,30 @@ def dense_occluded(F, G3, q_cluster, q_entry, q_count, tile: int,
     bool.
 
     On a CUDA tensor this launches ``csrc/dense_occl.cu`` (the grid,
-    ``walked`` and the ignored ``k_step`` as for K1); on a CPU tensor it
-    runs :func:`dense_occluded_plain`."""
+    ``walked``, ``precision`` and the ignored ``k_step`` as for K1;
+    ``dense_occluded.launches_bf16`` counts the bf16 launches); on a CPU
+    tensor it runs :func:`dense_occluded_plain`."""
+    bf16 = use_bf16(precision)
     if F.device.type == "cpu":
         return dense_occluded_plain(F, G3, q_cluster, q_entry, q_count,
-                                    tile, k_step)
+                                    tile, k_step, precision=precision)
     out = torch.empty((F.shape[0],), dtype=torch.bool, device=F.device)
     _dense_launch(_kernels.library().racc_dense_occluded,
                   "racc_dense_occluded", out, F, G3, q_cluster, q_entry,
-                  q_count, tile, walked)
+                  q_count, tile, walked, bf16)
     dense_occluded.launches += 1
+    dense_occluded.launches_bf16 += bf16
     return out
 
 
 dense_occluded.launches = 0
+dense_occluded.launches_bf16 = 0
 
 
 def dense_occluded_plain(F, G3, q_cluster, q_entry, q_count, tile: int,
                          k_step: int = K_PER_STEP, *,
-                         group: Optional[int] = None) -> torch.Tensor:
+                         group: Optional[int] = None,
+                         precision: str = "highest") -> torch.Tensor:
     """Plain torch version of K4: the same queue walk, cluster by cluster,
     all groups of ``group`` rays in lockstep (default the kernel's warp). A
     group tests a cluster unless its entry passes the largest tmax bits
@@ -355,7 +395,7 @@ def dense_occluded_plain(F, G3, q_cluster, q_entry, q_count, tile: int,
         if groups.numel() == 0:
             break
         inside, ad, ts = _candidates(Fm[groups, :, :10], G3,
-                                     q_cluster[gtile[groups], j])
+                                     q_cluster[gtile[groups], j], precision)
         o = occ[groups] | (inside & (ts > ad * tmin[groups][:, :, None])
                            & (ts <= ad * tmax[groups][:, :, None])).any(dim=2)
         occ[groups] = o
@@ -365,7 +405,8 @@ def dense_occluded_plain(F, G3, q_cluster, q_entry, q_count, tile: int,
 
 def trace_occlusion_dense(cs: ClusterScene, rays: Rays, active=None,
                           tile: int = 512, k_step: int = K_PER_STEP,
-                          tile_cap: int = DEFAULT_TILE_CAP):
+                          tile_cap: int = DEFAULT_TILE_CAP,
+                          precision: str = "highest"):
     """Any-hit occlusion query on the dense work-queue engine (the
     counterpart of ``trace_occlusion_pallas``): True where some triangle
     blocks the ray within [tmin, tmax]. Returns (occluded (R,) bool,
@@ -374,5 +415,5 @@ def trace_occlusion_dense(cs: ClusterScene, rays: Rays, active=None,
     F, q_cluster, q_entry, q_count, overflow = _dense_inputs(
         cs, rays, active, tile, k_step, tile_cap)
     occ = dense_occluded(F, cs.G3, q_cluster, q_entry, q_count, tile,
-                         k_step)
+                         k_step, precision=precision)
     return occ, overflow

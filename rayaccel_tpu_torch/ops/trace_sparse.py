@@ -32,6 +32,10 @@ launch inside their launchers: K2 splits a lane's boxes across 1-32
 threads by the launch width and answers dead lanes without testing them;
 K3 cuts the runs into work units of 64 pairs and spreads them over a grid
 the size of the card.
+
+``precision`` reaches K3 alone (K2 has no product), as in
+``ops/trace_dense.py``: "default" is the one-pass bf16 product, on the
+card K3's bf16 tensor-core variant.
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ import torch
 
 from rayaccel_tpu_torch.ops import _kernels
 from rayaccel_tpu_torch.ops.intersect import safe_inv_dir
-from rayaccel_tpu_torch.ops.trace_dense import make_hits, reconstruct
+from rayaccel_tpu_torch.ops.trace_dense import (make_hits, reconstruct,
+                                                round_bf16, use_bf16)
 from rayaccel_tpu_torch.ops.trace_mxu import MxuHits
 from rayaccel_tpu_torch.scene.clusters import ClusterScene
 from rayaccel_tpu_torch.types import Rays
@@ -222,7 +227,7 @@ def _select(cs: ClusterScene, o, inv_d, tmin, tmax_eff, k: int,
 # ---------------------------------------------------------------- K3 ----
 
 def pair_hit(Fp, G3, items, col_bits: int, guard_tmax: bool, *,
-             stats=None) -> torch.Tensor:
+             stats=None, precision: str = "highest") -> torch.Tensor:
     """K3: the pair kernel.
 
     Fp (P, 16) float32 pair rows [d, o, d x o, 1, tmin, tmax, lane word,
@@ -240,11 +245,14 @@ def pair_hit(Fp, G3, items, col_bits: int, guard_tmax: bool, *,
     consecutive units that name it. Nothing is read on the host.
     ``stats`` (optional, a (3,) int64 CUDA tensor) gains the work units,
     the CTAs that took any and the clusters staged. On a CPU tensor it
-    runs :func:`pair_hit_plain`. ``pair_hit.guard_launches`` counts the
-    launches with ``guard_tmax`` (the any-hit form) among
-    ``pair_hit.launches``."""
+    runs :func:`pair_hit_plain`. At ``precision="default"`` it launches
+    the bf16 tensor-core variant. ``pair_hit.guard_launches`` counts the
+    launches with ``guard_tmax`` (the any-hit form) and
+    ``pair_hit.launches_bf16`` the bf16 ones among ``pair_hit.launches``."""
+    bf16 = use_bf16(precision)
     if Fp.device.type == "cpu":
-        return pair_hit_plain(Fp, G3, items, col_bits, guard_tmax)
+        return pair_hit_plain(Fp, G3, items, col_bits, guard_tmax,
+                              precision=precision)
     P = Fp.shape[0]
     n_items = items.shape[0]
     _kernels.require(Fp, "Fp", torch.float32, (P, 16))
@@ -264,25 +272,31 @@ def pair_hit(Fp, G3, items, col_bits: int, guard_tmax: bool, *,
         _kernels.ptr(Fp), _kernels.ptr(G3), _kernels.ptr(items),
         _kernels.ptr(unit_start), n_items, _kernels.ptr(out),
         None if stats is None else _kernels.ptr(stats), P, G3.shape[0],
-        G3.shape[1] // 4, col_bits, int(guard_tmax), _kernels.stream()),
-        "racc_pair_hit")
+        G3.shape[1] // 4, col_bits, int(guard_tmax), int(bf16),
+        _kernels.stream()), "racc_pair_hit")
     pair_hit.launches += 1
     pair_hit.guard_launches += bool(guard_tmax)
+    pair_hit.launches_bf16 += bf16
     return out
 
 
 pair_hit.launches = 0
 pair_hit.guard_launches = 0
+pair_hit.launches_bf16 = 0
 
 
 def pair_hit_plain(Fp, G3, items, col_bits: int, guard_tmax: bool,
-                   chunk: int = 4096, col_split: int = 1) -> torch.Tensor:
+                   chunk: int = 4096, col_split: int = 1,
+                   precision: str = "highest") -> torch.Tensor:
     """Plain torch version of K3, over chunks of covered pairs. The
     bilinear products are summed feature by feature with elementwise
     operations, so a pair's result does not depend on where it sits in the
     array. ``col_split`` is the kernel's column split: part s takes columns
     s, s + col_split, ... and the parts' packed minima are merged; it never
-    changes the answer (tests/test_torch_split.py)."""
+    changes the answer (tests/test_torch_split.py). At
+    ``precision="default"`` the features (columns 0-9 of a pair row, and
+    G3) are rounded to bf16 before the products; tmin and tmax are not."""
+    bf16 = use_bf16(precision)
     P = Fp.shape[0]
     C = G3.shape[1] // 4
     out = torch.full((P,), _MISS_BITS, dtype=torch.int32, device=Fp.device)
@@ -298,14 +312,15 @@ def pair_hit_plain(Fp, G3, items, col_bits: int, guard_tmax: bool,
     sel = covered.nonzero().squeeze(1)
     low = (1 << (col_bits + 3)) - 1
     col = torch.arange(C, dtype=torch.int32, device=Fp.device)
-    G10 = G3[:, :, :10]
+    G10 = round_bf16(G3[:, :, :10]) if bf16 else G3[:, :, :10]
     for s in range(0, sel.numel(), chunk):
         q = sel[s:s + chunk]
         f = Fp[q]
+        fx = round_bf16(f[:, :10]) if bf16 else f
         g = G10[cl[q]]                                     # (n, 4C, 10)
-        S = f[:, 0:1] * g[:, :, 0]
+        S = fx[:, 0:1] * g[:, :, 0]
         for i in range(1, 10):
-            S = S + f[:, i:i + 1] * g[:, :, i]
+            S = S + fx[:, i:i + 1] * g[:, :, i]
         det, u, v, tn = S[:, :C], S[:, C:2 * C], S[:, 2 * C:3 * C], S[:, 3 * C:]
         det_i = det.view(torch.int32)
         sign_ok = ((u.view(torch.int32) ^ det_i)
@@ -369,7 +384,8 @@ def _pair_inputs(o, d, tlo, tmax_p, cl, ray, rank, SP: int):
 
 
 def _sparse_pass(cs: ClusterScene, o, d, inv_d, tlo, tmax_p, K: int, SP: int,
-                 pair_budget: int, prev_packed=None, guard_tmax: bool = True):
+                 pair_budget: int, prev_packed=None, guard_tmax: bool = True,
+                 precision: str = "highest"):
     """One spill-window pass at width R = len(tlo). Returns (best_p (R,)
     int32 packed, slot_p (R,) int32, spill (R,) int32, trunc int).
 
@@ -392,7 +408,8 @@ def _sparse_pass(cs: ClusterScene, o, d, inv_d, tlo, tmax_p, K: int, SP: int,
     best_p = torch.full((R,), _MISS_BITS, dtype=torch.int32, device=o.device)
     if cl.numel():
         Fp, items = _pair_inputs(o, d, tlo, tmax_p, cl, ray, rank, SP)
-        packed = pair_hit(Fp, cs.G3, items, col_bits, guard_tmax)
+        packed = pair_hit(Fp, cs.G3, items, col_bits, guard_tmax,
+                          precision=precision)
         best_p.scatter_reduce_(0, ray, packed, "amin")
 
     rank_w = (best_p >> col_bits) & 7
@@ -431,7 +448,7 @@ def _compact(unresolved, widths):
 def trace_sparse(cs: ClusterScene, rays: Rays, env=None, active=None,
                  k_pairs: int = 4, pair_budget: int = 3, sp_tile: int = 1024,
                  max_passes: int = 4, k_first: int | None = None,
-                 k_restart: int | None = None):
+                 k_restart: int | None = None, precision: str = "highest"):
     """Pair-centric closest-hit trace, spill-exact multipass. Returns
     (MxuHits, overflow): ``overflow`` counts truncated pairs and rays still
     unresolved after ``max_passes`` (knobs as in the JAX function). With
@@ -471,7 +488,7 @@ def trace_sparse(cs: ClusterScene, rays: Rays, env=None, active=None,
     # ---- pass 1: full width, k_first nearest ----
     best, slot, spill, overflow = _sparse_pass(
         cs, rays.o, rays.d, inv_d, tmin, tmax0, min(k_first, n_c), SP,
-        pair_budget, guard_tmax=False)
+        pair_budget, guard_tmax=False, precision=precision)
     spill_e = decode_spill(spill)
     unresolved = ((tmax0 > 0) & (spill < _INF_PACK)
                   & (spill_e < torch.minimum(decode_t(best), tmax0)))
@@ -495,7 +512,8 @@ def trace_sparse(cs: ClusterScene, rays: Rays, env=None, active=None,
                              torch.full_like(tmax_r, -1.0))
         bp, sp_p, spill_s, trunc_s = _sparse_pass(
             cs, rays.o[idx], d_s, safe_inv_dir(d_s), tlo[idx], tmax_s, K_r,
-            SP, K_r, prev_packed=prev[idx], guard_tmax=False)
+            SP, K_r, prev_packed=prev[idx], guard_tmax=False,
+            precision=precision)
         merged = torch.minimum(bp, best_s)
         slot_m = torch.where(bp < best_s, sp_p, slot[idx])
         spill_es = decode_spill(spill_s)
@@ -524,7 +542,8 @@ def trace_sparse(cs: ClusterScene, rays: Rays, env=None, active=None,
 def trace_occlusion_sparse(cs: ClusterScene, rays: Rays, active=None,
                            k_pairs: int = 4, pair_budget: int = 3,
                            sp_tile: int = 1024, max_passes: int = 4,
-                           k_restart: int | None = None):
+                           k_restart: int | None = None,
+                           precision: str = "highest"):
     """Any-hit occlusion query on the pair engine: True where some triangle
     blocks the ray within [tmin, tmax].
 
@@ -558,7 +577,7 @@ def trace_occlusion_sparse(cs: ClusterScene, rays: Rays, active=None,
 
     best, _, spill, under = _sparse_pass(
         cs, rays.o, rays.d, inv_d, tmin, tmax0, min(k_pairs, n_c), SP,
-        pair_budget, guard_tmax=True)
+        pair_budget, guard_tmax=True, precision=precision)
     occluded = best < _MISS_BITS
     spill_e = decode_spill(spill)
     unresolved = ((tmax0 > 0) & ~occluded & (spill < _INF_PACK)
@@ -580,7 +599,8 @@ def trace_occlusion_sparse(cs: ClusterScene, rays: Rays, active=None,
         tmax_s = torch.where(valid, tmax0[idx], -1.0)
         bp, _, spill_s, trunc_s = _sparse_pass(
             cs, rays.o[idx], d_s, safe_inv_dir(d_s), tlo[idx], tmax_s, K_r,
-            SP, K_r, prev_packed=prev[idx], guard_tmax=True)
+            SP, K_r, prev_packed=prev[idx], guard_tmax=True,
+            precision=precision)
         occ_s = (bp < _MISS_BITS) | occluded[idx]
         spill_es = decode_spill(spill_s)
         unres_s = (valid & ~occ_s & (spill_s < _INF_PACK)

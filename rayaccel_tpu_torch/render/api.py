@@ -21,7 +21,8 @@ def render(context: Context, scene, environment, renderer,
     the reference re-publishes them per frame (RayAccelerator.cpp:741-746).
 
     The renderers read their scene and environment afresh every frame and
-    cache nothing derived from them, so a rebind is an assignment. A scene
+    cache nothing derived from them, so a rebind is an assignment (and a
+    copy to the renderer's device of what lies elsewhere). A scene
     that ``bind_scene`` would trace on another engine than the renderer's
     is refused. Under a mesh a rebind replicates rank 0's new scene and
     environment on every rank (``rayaccel_tpu/render/api.py:46-52``), a

@@ -95,13 +95,14 @@ def _trace_and_surface(scene, rays, alive, bk, tile, opts=EngineOpts(),
     if bk == "pallas":
         res, overflow = trace_dense(scene, rays, env=env, active=alive,
                                     tile=tile, k_step=opts.k_step,
-                                    tile_cap=opts.tile_cap)
+                                    tile_cap=opts.tile_cap,
+                                    precision=opts.precision)
     elif bk == "sparse":
         res, overflow = trace_sparse(
             scene, rays, env=env, active=alive, k_pairs=opts.k_pairs,
             pair_budget=opts.pair_budget, sp_tile=opts.sp_tile,
             max_passes=opts.max_passes, k_first=opts.k_first,
-            k_restart=opts.k_restart)
+            k_restart=opts.k_restart, precision=opts.precision)
     elif bk == "mxu":
         res, overflow = trace_mxu(scene, rays, env=env, active=alive,
                                   tile=tile), 0
@@ -499,8 +500,9 @@ def pt_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
 def bind_scene(backend: str, scene_data: SceneData, tpu_scene, device):
     """The renderers' engine choice: (backend, compiled scene). A scene
     handed in decides the engine family (a ClusterScene moves a non-cluster
-    backend to "mxu", a TpuScene a cluster backend to "xla"); otherwise the
-    scene is compiled for the backend."""
+    backend to "mxu", a TpuScene a cluster backend to "xla"), whatever its
+    device: ``TiledRenderer._bind`` moves it to the renderer's. Otherwise
+    the scene is compiled for the backend on ``device``."""
     if backend == "bruteforce":
         raise ValueError(
             "backend 'bruteforce' is the test oracle and runs no renderer: "

@@ -26,6 +26,7 @@ import torch
 
 from rayaccel_tpu_torch import rng
 from rayaccel_tpu_torch.context import Context
+from rayaccel_tpu_torch.device import to_device
 from rayaccel_tpu_torch.parallel.mesh import replicate_scene
 from rayaccel_tpu_torch.types import Stats
 
@@ -134,9 +135,13 @@ class TiledRenderer:
 
     def _bind(self, scene, environment):
         """Bind ``scene`` and ``environment``, the objects
-        ``render/api.py:render`` compares a re-published one with; under a
-        mesh every rank then traces rank 0's copies of them."""
+        ``render/api.py:render`` compares a re-published one with. The
+        renderer traces copies of them on its device (a scene built on the
+        host runs on the renderer's card); under a mesh every rank traces
+        rank 0's copies."""
         self._bound_scene, self._bound_env = scene, environment
+        scene = to_device(scene, self.device)
+        environment = to_device(environment, self.device)
         if self.mesh is not None:
             scene = replicate_scene(self.mesh, scene)
             environment = replicate_scene(self.mesh, environment)

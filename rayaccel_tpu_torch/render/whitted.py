@@ -6,9 +6,9 @@ Counterpart of ``rayaccel_tpu/render/whitted.py``: ``whitted_shade``
 (``:145-178``, through ``pathtracer._trace_and_surface`` with the
 environment folded at trace time), ``_whitted_step`` (``:181-274``),
 ``whitted_trace_wave`` (``:277-420``) with its between-bounce regroup,
-``whitted_trace_frame`` (``:423-768``) with the fast shrink, on one device
-or on one rank of a mesh with the cross-rank reshard, and
-``WhittedRenderer`` (``:771-891``).
+``whitted_trace_frame`` (``:423-768``) with the fast shrink and the scanned
+dense bounce, on one device or on one rank of a mesh with the cross-rank
+reshard, and ``WhittedRenderer`` (``:771-891``).
 
 Each wavefront lane owns one pixel's whole ray tree. When a hit spawns
 both a reflection and a refraction ray, the reflection continues and the
@@ -52,11 +52,11 @@ from rayaccel_tpu_torch.render.pathtracer import (CLUSTER_BACKENDS, _by_lane,
 from rayaccel_tpu_torch.render.regroup import coherence_key, regroup_state
 from rayaccel_tpu_torch.render.shading import (ORIGIN_EPSILON, SECONDARY_TMAX,
                                                SECONDARY_TMIN, WEIGHT_CUTOFF,
-                                               merge_rays)
+                                               SurfaceSample, merge_rays)
 from rayaccel_tpu_torch.render.tiled import TiledRenderer
 from rayaccel_tpu_torch.scene.clusters import ClusterScene
 from rayaccel_tpu_torch.scene.data import SceneData
-from rayaccel_tpu_torch.types import INVALID_TRIANGLE, Rays
+from rayaccel_tpu_torch.types import INVALID_TRIANGLE, Hits, Rays
 
 MATERIAL_GRAY = 0.3                      # WhittedRenderer.cpp:343-345
 LIGHT_DIR = (0.57, 0.57, 0.57)           # WhittedRenderer.cpp:357-359
@@ -145,12 +145,14 @@ def _occlusion_query(scene, srays: Rays, active, bk: str, tile: int,
     if bk == "pallas":
         return trace_occlusion_dense(scene, srays, active=active, tile=tile,
                                      k_step=opts.k_step,
-                                     tile_cap=opts.tile_cap)
+                                     tile_cap=opts.tile_cap,
+                                     precision=opts.precision)
     if bk == "sparse":
         return trace_occlusion_sparse(
             scene, srays, active=active, k_pairs=opts.k_pairs,
             pair_budget=opts.pair_budget, sp_tile=opts.sp_tile,
-            max_passes=opts.max_passes, k_restart=opts.k_restart)
+            max_passes=opts.max_passes, k_restart=opts.k_restart,
+            precision=opts.precision)
     if bk == "mxu":
         return trace_occlusion_mxu(scene, srays, active=active, tile=tile), 0
     if bk == "xla":
@@ -251,20 +253,39 @@ def _whitted_step(scene, s, hits, surf, bk: str, tile: int, max_depth: int,
                 radiance=radiance, traced=traced, dropped=dropped)
 
 
+def _trace_scanned(trace_fn, rays: Rays, alive, scan: int):
+    """``trace_fn(rays, alive)`` over consecutive slices of ``scan`` lanes:
+    the slices' hits and frames concatenated, their overflow summed (the
+    JAX frame's scanned dense bounce, ``rayaccel_tpu/render/whitted.py:
+    478-509``)."""
+    parts = [trace_fn(Rays(*(a[s:s + scan] for a in rays)), alive[s:s + scan])
+             for s in range(0, alive.shape[0], scan)]
+    hits = Hits(*(torch.cat(f) for f in zip(*(p[0] for p in parts))))
+    surf = SurfaceSample(*(torch.cat(f) for f in zip(*(p[1] for p in parts))))
+    return hits, surf, sum(p[2] for p in parts)
+
+
 def _trace_step(scene, env, st, bk, tile, max_depth, stack_size, shadows,
-                primary_only, opts, stack_depth: int = 48, sizes=None):
+                primary_only, opts, stack_depth: int = 48, sizes=None,
+                scan: int | None = None):
     """One trace on engine ``bk`` and the step after it. With ``sizes``
     (a regrouped wave: live lanes in front) only the smallest live prefix
-    of those widths is traced."""
+    of those widths is traced. With ``scan``, a dense engine ("pallas",
+    "mxu") traces a width that is a multiple of ``scan`` and wider in
+    slices of ``scan`` lanes."""
     def trace_fn(rays, alive):
         return _trace_and_surface(scene, rays, alive, bk, tile, opts, env,
                                   stack_depth)
 
-    if sizes is None:
-        hits, surf, ov = trace_fn(st["rays"], st["alive"])
-    else:
+    R = st["alive"].shape[0]
+    if sizes is not None:
         hits, surf, ov = _trace_prefix(trace_fn, st["rays"], st["alive"],
                                        sizes)
+    elif scan and bk in ("pallas", "mxu") and R > scan and R % scan == 0:
+        hits, surf, ov = _trace_scanned(trace_fn, st["rays"], st["alive"],
+                                        scan)
+    else:
+        hits, surf, ov = trace_fn(st["rays"], st["alive"])
     st = dict(st, dropped=st["dropped"] + ov)
     return _whitted_step(scene, st, hits, surf, bk, tile, max_depth,
                          stack_size, shadows, primary_only, opts, stack_depth)
@@ -384,7 +405,8 @@ def whitted_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
                         opts: EngineOpts = EngineOpts(),
                         stage_ratio: int = 2, hot_levels: int = 3,
                         mesh: Mesh | None = None, n_shards: int = 1,
-                        reshard: bool = True, info: dict | None = None):
+                        reshard: bool = True, info: dict | None = None,
+                        bounce_scan: int | None = None):
     """Trace a whole frame of ray trees with one pooled bounce loop.
 
     1. Stage 1 traces and first-shades the primaries wave by wave on
@@ -396,7 +418,11 @@ def whitted_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
        sort), and the lanes left behind emit (lane, radiance) rows as a
        piece at full width, with rows that must not contribute marked
        invalid. Stack levels below ``hot_levels`` always move; the deep
-       levels move only when some lane has parked that deep.
+       levels move only when some lane has parked that deep. With
+       ``bounce_scan``, a bounce on a dense engine ("pallas", "mxu") over
+       a pool wider than ``bounce_scan`` and a multiple of it is traced in
+       slices of ``bounce_scan`` lanes, their overflow summed into
+       ``dropped``; other bounces are traced whole.
     3. The pieces are reassembled by lane id.
 
     With ``mesh`` (of ``n_shards`` ranks), ``xs``, ``ys`` and ``alives``
@@ -475,7 +501,7 @@ def whitted_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
             if n_live == 0 or (nxt is not None and n_live <= nxt):
                 break
             st = _trace_step(scene, env, st, bounce_backend, tile, max_depth,
-                             S, shadows, False, opts)
+                             S, shadows, False, opts, scan=bounce_scan)
             iterations += 1
         if nxt is None:
             break
@@ -560,6 +586,7 @@ class WhittedRenderer(TiledRenderer):
         self.min_stage_width = cfg.min_stage_width
         self.stage_ratio = cfg.whitted_stage_ratio
         self.hot_levels = cfg.whitted_hot_levels
+        self.bounce_scan = cfg.whitted_bounce_scan
         self.pooled = (not primary_only and cfg.regroup
                        and self.backend in CLUSTER_BACKENDS)
         self.last_info: dict = {}
@@ -577,7 +604,8 @@ class WhittedRenderer(TiledRenderer):
             self._wave_x, self._wave_y, self._wave_alive, key, self.max_depth,
             min_stage_width=self.min_stage_width,
             stage_ratio=self.stage_ratio, hot_levels=self.hot_levels,
-            info=self.last_info, **self._mesh_kwargs(), **self._wave_kwargs())
+            bounce_scan=self.bounce_scan, info=self.last_info,
+            **self._mesh_kwargs(), **self._wave_kwargs())
 
     def _trace_wave(self, x, y, alive, wave_key):
         return whitted_trace_wave(

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from rayaccel_tpu_torch.device import resolve_device
 from rayaccel_tpu_torch.scene.bvh import KIND_LEAF, Bvh2, build_bvh
 from rayaccel_tpu_torch.scene.data import SceneData
 
@@ -227,10 +228,12 @@ def compile_clusters_np(scene: SceneData, cluster_size: int = 128,
 
 
 def cluster_scene_from_numpy(G, attrs, tri_id, cl_bbmin, cl_bbmax,
-                             mat_params, device="cpu") -> ClusterScene:
-    """Move compiled cluster arrays onto ``device`` and derive the kernel
-    layouts. Takes the JAX package's ``ClusterScene`` fields as well
+                             mat_params, device=None) -> ClusterScene:
+    """Move compiled cluster arrays onto ``device`` (``device.py:
+    resolve_device``: default the current CUDA device) and derive the
+    kernel layouts. Takes the JAX package's ``ClusterScene`` fields as well
     (``np.asarray`` of each), so both packages can trace one scene."""
+    device = resolve_device(device)
     def f32(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
@@ -252,7 +255,10 @@ def cluster_scene_from_numpy(G, attrs, tri_id, cl_bbmin, cl_bbmax,
 
 
 def compile_clusters(scene: SceneData, cluster_size: int = 128,
-                     bvh: Bvh2 | None = None, device="cpu") -> ClusterScene:
-    """Compile a SceneData into the cluster-dense device form."""
+                     bvh: Bvh2 | None = None, device=None) -> ClusterScene:
+    """Compile a SceneData into the cluster-dense device form on
+    ``device`` (default the current CUDA device, and with none visible this
+    raises before compiling)."""
+    device = resolve_device(device)
     return cluster_scene_from_numpy(
         **compile_clusters_np(scene, cluster_size, bvh), device=device)

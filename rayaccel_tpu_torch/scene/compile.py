@@ -32,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from rayaccel_tpu_torch.device import resolve_device
 from rayaccel_tpu_torch.scene.bvh import KIND_LEAF, Bvh2, build_bvh
 from rayaccel_tpu_torch.scene.data import (SceneData, compute_face_normals,
                                            compute_vertex_normals)
@@ -154,10 +155,12 @@ def compile_scene_np(scene: SceneData, max_leaf: int = 64) -> dict:
 
 def tpu_scene_from_numpy(nodes, pairs, pair_tri, tri_index, tri_normal,
                          tri_mat, vert_normal, vert_uv, mat_params, tri_verts,
-                         device="cpu") -> TpuScene:
-    """Move compiled scene arrays onto ``device``. Takes the JAX package's
-    ``TpuScene`` fields as well (``np.asarray`` of each), so both packages
-    can trace one scene."""
+                         device=None) -> TpuScene:
+    """Move compiled scene arrays onto ``device`` (``device.py:
+    resolve_device``: default the current CUDA device). Takes the JAX
+    package's ``TpuScene`` fields as well (``np.asarray`` of each), so both
+    packages can trace one scene."""
+    device = resolve_device(device)
     arrays = dict(nodes=nodes, pairs=pairs, pair_tri=pair_tri,
                   tri_index=tri_index, tri_normal=tri_normal, tri_mat=tri_mat,
                   vert_normal=vert_normal, vert_uv=vert_uv,
@@ -170,9 +173,11 @@ def tpu_scene_from_numpy(nodes, pairs, pair_tri, tri_index, tri_normal,
 
 
 def compile_scene(scene: SceneData, max_leaf: int = 64,
-                  device="cpu") -> TpuScene:
+                  device=None) -> TpuScene:
     """Compile a scene and move it onto ``device`` (one transfer per
-    scene)."""
+    scene; default the current CUDA device, and with none visible this
+    raises before compiling)."""
+    device = resolve_device(device)
     return tpu_scene_from_numpy(**compile_scene_np(scene, max_leaf),
                                 device=device)
 

@@ -53,13 +53,14 @@ def _tracer(renderer, backend: str):
     if backend == "pallas":
         return lambda r, act: trace_dense(scene, r, active=act, tile=tile,
                                           k_step=o.k_step,
-                                          tile_cap=o.tile_cap)[0].hits.t
+                                          tile_cap=o.tile_cap,
+                                          precision=o.precision)[0].hits.t
     if backend == "sparse":
         return lambda r, act: trace_sparse(
             scene, r, active=act, k_pairs=o.k_pairs,
             pair_budget=o.pair_budget, sp_tile=o.sp_tile,
             max_passes=o.max_passes, k_first=o.k_first,
-            k_restart=o.k_restart)[0].hits.t
+            k_restart=o.k_restart, precision=o.precision)[0].hits.t
     if backend == "mxu":
         return lambda r, act: trace_mxu(scene, r, active=act, tile=tile).hits.t
     return lambda r, act: trace_bvh(scene, r, active=act,

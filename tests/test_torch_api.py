@@ -195,11 +195,11 @@ def test_render_rebinds_environment(api_scene):
     ctx, a = _pt(api_scene)
     a.render_frame(rng.PRNGKey(3))
     a.clear()
-    env = create_environment(px, px.shape[1], px.shape[0])
+    env = create_environment(px, px.shape[1], px.shape[0], device="cpu")
     racc.render(ctx, None, env, a, key=rng.PRNGKey(4))
     assert a.environment is env
     _, fresh = _pt(api_scene, environment=create_environment(
-        px, px.shape[1], px.shape[0]))
+        px, px.shape[1], px.shape[0], device="cpu"))
     fresh.render_frame(rng.PRNGKey(4))
     assert torch.equal(a.frame_buffer, fresh.frame_buffer)
 
@@ -216,4 +216,61 @@ def test_render_rebinds_scene(api_scene):
     fresh.render_frame(rng.PRNGKey(2))
     assert torch.equal(a.frame_buffer, fresh.frame_buffer)
     with pytest.raises(ValueError, match="engine"):
-        racc.render(ctx, compile_scene(api_scene), None, a)
+        racc.render(ctx, compile_scene(api_scene, device="cpu"), None, a)
+
+
+# Every knob the two echoes carry, away from its default.
+ECHO_KNOBS = dict(sparse_k_pairs=6, sparse_k_first=2, sparse_pair_budget=5,
+                  sparse_sp_tile=512, sparse_max_passes=3,
+                  sparse_k_restart=4, pallas_k_step=8, pallas_tile_cap=128,
+                  precision="default", min_stage_width=2048,
+                  whitted_stage_ratio=4, whitted_hot_levels=2,
+                  whitted_bounce_scan=65536, max_shading_depth=6)
+
+
+@pytest.mark.parametrize("kw", [{}, ECHO_KNOBS], ids=["default", "every"])
+def test_configuration_echoes_equal_jax(kw):
+    """``Configuration.pool_knobs()`` and ``EngineOpts.as_dict()`` carry the
+    JAX package's keys and values (its benchmark's knobs line)."""
+    ours, theirs = racc.Configuration(**kw), jracc.Configuration(**kw)
+    assert ours.pool_knobs() == theirs.pool_knobs()
+    assert ours.engine_opts().as_dict() == theirs.engine_opts().as_dict()
+    with pytest.raises(ValueError):
+        racc.Configuration(pallas_tile_cap=6)   # validation still runs
+
+
+def _constructors():
+    """Each public constructor with a device argument, as a call of
+    ``device`` on a small scene."""
+    from rayaccel_tpu_torch.scene.clusters import (cluster_scene_from_numpy,
+                                                   compile_clusters)
+    from rayaccel_tpu_torch.scene.compile import (compile_scene_np,
+                                                  tpu_scene_from_numpy)
+    sd = make_test_scene(viewport=(16, 16), max_depth=1)
+    px = sd.env_pixels
+    return {
+        "compile_scene": lambda **d: compile_scene(sd, **d),
+        "tpu_scene_from_numpy": lambda **d: tpu_scene_from_numpy(
+            **compile_scene_np(sd), **d),
+        "compile_clusters": lambda **d: compile_clusters(sd, 16, **d),
+        "cluster_scene_from_numpy": lambda **d: cluster_scene_from_numpy(
+            **compile_clusters_np(sd, 16), **d),
+        "create_environment": lambda **d: create_environment(
+            px, px.shape[1], px.shape[0], **d),
+    }
+
+
+@pytest.mark.parametrize("name", ["compile_scene", "tpu_scene_from_numpy",
+                                  "compile_clusters",
+                                  "cluster_scene_from_numpy",
+                                  "create_environment"])
+def test_constructors_never_pick_the_cpu(monkeypatch, name):
+    """With no CUDA device and no ``device`` a public constructor raises,
+    as ``create_context`` does; with ``device="cpu"`` every tensor it
+    returns lies on the CPU."""
+    make = _constructors()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make()
+    out = make(device="cpu")
+    assert all(a.device == torch.device("cpu") for a in out)

@@ -545,3 +545,80 @@ def test_mesh1_frame_on_the_card_matches_the_cpu_mesh(cuda, scenes,
     trim = diff[~flip]
     assert np.sqrt(np.mean(trim * trim)) < 1e-3 and flip.mean() < 0.005
     assert np.isfinite(images[0]).all() and images[0].max() > 0
+
+
+@pytest.mark.parametrize("cluster_size", [6, 16, 128])
+def test_bf16_kernels_match_plain(cuda, scene_data, cluster_size):
+    """The bf16 tensor-core variants of K1, K4 and K3 (precision "default")
+    against the plain versions at "default" on the card, on clusters of 6
+    (a last group of 4 triangles that runs past the cluster), 16 and 128:
+    K1 and K3 at the oracle bar, K4's flags on >= 99.95% of rays. Each
+    launch counts as a bf16 launch; the fp32 forms do not run."""
+    cs = cluster_scene_from_numpy(
+        **compile_clusters_np(scene_data, cluster_size=cluster_size),
+        device=cuda)
+    counted = (dense.dense_closest_hit, dense.dense_occluded, sparse.pair_hit)
+    before = [(fn.launches, fn.launches_bf16) for fn in counted]
+    rays, active = _primaries(scene_data, 128, cuda)
+    a1 = _dense_case(cs, rays, active, 1024, False)
+    got = dense.dense_closest_hit(*a1, precision="default")
+    want = dense.dense_closest_hit_plain(*a1, precision="default")
+    hit = want[1] >= 0
+    assert hit.any() and ((got[1] >= 0) == hit).float().mean() >= 0.9995
+    both = hit & (got[1] >= 0)
+    assert (got[1] == want[1])[both].float().mean() >= 0.9995
+
+    attr, tri, t, u, v = dense.reconstruct(cs, rays,
+                                           torch.where(hit, want[1], 0))
+    surf = surface_from_attrs(attr, cs.mat_params, rays,
+                              dense.make_hits(rays, hit, tri, t, u, v))
+    a4 = _dense_case(cs, shadow_rays(surf), active & hit, 1024, False)
+    occ = dense.dense_occluded(*a4, precision="default")
+    occ_p = dense.dense_occluded_plain(*a4, precision="default")
+    assert occ_p.any() and not occ_p.all()
+    assert (occ == occ_p).float().mean() >= 0.9995
+
+    Fp, items, short = _pair_case(cs, 4096, 11, cuda)
+    col_bits = max((cs.cluster_size - 1).bit_length(), 1)
+    for guard in (False, True):
+        want = sparse.pair_hit_plain(Fp, cs.G3, items, col_bits, guard,
+                                     precision="default")
+        for it in (items, short):
+            _same_words(sparse.pair_hit(Fp, cs.G3, it, col_bits, guard,
+                                        precision="default"),
+                        want, (1 << (col_bits + 3)) - 1)
+    after = [(fn.launches, fn.launches_bf16) for fn in counted]
+    assert [(a - b, c - d) for (a, c), (b, d) in zip(after, before)] == \
+        [(1, 1), (1, 1), (4, 4)]
+
+
+def test_scene_built_on_the_host_renders_on_the_card(cuda, scenes,
+                                                    scene_data):
+    """A cluster scene and an environment made with device="cpu" and handed
+    to a renderer on the card are traced there: the frame launches K1, K2
+    and K3, and a host environment re-published through ``render`` is
+    sampled on the card too."""
+    import rayaccel_tpu_torch as racc
+    from rayaccel_tpu_torch import rng
+    from rayaccel_tpu_torch.environment import create_environment
+    sd = type(scene_data)(**{**scene_data.__dict__, "viewport_width": 64,
+                             "viewport_height": 64, "max_depth": 2})
+    px = sd.env_pixels
+    env = create_environment(px, px.shape[1], px.shape[0], device="cpu")
+    ctx = racc.create_context(racc.Configuration(wave_size=4096,
+                                                 trace_block=512),
+                              device=cuda)
+    cam = racc.Camera.look_at(sd.cam_origin, sd.cam_dir, sd.cam_up,
+                              sd.cam_fov, 64, 64)
+    r = racc.PathTracingRenderer(ctx, cam, sd, tpu_scene=scenes[0],
+                                 environment=env)
+    assert r.scene.G3.device.type == r.environment.quad.device.type == "cuda"
+    before = _launch_counts()
+    r.render_frame(rng.PRNGKey(0))
+    env2 = create_environment(px * 0.5, px.shape[1], px.shape[0],
+                              device="cpu")
+    racc.render(ctx, scenes[0], env2, r)
+    assert r.environment.quad.device.type == "cuda"
+    assert all(a > b for a, b in zip(_launch_counts(), before))
+    img = r.image()
+    assert r.dropped == 0 and np.isfinite(img).all() and img.max() > 0

@@ -101,7 +101,7 @@ def test_golden_bvh_and_pairs_bitwise(scene_data, max_leaf):
 
 def test_compile_scene_bitwise(scene_data):
     ref = jax_compile.compile_scene(scene_data)
-    got = port_compile.compile_scene(scene_data)
+    got = port_compile.compile_scene(scene_data, device="cpu")
     assert isinstance(got, TpuScene) and got._fields == ref._fields
     for f in ref._fields:
         _same_bits(getattr(got, f).numpy(), getattr(ref, f), f)
@@ -179,7 +179,7 @@ def test_active_mask_and_env(traced):
     n = pr.o.shape[0]
     active = torch.tensor(np.random.default_rng(2).uniform(size=n) < 0.7)
     px = sd.env_pixels
-    env = racc.create_environment(px, px.shape[1], px.shape[0])
+    env = racc.create_environment(px, px.shape[1], px.shape[0], device="cpu")
     for got, full in (
             (trace_mxu(cs, pr, env=env, active=active, tile=512).hits,
              trace_mxu(cs, pr, tile=512).hits),
@@ -251,7 +251,7 @@ def test_trace_dispatcher_serves_all_engines(traced):
     sd, _, ts, _, cs, rays = traced
     pr = port_rays(rays["camera"])
     px = sd.env_pixels
-    env = racc.create_environment(px, px.shape[1], px.shape[0])
+    env = racc.create_environment(px, px.shape[1], px.shape[0], device="cpu")
     oracle = trace(ts, pr, env=env, backend="bruteforce")
     miss = oracle.tri.numpy() < 0
     assert (oracle.miss_rgb.numpy()[miss].sum(-1) > 0).all()

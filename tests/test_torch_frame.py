@@ -56,7 +56,7 @@ def _port_frame(sd, cs, xya, seed, **kw):
     cam = JaxCamera.look_at(sd.cam_origin, sd.cam_dir, sd.cam_up, sd.cam_fov,
                             SIZE, SIZE)
     px = sd.env_pixels
-    env = create_environment(px, px.shape[1], px.shape[0])
+    env = create_environment(px, px.shape[1], px.shape[0], device="cpu")
     return pt_trace_frame(
         cs, env, racc.Camera(cam.origin, cam.view, cam.right,
                              cam.up).as_arrays(),

@@ -178,7 +178,7 @@ def test_env_miss_rgb_matches_jax(scenes, engine):
     rays = random_rays(99, n=N_RAYS)
     active = np.arange(N_RAYS) % 5 != 0
     jenv = jax_env(px, px.shape[1], px.shape[0])
-    env = create_environment(px, px.shape[1], px.shape[0])
+    env = create_environment(px, px.shape[1], px.shape[0], device="cpu")
     if engine == "dense":
         ref, _ = trace_mxu_pallas(jcs, rays, env=jenv,
                                   active=jnp.asarray(active), tile=512)

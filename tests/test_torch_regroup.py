@@ -128,7 +128,8 @@ def test_whitted_wave_with_regroup_matches_jax():
         JaxCamera.look_at(*args).as_arrays(), jnp.asarray(x, jnp.int32),
         jnp.asarray(y, jnp.int32), jnp.asarray(alive), jax.random.PRNGKey(3),
         4, regroup=True, **kw)
-    port_args = (cs, create_environment(px, px.shape[1], px.shape[0]),
+    port_args = (cs, create_environment(px, px.shape[1], px.shape[0],
+                                         device="cpu"),
                  racc.Camera.look_at(*args).as_arrays(),
                  torch.tensor(x, dtype=torch.int32),
                  torch.tensor(y, dtype=torch.int32), torch.tensor(alive),

@@ -54,7 +54,7 @@ def test_synthetic_scene_arrays_bitwise(scene_pair):
 def test_cluster_scene_bitwise(scene_pair, cluster_size):
     ref_sd, port_sd = scene_pair
     ref = jax_compile(ref_sd, cluster_size=cluster_size)
-    cs = compile_clusters(port_sd, cluster_size=cluster_size)
+    cs = compile_clusters(port_sd, cluster_size=cluster_size, device="cpu")
     for name in ("G", "attrs", "tri_id", "cl_bbmin", "cl_bbmax",
                  "mat_params"):
         a = getattr(cs, name).numpy()
@@ -77,7 +77,7 @@ def test_environment_quad_table_bitwise(scene_pair):
     _, sd = scene_pair
     px = sd.env_pixels
     ref = jax_env(px, px.shape[1], px.shape[0])
-    env = create_environment(px, px.shape[1], px.shape[0])
+    env = create_environment(px, px.shape[1], px.shape[0], device="cpu")
     np.testing.assert_array_equal(env.quad.numpy(), np.asarray(ref.quad))
     np.testing.assert_array_equal(env.pixels.numpy(), np.asarray(ref.pixels))
 
@@ -101,29 +101,27 @@ def test_import_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("kw", [dict(whitted_bounce_scan=1024),
-                                dict(precision="default")])
-def test_unported_configuration_raises(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Configuration(**kw)
-    with pytest.raises(ValueError):
-        Configuration(pallas_tile_cap=6)    # shared validation runs first
-
-
 @pytest.mark.parametrize("kw", [dict(backend="mxu"),
                                 dict(sampler="stratified"),
                                 dict(regroup=False),
-                                dict(mesh_shape=(1,))])
+                                dict(mesh_shape=(1,)),
+                                dict(precision="default"),
+                                dict(whitted_bounce_scan=1024,
+                                     hybrid_tracing=False)])
 def test_ported_configuration_renders(kw):
     """Values the port once refused: each builds a context on the CPU and
-    renders a finite, lit 64x64 frame with nothing dropped."""
+    renders a finite, lit 64x64 frame with nothing dropped. The scanned
+    dense bounce runs on the pooled Whitted loop (4096 lanes, bounces on
+    the dense engine in slices of 1024)."""
     sd = loader.make_test_scene(viewport=(64, 64), max_depth=2)
     ctx = racc.create_context(
         Configuration(wave_size=1024, trace_block=512, min_stage_width=1024,
                       **kw), device="cpu")
     cam = racc.Camera.look_at(sd.cam_origin, sd.cam_dir, sd.cam_up,
                               sd.cam_fov, 64, 64)
-    r = racc.PathTracingRenderer(ctx, cam, sd)
+    cls = (racc.WhittedRenderer if "whitted_bounce_scan" in kw
+           else racc.PathTracingRenderer)
+    r = cls(ctx, cam, sd)
     stats = r.render_frame(rng.PRNGKey(1))
     img = r.image()
     assert r.dropped == 0 and int(stats.rays_traced) >= 64 * 64

@@ -73,7 +73,8 @@ def test_environment_lookup():
     d = _unit(rs, 4096)
     d[:4] = [[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, 0, -1]]   # singular axes
     ref = sample_environment_onehot(jax_env(px, 64, 32), jnp.asarray(d))
-    got = sample_environment(create_environment(px, 64, 32), _t(d))
+    got = sample_environment(create_environment(px, 64, 32, device="cpu"),
+                             _t(d))
     # Probe values up to 2: the bilinear weights' few-ulp differences
     # scale with the texels.
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,

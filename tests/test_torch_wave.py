@@ -50,7 +50,8 @@ def _cams(sd):
 def _port_wave(sd, cs, perm, x, y, seed, **kw):
     px = sd.env_pixels
     return pathtracer.pt_trace_wave(
-        cs, create_environment(px, px.shape[1], px.shape[0]), _cams(sd)[1],
+        cs, create_environment(px, px.shape[1], px.shape[0], device="cpu"),
+        _cams(sd)[1],
         torch.tensor(x), torch.tensor(y), torch.tensor(perm >= 0),
         rng.PRNGKey(seed), DEPTH, backend="pallas", tile=TILE,
         bounce_backend="sparse", **kw)
@@ -134,7 +135,7 @@ def test_wave_regroup_bitwise(wave_inputs, bounce_backend):
     out = {}
     for rg in (False, True):
         out[rg] = pathtracer.pt_trace_wave(
-            cs, create_environment(px, px.shape[1], px.shape[0]),
+            cs, create_environment(px, px.shape[1], px.shape[0], device="cpu"),
             _cams(sd)[1], torch.tensor(x), torch.tensor(y),
             torch.tensor(perm >= 0), rng.PRNGKey(4), DEPTH,
             backend="pallas" if bounce_backend == "sparse" else bounce_backend,
@@ -182,7 +183,7 @@ def test_per_wave_renderer_is_the_wave_function(wave_inputs):
     r.render_frame(rng.PRNGKey(2))
     W = r.n_waves
     px = sd.env_pixels
-    env = create_environment(px, px.shape[1], px.shape[0])
+    env = create_environment(px, px.shape[1], px.shape[0], device="cpu")
     xs, ys = (torch.tensor(v).reshape(W, -1) for v in (x, y))
     alive = torch.tensor(perm >= 0).reshape(W, -1)
     want = torch.stack([

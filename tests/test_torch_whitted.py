@@ -56,7 +56,7 @@ def _jax_cam(sd):
 
 def _port_env(sd):
     px = sd.env_pixels
-    return create_environment(px, px.shape[1], px.shape[0])
+    return create_environment(px, px.shape[1], px.shape[0], device="cpu")
 
 
 def _port_cam(sd):
@@ -185,6 +185,57 @@ def test_whitted_frame_matches_jax(frame_inputs):
                                        min_stage_width=1024)
     assert int(dropped) == int(dropped_ref) == 0
     assert abs(int(traced) - int(traced_ref)) <= 0.005 * int(traced_ref)
+    valid = perm >= 0
+    img = rad.reshape(-1, 3).numpy()[valid]
+    rmse_trimmed, frac_flip = two_class_gate(
+        img, np.asarray(ref).reshape(-1, 3)[valid])
+    assert rmse_trimmed < 1e-3 and frac_flip < 0.005, (rmse_trimmed,
+                                                       frac_flip)
+    assert np.isfinite(img).all() and img.max() > 0
+
+
+@pytest.mark.parametrize("bounce_backend", ["pallas", "mxu"])
+def test_scanned_dense_bounce_matches_unscanned(frame_inputs, monkeypatch,
+                                                bounce_backend):
+    """``bounce_scan=1024`` traces the 4096-lane pool's dense bounces in
+    four slices, a pure re-batching: radiance within 2 ulp of the
+    unscanned frame (the JAX package's bar, ``tests/test_render.py:
+    477-481``) and ``dropped`` equal."""
+    from rayaccel_tpu_torch.render import whitted
+    sd, _, cs, _, xya = frame_inputs
+    trace = whitted._trace_and_surface
+    out, widths = {}, {}
+    for scan in (None, 1024):
+        widths[scan] = set()
+
+        def spy(scene, rays, *a, seen=widths[scan], **kw):
+            seen.add(rays.o.shape[0])
+            return trace(scene, rays, *a, **kw)
+        monkeypatch.setattr(whitted, "_trace_and_surface", spy)
+        out[scan] = _port_frame(sd, cs, xya, 8, 4, stack_size=5,
+                                bounce_backend=bounce_backend,
+                                min_stage_width=1 << 30, bounce_scan=scan)
+    assert widths[None] == {WAVE, SIZE * SIZE} and widths[1024] == {WAVE}
+    ulp = np.abs(out[1024][0].numpy().view(np.int32).astype(np.int64)
+                 - out[None][0].numpy().view(np.int32).astype(np.int64))
+    assert ulp.max() <= 2
+    assert int(out[1024][2]) == int(out[None][2])
+
+
+def test_scanned_dense_bounce_matches_jax(frame_inputs):
+    """The scanned dense bounce on the ``mxu`` engine against the JAX
+    frame with the same knobs and key, through the two-class gate."""
+    sd, jcs, cs, perm, xya = frame_inputs
+    px = sd.env_pixels
+    ref, _, dropped_ref = jax_frame(
+        jcs, jax_env(px, px.shape[1], px.shape[0]), _jax_cam(sd).as_arrays(),
+        *(jnp.asarray(v) for v in xya), jax.random.PRNGKey(8), 4,
+        stack_size=5, backend="mxu", tile=TILE, bounce_backend="mxu",
+        min_stage_width=1 << 30, bounce_scan=1024)
+    rad, _, dropped = _port_frame(sd, cs, xya, 8, 4, stack_size=5,
+                                  backend="mxu", bounce_backend="mxu",
+                                  min_stage_width=1 << 30, bounce_scan=1024)
+    assert int(dropped) == int(dropped_ref) == 0
     valid = perm >= 0
     img = rad.reshape(-1, 3).numpy()[valid]
     rmse_trimmed, frac_flip = two_class_gate(

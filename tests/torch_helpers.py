@@ -20,13 +20,14 @@ CLUSTER_FIELDS = ("G", "attrs", "tri_id", "cl_bbmin", "cl_bbmax",
 def port_scene(jax_cluster_scene):
     """The port's ClusterScene holding the JAX scene's arrays."""
     return cluster_scene_from_numpy(
-        *(np.asarray(getattr(jax_cluster_scene, f)) for f in CLUSTER_FIELDS))
+        *(np.asarray(getattr(jax_cluster_scene, f)) for f in CLUSTER_FIELDS),
+        device="cpu")
 
 
 def port_tpu_scene(jax_tpu_scene):
     """The port's TpuScene holding the JAX scene's arrays."""
     return tpu_scene_from_numpy(
-        *(np.asarray(a) for a in jax_tpu_scene))
+        *(np.asarray(a) for a in jax_tpu_scene), device="cpu")
 
 
 def port_rays(rays):
