@@ -37,8 +37,13 @@ is missing. Phases, one JSON line each:
    version. Then the bf16 tensor-core variants of K1, K3 and K4
    (``precision="default"``) on the same inputs, each against its plain
    version at "default" (K1 and K3 at the oracle bar, K4's flags on >=
-   99.95% of rays), their bound over the bf16 tensor peak, and their
-   agreement with the fp32 kernel as information (``vs_fp32``);
+   99.95% of rays; K1's and K4's plain versions walk in the variants'
+   group of ``BF16_WARP_RAYS``), their bound over the bf16 tensor peak,
+   and their agreement with the fp32 kernel as information
+   (``vs_fp32``); K1's and K4's lines add ``staged_bytes``, the bytes of
+   the scene's bf16 fragment copy of the distinct queued clusters, which
+   those variants stage in place of G3's rows (``bytes`` still counts
+   G3's);
 4. slice: ``PathTracingRenderer`` at 1280x720, depth 2, the default
    configuration: one warm-up frame and three timed frames, with every
    kernel's launch count over the timed frames (each must be > 0),
@@ -127,7 +132,11 @@ is missing. Phases, one JSON line each:
     K1 must launch in the bounce loop and K2 and K3 not at all, the
     radiance must be within 2 ulp of the unscanned frame's and
     ``dropped`` (the dense queue's clamped clusters, expected non-zero)
-    equal in the two.
+    equal in the two;
+24. slice ``whitted_shadow_default``: ``whitted_shadow`` (BASELINE config
+    1) with ``Configuration(precision="default")``: the bf16 variants of
+    K1 and K4 must launch and the fp32 forms must not, ``dropped`` 0, with
+    its profiled frame and launch frame.
 
 Each slice sets every launch count to 0 just before its timed frames and
 reads them just after. After them, each slice renders two more frames:
@@ -226,8 +235,9 @@ def queued(q_cluster, q_count):
 
 
 def cluster_bytes(G3, clusters):
-    """Bytes of the G3 rows of the distinct clusters named."""
-    return clusters.unique().numel() * G3.shape[1] * G3.shape[2] * 4
+    """Bytes of the G3 rows (or of another per-cluster layout, such as its
+    bf16 fragment copy) of the distinct clusters named."""
+    return clusters.unique().numel() * G3[0].numel() * G3.element_size()
 
 
 def k1_pairs_needed(F, q_cluster, q_entry, q_count, best, tile):
@@ -523,8 +533,10 @@ def main() -> int:
     # follow the four fp32 ones in the kernel table.
     bf16_rows = []
     default = dict(precision="default")
-    out_b = dense.dense_closest_hit(*args, **default)
-    out_bp = dense.dense_closest_hit_plain(*args, **default)
+    dense_default = dict(default, G3b=cs.G3b)
+    plain_default = dict(default, group=dense.BF16_WARP_RAYS)
+    out_b = dense.dense_closest_hit(*args, **dense_default)
+    out_bp = dense.dense_closest_hit_plain(*args, **plain_default)
     torch.cuda.synchronize()
     hb, tb = winner_t(out_b[1])
     hbp, tbp = winner_t(out_bp[1])
@@ -534,15 +546,16 @@ def main() -> int:
                               cs.n_clusters, "default")
     s1b.update(words_differing=int((out_b != out_bp).sum()),
                ctas=R // dense.CTA_RAYS,
+               staged_bytes=cluster_bytes(cs.G3b, q[0][queued(q[0], q[2])]),
                pairs_needed=flop // (cs.cluster_size * FLOP_PER_TRIANGLE),
                pairs_walked=counted(dense.dense_closest_hit, args, "walked",
-                                    1, **default)[0],
+                                    1, **dense_default)[0],
                vs_fp32={k: vs[k] for k in ("hit_agree", "winner_agree",
                                            "t_within_1e3")},
-               ms=cuda_ms(lambda: dense.dense_closest_hit(*args, **default),
-                          20),
+               ms=cuda_ms(lambda: dense.dense_closest_hit(
+                   *args, **dense_default), 20),
                plain_ms=cuda_ms(lambda: dense.dense_closest_hit_plain(
-                   *args, **default), 3))
+                   *args, **plain_default), 3))
     s1b.update(roofline(flop, moved, s1b["ms"], PEAK_BF16_TENSOR_FLOPS))
     emit(dict(phase="kernel", name="K1 dense_closest_hit bf16", rays=R,
               tiles=T, **s1b))
@@ -787,8 +800,8 @@ def main() -> int:
                         max_abs_err=float(s4["flags_differing"] > 0),
                         **kernel_row(s4)))
 
-    occ_b = dense.dense_occluded(*a4, **default)
-    occ_bp = dense.dense_occluded_plain(*a4, **default)
+    occ_b = dense.dense_occluded(*a4, **dense_default)
+    occ_bp = dense.dense_occluded_plain(*a4, **plain_default)
     torch.cuda.synchronize()
     flop, moved = kernel_work(dense, "dense_occluded", a4, occ_b,
                               cs.n_clusters, "default")
@@ -797,14 +810,16 @@ def main() -> int:
                flag_agree=float((occ_b == occ_bp).float().mean()),
                flags_differing=int((occ_b != occ_bp).sum()),
                ctas=R // dense.CTA_RAYS,
+               staged_bytes=cluster_bytes(cs.G3b, q4c[queued(q4c, q4n)]),
                pairs_needed=flop // (cs.cluster_size * FLOP_PER_TRIANGLE),
                pairs_walked=counted(dense.dense_occluded, a4, "walked", 1,
-                                    **default)[0],
+                                    **dense_default)[0],
                vs_fp32=dict(flag_agree=float((occ_b == occ_k).float()
                                              .mean())),
-               ms=cuda_ms(lambda: dense.dense_occluded(*a4, **default), 20),
+               ms=cuda_ms(lambda: dense.dense_occluded(*a4, **dense_default),
+                          20),
                plain_ms=cuda_ms(lambda: dense.dense_occluded_plain(
-                   *a4, **default), 3))
+                   *a4, **plain_default), 3))
     s4b.update(roofline(flop, moved, s4b["ms"], PEAK_BF16_TENSOR_FLOPS))
     emit(dict(phase="kernel", name="K4 dense_occluded bf16", rays=R, tiles=T,
               **s4b))
@@ -817,7 +832,7 @@ def main() -> int:
                           max_abs_err=float(s4b["flags_differing"] > 0),
                           **kernel_row(s4b)))
 
-    del surf, F4, a4, occ_k, occ_p, occ_b, occ_bp
+    del surf, F4, a4, q4c, q4e, q4n, occ_k, occ_p, occ_b, occ_bp
     if sys.argv[1:] == ["--kernels"]:
         emit(dict(kernels_ok=True, kernels=kernels + bf16_rows))
         return 0
@@ -1549,6 +1564,15 @@ def main() -> int:
             and line["radiance_finite"] and line["radiance_max"] > 0):
         raise AssertionError(f"whitted_scan failed: {line}")
     del runs, a, b
+
+    # ---- 24. Whitted primary + shadow rays at precision "default" ----
+    drive("whitted_shadow_default",
+          renderer_on(racc.WhittedRenderer, scene_at(*full, 1), cfg_default,
+                      shadows=True, primary_only=True)(dev),
+          [rng.PRNGKey(101 + i) for i in range(3)],
+          ["dense_closest_hit_bf16", "dense_occluded_bf16"])
+    require_no_fp32("whitted_shadow_default",
+                    slices["whitted_shadow_default"][0])
 
     # Launches of each kernel over the timed frames of the deep slices and
     # per frame; its device ms in each slice's profiled frame; and, from

@@ -27,16 +27,23 @@
 // both its rays are occluded, and the threads of a pair of rays merge
 // their flags after it.
 //
-// The bf16 variant (precision "default") takes the products from the
-// tensor cores as K1's does (common.cuh:mma_pairs, csrc/dense_hit.cu): a
-// lane tests one (ray, triangle) pair a product, and the warp leaves a
-// cluster once a ballot shows each of its 8 rays occluded or inactive.
+// The bf16 variant (precision "default") is K1's bf16 design
+// (csrc/dense_hit.cu, common.cuh:mma_rays): a warp's 16 rays as the A
+// fragment, the scene's bf16 fragment copy as B, whole pairs a lane; its
+// column loop takes kOcclGroups groups at a time with no branch, and the
+// warp leaves a cluster once a ballot, taken between two such steps, shows
+// each of its rays occluded or inactive.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 namespace racc {
 namespace {
+
+// Groups of 4 triangles the bf16 variant's column loop takes at once (32
+// products at kFrags = 1), between two checks of the warp's early exit.
+// Chosen on the card (PERF.md).
+constexpr int kOcclGroups = 16;
 
 __global__ void __launch_bounds__(kCtaThreads)
 dense_occl_kernel(const float* __restrict__ F, const float* __restrict__ G3,
@@ -88,11 +95,12 @@ dense_occl_kernel(const float* __restrict__ F, const float* __restrict__ G3,
   }
 }
 
-// The bf16 variant: K4's walk, each lane testing one (ray, triangle) pair
-// of a tensor-core product (common.cuh:mma_pairs).
-__global__ void __launch_bounds__(kCtaThreads)
+// The bf16 variant: K4's walk on the scene's bf16 fragment copy, a warp's
+// rays as the A operand (common.cuh:mma_rays, as K1's bf16 variant), each
+// lane testing whole (ray, triangle) pairs.
+__global__ void __launch_bounds__(kFragWarps * 32)
 dense_occl_bf16_kernel(const float* __restrict__ F,
-                       const float* __restrict__ G3,
+                       const float4* __restrict__ G3b,
                        const int* __restrict__ q_cluster,
                        const int* __restrict__ q_entry,
                        const int* __restrict__ q_count,
@@ -100,78 +108,124 @@ dense_occl_bf16_kernel(const float* __restrict__ F,
                        unsigned long long* __restrict__ walked, int tile,
                        int cap, int C) {
   extern __shared__ __align__(128) float4 ring[];
-  __shared__ int red[2 * kWarps];
-  const int lane = threadIdx.x & 31;
-  const int base = blockIdx.x * kCtaRays + (threadIdx.x >> 5) * kWarpRays;
-  const int r = base + mma_ray();
+  __shared__ int red[2 * kFragWarps];
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int base = blockIdx.x * kCtaRays + (threadIdx.x >> 5) * kFragRays;
   const int tl = blockIdx.x * kCtaRays / tile;
 
-  unsigned b[2];
-  ray_fragment(F + static_cast<size_t>(base + (lane >> 2)) * kFeat, b);
-  const float tmin = F[static_cast<size_t>(r) * kFeat + 10];
-  const float tmax = F[static_cast<size_t>(r) * kFeat + 11];
-  // Inactive rays (tmax_eff -1) are never occluded and need no test.
-  const bool idle = __float_as_int(tmax) < 0;
-  bool occ = false;
+  unsigned a[kFrags][4];
+#pragma unroll
+  for (int f = 0; f < kFrags; ++f) ray_rows_fragment(F, base + 16 * f, a[f]);
+  float tmin[kLaneRays], tmax[kLaneRays];
+  bool idle[kLaneRays], occ[kLaneRays];
+#pragma unroll
+  for (int i = 0; i < kLaneRays; ++i) {
+    const size_t r = frag_ray(base, i);
+    tmin[i] = F[r * kFeat + 10];
+    tmax[i] = F[r * kFeat + 11];
+    // Inactive rays (tmax_eff -1) are never occluded and need no test.
+    idle[i] = __float_as_int(tmax[i]) < 0;
+    occ[i] = false;
+  }
   auto warp_bound = [&]() {
-    return warp_max(occ ? kSignBit : __float_as_int(tmax));
+    int b = kSignBit;
+#pragma unroll
+    for (int i = 0; i < kLaneRays; ++i)
+      b = max(b, occ[i] ? kSignBit : __float_as_int(tmax[i]));
+    return warp_max(b);
   };
-  // Lanes l, l ^ 8, l ^ 16, l ^ 24 share a ray: bit (l & 7) of the fold
-  // is set when one of them is done.
+  // Lanes 4g .. 4g + 3 share their rays: bit 4g of a ray slot's fold is
+  // set when one of them has the slot's ray done.
   auto all_done = [&]() {
-    unsigned v = __ballot_sync(0xffffffffu, occ || idle);
-    v |= v >> 16;
-    v |= v >> 8;
-    return (v & 0xFFu) == 0xFFu;
-  };
-
-  auto test = [&](const float4* g, int) {
-    for (int c0 = 0; c0 < C && !all_done(); c0 += 4) {
-      float det, u, v, tn, ad, ts;
-      bool inside;
-      mma_pairs(g, c0, C, b, det, u, v, tn);
-      decode1(det, u, v, tn, inside, ad, ts);
-      occ = occ || (c0 + (lane >> 3) < C && inside && ts > ad * tmin &&
-                    ts <= ad * tmax);
+    unsigned v = 0xffffffffu;
+#pragma unroll
+    for (int i = 0; i < kLaneRays; ++i) {
+      unsigned b = __ballot_sync(0xffffffffu, occ[i] || idle[i]);
+      b |= b >> 1;
+      v &= b | (b >> 2);
     }
-    occ = __shfl_xor_sync(0xffffffffu, occ, 8) || occ;
-    occ = __shfl_xor_sync(0xffffffffu, occ, 16) || occ;
+    return (v & 0x11111111u) == 0x11111111u;
+  };
+  auto test = [&](const float4* stage, int) {
+    const uint4* g = reinterpret_cast<const uint4*>(stage);
+    const int groups = (C + 3) / 4;
+    // kOcclGroups groups at a time, the last one repeated past the
+    // cluster's end; a column past C is dropped. The warp leaves the
+    // cluster once each of its rays is occluded or inactive, checked once
+    // a step.
+    for (int q0 = 0; q0 < groups && !all_done(); q0 += kOcclGroups) {
+      float p[kOcclGroups][kLaneRays][4];
+#pragma unroll
+      for (int u = 0; u < kOcclGroups; ++u)
+        mma_rays(g, min(q0 + u, groups - 1), a, p[u]);
+#pragma unroll
+      for (int u = 0; u < kOcclGroups; ++u) {
+        const bool live = 4 * min(q0 + u, groups - 1) + t < C;
+#pragma unroll
+        for (int i = 0; i < kLaneRays; ++i) {
+          float ad, ts;
+          bool inside;
+          decode_rays(p[u][i], inside, ad, ts);
+          occ[i] |= live & inside & (ts > ad * tmin[i]) & (ts <= ad * tmax[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kLaneRays; ++i) {
+      occ[i] = __shfl_xor_sync(0xffffffffu, occ[i], 1) || occ[i];
+      occ[i] = __shfl_xor_sync(0xffffffffu, occ[i], 2) || occ[i];
+    }
     return warp_bound();
   };
-  const long long tested = walk_queue(
-      G3, q_cluster + static_cast<size_t>(tl) * cap,
+  const long long tested = walk_frags(
+      G3b, q_cluster + static_cast<size_t>(tl) * cap,
       q_entry + static_cast<size_t>(tl) * cap, q_count[tl], C, warp_bound(),
       ring, red, test);
   if (walked != nullptr && lane == 0)
     atomicAdd(walked, static_cast<unsigned long long>(tested));
-  if (lane < 8) out[r] = occ ? 1 : 0;
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < kLaneRays; ++i) out[frag_ray(base, i)] = occ[i] ? 1 : 0;
+  }
 }
 
 }  // namespace
 }  // namespace racc
 
 // F (T*tile, 16) rows [d, o, d x o, 1, tmin, tmax_eff, 0...]; G3 (n_c, 4C,
-// 16); q_cluster / q_entry (T, cap) int32; q_count (T,) int32; out (R,)
-// one byte per ray, 1 = occluded; walked (nullable) gains the (ray,
-// cluster) pairs tested. The tile is a multiple of kCtaRays. bf16 != 0
-// launches the bf16 tensor-core variant.
+// 16); G3b (nullable) G3's bf16 fragment copy; q_cluster / q_entry (T,
+// cap) int32; q_count (T,) int32; out (R,) one byte per ray, 1 =
+// occluded; walked (nullable) gains the (ray, cluster) pairs tested. The
+// tile is a multiple of kCtaRays. With G3b the bf16 tensor-core variant
+// runs on it.
 extern "C" int racc_dense_occluded(const float* F, const float* G3,
-                                   const int* q_cluster, const int* q_entry,
-                                   const int* q_count, unsigned char* out,
+                                   const void* G3b, const int* q_cluster,
+                                   const int* q_entry, const int* q_count,
+                                   unsigned char* out,
                                    unsigned long long* walked, int T,
-                                   int tile, int cap, int C, int bf16,
-                                   void* stream) {
+                                   int tile, int cap, int C, void* stream) {
   using namespace racc;
   if (!dense_launch_ok(T, tile, C))
     return static_cast<int>(cudaErrorInvalidValue);
   if (T == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = T * (tile / kCtaRays);
+  if (G3b != nullptr) {
+    const int smem = frag_ring_bytes(C);
+    cudaError_t e = cudaFuncSetAttribute(
+        dense_occl_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dense_occl_bf16_kernel<<<blocks, kFragWarps * 32, smem, s>>>(
+        F, static_cast<const float4*>(G3b), q_cluster, q_entry, q_count, out,
+        walked, tile, cap, C);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int smem = ring_bytes(C);
-  auto kernel = bf16 ? dense_occl_bf16_kernel : dense_occl_kernel;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      dense_occl_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<T * (tile / kCtaRays), kCtaThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
+  dense_occl_kernel<<<blocks, kCtaThreads, smem, s>>>(
       F, G3, q_cluster, q_entry, q_count, out, walked, tile, cap, C);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,10 +19,10 @@ the Pallas kernel's tile-wide bound: each kernel splits a tile across
 CTAs of ``CTA_RAYS`` rays, and each warp (``WARP_RAYS`` rays) skips a
 queued cluster whose entry distance passes every best hit (K1) or every
 unoccluded tmax (K4) of its rays. A cluster is skipped only where it
-cannot change an answer, so the group size does not change the output;
-the plain versions take it as ``group`` so that the card compares like
-with like and the tests can show that. One decided difference:
-``trace_occlusion_pallas`` discards the queue's overflow count
+cannot change an answer, so the group size does not change the output
+of the fp32 product; the plain versions take it as ``group`` so that the
+card compares like with like and the tests can show that. One decided
+difference: ``trace_occlusion_pallas`` discards the queue's overflow count
 (``:394``), so a shadow ray whose blocker sits in a clamped-away cluster
 is reported lit and nothing counts it; :func:`trace_occlusion_dense`
 returns the count.
@@ -30,12 +30,18 @@ returns the count.
 ``precision`` is the JAX package's: "highest" multiplies in fp32,
 "default" rounds the features (F's columns 0-9, all of G3) to bf16 and
 multiplies with one bf16 pass (the TPU's ``Precision.DEFAULT``); on a card
-the bf16 variants of K1 and K4 run it on the tensor cores. The decode,
-and F's tmin and tmax_eff columns, stay fp32 in both.
+the bf16 variants of K1 and K4 run it on the tensor cores, reading the
+scene's bf16 copy of G3 in fragment order (``ClusterScene.G3b``). The
+decode, and F's tmin and tmax_eff columns, stay fp32 in both. The bf16
+variants' warps hold ``BF16_WARP_RAYS`` rays, and their walk is not
+group-invariant: a bf16 t can fall just below a box entry computed in
+fp32, so the group can change a winner, and the plain versions walk in
+the kernel's group at each precision.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -61,6 +67,9 @@ _INT_MIN = -0x80000000
 # decides when the CTA stops staging clusters.
 CTA_RAYS = 64
 WARP_RAYS = 8
+# The bf16 variants' warp (common.cuh: kFragRays), chosen on the card: 16
+# rays, one tensor-core A fragment; a CTA takes CTA_RAYS rays as well.
+BF16_WARP_RAYS = 16
 
 
 def use_bf16(precision: str) -> bool:
@@ -83,6 +92,15 @@ def check_tile(tile: int) -> None:
     if tile < CTA_RAYS or tile % CTA_RAYS:
         raise ValueError(f"the dense kernels take a tile that is a positive "
                          f"multiple of {CTA_RAYS} rays, got {tile}")
+
+
+def walk_group(tile: int, precision: str = "highest") -> int:
+    """The plain versions' default early-out group: the kernel's warp at
+    ``precision`` (``WARP_RAYS``, or ``BF16_WARP_RAYS`` for the bf16
+    variants), or on a tile it does not divide the largest group that
+    does."""
+    return math.gcd(tile, BF16_WARP_RAYS if use_bf16(precision)
+                    else WARP_RAYS)
 
 
 def _walk_groups(q_cluster, q_entry, q_count, tile: int, group: int):
@@ -159,32 +177,42 @@ def _candidates(Ft, G3, cluster, precision: str = "highest"):
     return sign_ok & (torch.abs(u + v) <= ad), ad, ts
 
 
-def _dense_launch(fn, name, out, F, G3, q_cluster, q_entry, q_count,
-                  tile: int, walked, bf16: bool):
+def _dense_launch(fn, name, out, F, G3, G3b, q_cluster, q_entry, q_count,
+                  tile: int, walked, precision: str):
     """Validate the arguments of a dense kernel and launch it: R / CTA_RAYS
-    CTAs, the bf16 variant with ``bf16``. ``walked`` (optional, a (1,)
-    int64 CUDA tensor) gains the (ray, cluster) pairs the kernel's warps
-    tested."""
+    CTAs, at ``precision="default"`` the bf16 variant on ``G3b``, G3's
+    fragment copy. ``walked`` (optional, a (1,) int64 CUDA tensor) gains
+    the (ray, cluster) pairs the kernel's warps tested."""
     T, cap = q_cluster.shape
     R = T * tile
     check_tile(tile)
     _kernels.require(F, "F", torch.float32, (R, 16))
     _kernels.require(G3, "G3", torch.float32)
+    n_c, C = G3.shape[0], G3.shape[1] // 4
+    if use_bf16(precision):
+        if G3b is None:
+            raise ValueError("precision='default' on a card takes G3b, the "
+                             "scene's bf16 fragment copy (ClusterScene.G3b)")
+        _kernels.require(G3b, "G3b", torch.int32, (n_c, -(-C // 4), 32, 4))
+    else:
+        G3b = None
     _kernels.require(q_cluster, "q_cluster", torch.int32)
     _kernels.require(q_entry, "q_entry", torch.int32, (T, cap))
     _kernels.require(q_count, "q_count", torch.int32, (T,))
     if walked is not None:
         _kernels.require(walked, "walked", torch.int64, (1,))
     _kernels.check(fn(
-        _kernels.ptr(F), _kernels.ptr(G3), _kernels.ptr(q_cluster),
+        _kernels.ptr(F), _kernels.ptr(G3),
+        None if G3b is None else _kernels.ptr(G3b), _kernels.ptr(q_cluster),
         _kernels.ptr(q_entry), _kernels.ptr(q_count), _kernels.ptr(out),
-        None if walked is None else _kernels.ptr(walked), T, tile, cap,
-        G3.shape[1] // 4, int(bf16), _kernels.stream()), name)
+        None if walked is None else _kernels.ptr(walked), T, tile, cap, C,
+        _kernels.stream()), name)
 
 
 def dense_closest_hit(F, G3, q_cluster, q_entry, q_count, tile: int,
                       k_step: int = K_PER_STEP, *, walked=None,
-                      precision: str = "highest") -> torch.Tensor:
+                      precision: str = "highest",
+                      G3b=None) -> torch.Tensor:
     """K1: packed closest hit of each ray over its tile's cluster queue.
 
     F (T*tile, 16) ray rows [d, o, d x o, 1, tmin, tmax_eff, 0...]
@@ -197,8 +225,10 @@ def dense_closest_hit(F, G3, q_cluster, q_entry, q_count, tile: int,
 
     On a CUDA tensor this launches ``csrc/dense_hit.cu`` (R / CTA_RAYS
     CTAs, known without a host sync; ``walked`` counts the pairs its warps
-    tested), its bf16 tensor-core variant at ``precision="default"``; on
-    a CPU tensor it runs :func:`dense_closest_hit_plain`.
+    tested), at ``precision="default"`` its bf16
+    tensor-core variant, which reads ``G3b`` (the scene's
+    ``ClusterScene.G3b``, required there); on a CPU tensor it runs
+    :func:`dense_closest_hit_plain`, which needs no ``G3b``.
     ``dense_closest_hit.launches_bf16`` counts the bf16 launches among
     ``dense_closest_hit.launches``."""
     bf16 = use_bf16(precision)
@@ -207,7 +237,8 @@ def dense_closest_hit(F, G3, q_cluster, q_entry, q_count, tile: int,
                                        tile, k_step, precision=precision)
     out = torch.empty((2, F.shape[0]), dtype=torch.int32, device=F.device)
     _dense_launch(_kernels.library().racc_dense_hit, "racc_dense_hit", out,
-                  F, G3, q_cluster, q_entry, q_count, tile, walked, bf16)
+                  F, G3, G3b, q_cluster, q_entry, q_count, tile, walked,
+                  precision)
     dense_closest_hit.launches += 1
     dense_closest_hit.launches_bf16 += bf16
     return out
@@ -222,11 +253,12 @@ def dense_closest_hit_plain(F, G3, q_cluster, q_entry, q_count, tile: int,
                             group: Optional[int] = None,
                             precision: str = "highest") -> torch.Tensor:
     """Plain torch version of K1: the same queue walk, cluster by cluster,
-    all groups of ``group`` rays in lockstep (default the kernel's warp). A
-    group tests a cluster unless its entry passes the largest best hit of
-    the group's rays (a signed compare: an all-inactive group holds
-    negative bits and tests nothing). ``k_step`` is ignored."""
-    group = group or WARP_RAYS
+    all groups of ``group`` rays in lockstep (default :func:`walk_group`,
+    the kernel's warp). A group tests a cluster unless its entry passes the
+    largest best hit of the group's rays (a signed compare: an
+    all-inactive group holds negative bits and tests nothing). ``k_step``
+    is ignored."""
+    group = group or walk_group(tile, precision)
     C = G3.shape[1] // 4
     Fm = F.reshape(-1, group, 16)
     gtile, entry, count = _walk_groups(q_cluster, q_entry, q_count, tile,
@@ -329,7 +361,7 @@ def trace_dense(cs: ClusterScene, rays: Rays, env=None, active=None,
     F, q_cluster, q_entry, q_count, overflow = _dense_inputs(
         cs, rays, active, tile, k_step, tile_cap)
     out = dense_closest_hit(F, cs.G3, q_cluster, q_entry, q_count, tile,
-                            k_step, precision=precision)
+                            k_step, precision=precision, G3b=cs.G3b)
     slot = out[1]
     hit = slot >= 0
     attr, tri, t, u, v = reconstruct(cs, rays, torch.where(hit, slot, 0))
@@ -341,7 +373,7 @@ def trace_dense(cs: ClusterScene, rays: Rays, env=None, active=None,
 
 def dense_occluded(F, G3, q_cluster, q_entry, q_count, tile: int,
                    k_step: int = K_PER_STEP, *, walked=None,
-                   precision: str = "highest") -> torch.Tensor:
+                   precision: str = "highest", G3b=None) -> torch.Tensor:
     """K4: any hit of each ray over its tile's cluster queue.
 
     Inputs as for :func:`dense_closest_hit` (rows 10/11 of F are tmin and
@@ -351,7 +383,7 @@ def dense_occluded(F, G3, q_cluster, q_entry, q_count, tile: int,
     bool.
 
     On a CUDA tensor this launches ``csrc/dense_occl.cu`` (the grid,
-    ``walked``, ``precision`` and the ignored ``k_step`` as for K1;
+    ``walked``, ``precision``, ``G3b`` and the ignored ``k_step`` as for K1;
     ``dense_occluded.launches_bf16`` counts the bf16 launches); on a CPU
     tensor it runs :func:`dense_occluded_plain`."""
     bf16 = use_bf16(precision)
@@ -360,8 +392,8 @@ def dense_occluded(F, G3, q_cluster, q_entry, q_count, tile: int,
                                     tile, k_step, precision=precision)
     out = torch.empty((F.shape[0],), dtype=torch.bool, device=F.device)
     _dense_launch(_kernels.library().racc_dense_occluded,
-                  "racc_dense_occluded", out, F, G3, q_cluster, q_entry,
-                  q_count, tile, walked, bf16)
+                  "racc_dense_occluded", out, F, G3, G3b, q_cluster, q_entry,
+                  q_count, tile, walked, precision)
     dense_occluded.launches += 1
     dense_occluded.launches_bf16 += bf16
     return out
@@ -376,12 +408,12 @@ def dense_occluded_plain(F, G3, q_cluster, q_entry, q_count, tile: int,
                          group: Optional[int] = None,
                          precision: str = "highest") -> torch.Tensor:
     """Plain torch version of K4: the same queue walk, cluster by cluster,
-    all groups of ``group`` rays in lockstep (default the kernel's warp). A
-    group tests a cluster unless its entry passes the largest tmax bits
-    among the group's unoccluded rays (occluded and inactive rays hold
-    negative bounds, so a group with none left tests nothing). ``k_step``
-    is ignored."""
-    group = group or WARP_RAYS
+    all groups of ``group`` rays in lockstep (default :func:`walk_group`,
+    the kernel's warp). A group tests a cluster unless its entry passes the
+    largest tmax bits among the group's unoccluded rays (occluded and
+    inactive rays hold negative bounds, so a group with none left tests
+    nothing). ``k_step`` is ignored."""
+    group = group or walk_group(tile, precision)
     Fm = F.reshape(-1, group, 16)
     gtile, entry, count = _walk_groups(q_cluster, q_entry, q_count, tile,
                                        group)
@@ -415,5 +447,5 @@ def trace_occlusion_dense(cs: ClusterScene, rays: Rays, active=None,
     F, q_cluster, q_entry, q_count, overflow = _dense_inputs(
         cs, rays, active, tile, k_step, tile_cap)
     occ = dense_occluded(F, cs.G3, q_cluster, q_entry, q_count, tile,
-                         k_step, precision=precision)
+                         k_step, precision=precision, G3b=cs.G3b)
     return occ, overflow

@@ -45,8 +45,8 @@ def _pack_pairs(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
 class ClusterScene(NamedTuple):
     """Device tensors of a compiled cluster scene: ``N_c`` clusters of ``C``
     padded triangles. The first six fields are the JAX package's
-    ``ClusterScene``; ``G3`` and ``bb`` are layouts of them that the
-    kernels read, derived once here instead of once per trace."""
+    ``ClusterScene``; ``G3``, ``bb`` and ``G3b`` are layouts of them that
+    the kernels read, derived once here instead of once per trace."""
 
     G: torch.Tensor           # (RAY_FEATURES, N_c*C*4) f32 intersection features
     attrs: torch.Tensor       # (N_c*C, ATTR_COLS) f32 attribute rows
@@ -57,6 +57,8 @@ class ClusterScene(NamedTuple):
     G3: torch.Tensor          # (N_c, 4C, 16) f32: cluster-major G
     bb: torch.Tensor          # (n_cp, 6) f32: [bbmin | bbmax], padded to a
                               # multiple of 128 clusters with SELECT_PAD
+    G3b: torch.Tensor         # (N_c, ceil(C/4), 32, 4) int32: G3 in bf16,
+                              # in mma fragment order (mma_fragments)
 
     @property
     def cluster_size(self) -> int:
@@ -227,6 +229,47 @@ def compile_clusters_np(scene: SceneData, cluster_size: int = 128,
                 mat_params=np.asarray(scene.materials, np.float32))
 
 
+def mma_fragment_index(C: int) -> torch.Tensor:
+    """The layout of :func:`mma_fragments` for clusters of C: a (ceil(C/4),
+    32, 8) int64 map from (group q, lane, bf16 half) to the element of a
+    cluster's (4C, 16) G3 block it holds (row * 16 + feature), -1 where it
+    holds zero (a feature past 9 or a triangle past C).
+
+    Group q holds triangles 4q .. 4q + 3 as the two B operands (16 features
+    x 8 columns) of ``mma.sync.m16n8k16`` in ``csrc/common.cuh:mma_rays``:
+    column n of product p is kind 2p + (n & 1) (det, u; v, t numerator) of
+    triangle 4q + (n >> 1). By the PTX fragment layout, lane 4g + t holds
+    column g of B: in its register r (of two) features 2t + 8r and
+    2t + 8r + 1, the lower one in the low half. A lane's 16 bytes are its
+    registers of product 0, then of product 1."""
+    q = torch.arange(-(-C // 4))[:, None, None]
+    lane = torch.arange(32)[None, :, None]
+    half = torch.arange(8)[None, None, :]
+    g, t = lane // 4, lane % 4
+    product, reg, low = half // 4, half // 2 % 2, half % 2
+    feature = 2 * t + 8 * reg + low
+    tri = 4 * q + g // 2
+    row = (2 * product + g % 2) * C + tri
+    return torch.where((feature < 10) & (tri < C), row * RAY_FEATURES + feature,
+                       -1)
+
+
+def mma_fragments(G3: torch.Tensor) -> torch.Tensor:
+    """G3 (N_c, 4C, 16) rounded to bf16 (nearest even, as ``.to(torch.
+    bfloat16)``) and laid out as the B fragments of the dense kernels'
+    bf16 variants (:func:`mma_fragment_index`): (N_c, ceil(C/4), 32, 4)
+    int32 words of two bf16 each, so each lane loads its two fragments of
+    a group of 4 triangles with one 16-byte load. 16 KB a cluster at
+    C = 128 (G3: 32 KB)."""
+    n_c, C4, _ = G3.shape
+    idx = mma_fragment_index(C4 // 4).to(G3.device).reshape(-1)
+    flat = torch.cat([G3.reshape(n_c, -1).to(torch.bfloat16),
+                      torch.zeros((n_c, 1), dtype=torch.bfloat16,
+                                  device=G3.device)], dim=1)
+    out = flat[:, torch.where(idx >= 0, idx, flat.shape[1] - 1)]
+    return out.view(torch.int32).reshape(n_c, -1, 32, 4)
+
+
 def cluster_scene_from_numpy(G, attrs, tri_id, cl_bbmin, cl_bbmax,
                              mat_params, device=None) -> ClusterScene:
     """Move compiled cluster arrays onto ``device`` (``device.py:
@@ -251,7 +294,7 @@ def cluster_scene_from_numpy(G, attrs, tri_id, cl_bbmin, cl_bbmax,
         G=G, attrs=f32(attrs),
         tri_id=torch.tensor(np.asarray(tri_id, np.int32), device=device),
         cl_bbmin=cl_bbmin, cl_bbmax=cl_bbmax, mat_params=f32(mat_params),
-        G3=G3, bb=bb)
+        G3=G3, bb=bb, G3b=mma_fragments(G3))
 
 
 def compile_clusters(scene: SceneData, cluster_size: int = 128,

@@ -553,7 +553,9 @@ def test_bf16_kernels_match_plain(cuda, scene_data, cluster_size):
     against the plain versions at "default" on the card, on clusters of 6
     (a last group of 4 triangles that runs past the cluster), 16 and 128:
     K1 and K3 at the oracle bar, K4's flags on >= 99.95% of rays. Each
-    launch counts as a bf16 launch; the fp32 forms do not run."""
+    launch counts as a bf16 launch; the fp32 forms do not run. K1 and K4
+    read the scene's fragment copy, and their plain versions walk in the
+    kernels' group."""
     cs = cluster_scene_from_numpy(
         **compile_clusters_np(scene_data, cluster_size=cluster_size),
         device=cuda)
@@ -561,8 +563,10 @@ def test_bf16_kernels_match_plain(cuda, scene_data, cluster_size):
     before = [(fn.launches, fn.launches_bf16) for fn in counted]
     rays, active = _primaries(scene_data, 128, cuda)
     a1 = _dense_case(cs, rays, active, 1024, False)
-    got = dense.dense_closest_hit(*a1, precision="default")
-    want = dense.dense_closest_hit_plain(*a1, precision="default")
+    default = dict(precision="default", G3b=cs.G3b)
+    plain = dict(precision="default", group=dense.BF16_WARP_RAYS)
+    got = dense.dense_closest_hit(*a1, **default)
+    want = dense.dense_closest_hit_plain(*a1, **plain)
     hit = want[1] >= 0
     assert hit.any() and ((got[1] >= 0) == hit).float().mean() >= 0.9995
     both = hit & (got[1] >= 0)
@@ -573,8 +577,8 @@ def test_bf16_kernels_match_plain(cuda, scene_data, cluster_size):
     surf = surface_from_attrs(attr, cs.mat_params, rays,
                               dense.make_hits(rays, hit, tri, t, u, v))
     a4 = _dense_case(cs, shadow_rays(surf), active & hit, 1024, False)
-    occ = dense.dense_occluded(*a4, precision="default")
-    occ_p = dense.dense_occluded_plain(*a4, precision="default")
+    occ = dense.dense_occluded(*a4, **default)
+    occ_p = dense.dense_occluded_plain(*a4, **plain)
     assert occ_p.any() and not occ_p.all()
     assert (occ == occ_p).float().mean() >= 0.9995
 
@@ -590,6 +594,87 @@ def test_bf16_kernels_match_plain(cuda, scene_data, cluster_size):
     after = [(fn.launches, fn.launches_bf16) for fn in counted]
     assert [(a - b, c - d) for (a, c), (b, d) in zip(after, before)] == \
         [(1, 1), (1, 1), (4, 4)]
+
+
+def _edge_case(cs, rays, active, tile):
+    """The dense inputs at ``tile`` with the walk's edges: the second warp
+    of the bf16 variants (``BF16_WARP_RAYS`` rays) inactive, tile 1's
+    queue row empty and tile 2's at ``tile_cap`` (its tail the farthest
+    cluster repeated)."""
+    w = dense.BF16_WARP_RAYS
+    active = active.clone()
+    active[w:2 * w] = False
+    a = list(_dense_case(cs, rays, active, tile, False))
+    a[4] = a[4].clone()
+    a[4][1] = 0
+    a[4][2] = dense.DEFAULT_TILE_CAP
+    return active, tuple(a)
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("cluster_size", [16, 100, 128])
+def test_bf16_dense_kernels_match_plain_at_the_walks_edges(
+        cuda, scene_data, cluster_size, tile):
+    """The tensor-core variants of K1 and K4 against their plain versions
+    at "default", walking in the kernels' group (``BF16_WARP_RAYS``), at
+    shapes the headline never reaches: clusters of 16, 100 (a last group of
+    4 triangles cut short) and 128; the smallest tile a CTA takes and twice
+    that; a whole inactive warp; an empty queue row and one at tile_cap;
+    rays with tmin > 0. Hits at the oracle bar (hit agreement and
+    t within 1e-3 relative on >= 99.95%), K4's flags on >= 99.95% of rays;
+    an inactive ray or one with an empty row never hits; the pairs walked
+    are whole warps. At "highest" the fp32 forms launch."""
+    cs = cluster_scene_from_numpy(
+        **compile_clusters_np(scene_data, cluster_size=cluster_size),
+        device=cuda)
+    rays, active = _primaries(scene_data, 64, cuda)
+    tmin = torch.where(torch.arange(64 * 64, device=cuda) % 3 == 0,
+                       torch.rand(64 * 64, generator=torch.Generator(
+                           device=cuda).manual_seed(3), device=cuda) * 30,
+                       rays.tmin)
+    rays = rays._replace(tmin=tmin)
+    active, a1 = _edge_case(cs, rays, active, tile)
+    empty = torch.zeros_like(active)
+    empty[tile:2 * tile] = True
+    default = dict(precision="default", G3b=cs.G3b)
+    plain = dict(precision="default", group=dense.BF16_WARP_RAYS)
+    with pytest.raises(ValueError, match="G3b"):
+        dense.dense_closest_hit(*a1, precision="default")
+
+    walked = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = dense.dense_closest_hit(*a1, walked=walked, **default)
+    want = dense.dense_closest_hit_plain(*a1, **plain)
+    hit, hit_k = want[1] >= 0, got[1] >= 0
+    assert hit.any() and ((tmin > 0) & active & hit).any()
+    assert (hit_k == hit).float().mean() >= 0.9995
+    low = (1 << 7) - 1
+    both = hit & hit_k
+    t_k, t_p = ((w[0] & ~low).view(torch.float32)[both] for w in (got, want))
+    assert (((t_k - t_p).abs() / t_p.clamp_min(1e-6)) < 1e-3).float().mean() \
+        >= 0.9995
+    assert not hit_k[~active | empty].any()
+    assert int(walked) > 0 and int(walked) % dense.BF16_WARP_RAYS == 0
+
+    attr, tri, t, u, v = dense.reconstruct(cs, rays,
+                                           torch.where(hit, want[1], 0))
+    surf = surface_from_attrs(attr, cs.mat_params, rays,
+                              dense.make_hits(rays, hit, tri, t, u, v))
+    s_active, a4 = _edge_case(cs, shadow_rays(surf), active & hit, tile)
+    occ = dense.dense_occluded(*a4, **default)
+    occ_p = dense.dense_occluded_plain(*a4, **plain)
+    assert occ_p.any() and not occ_p.all()
+    assert (occ == occ_p).float().mean() >= 0.9995
+    assert not occ[~s_active | empty].any()
+
+    launches = [(fn.launches, fn.launches_bf16)
+                for fn in (dense.dense_closest_hit, dense.dense_occluded)]
+    fp32 = dense.dense_closest_hit(*a1)
+    assert ((fp32[1] >= 0) == (dense.dense_closest_hit_plain(*a1)[1] >= 0)
+            ).float().mean() >= 0.9995
+    dense.dense_occluded(*a4)
+    assert [(fn.launches, fn.launches_bf16)
+            for fn in (dense.dense_closest_hit, dense.dense_occluded)] == \
+        [(n + 1, b) for n, b in launches]
 
 
 def test_scene_built_on_the_host_renders_on_the_card(cuda, scenes,

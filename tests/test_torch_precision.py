@@ -297,6 +297,42 @@ def test_k3_default_against_pallas(scenes, rays, guard):
     _oracle_agree(_hits(cs, prays, slots(got)), _hits(cs, prays, slots(want)))
 
 
+@pytest.mark.parametrize("C", [16, 100, 128])
+def test_bf16_fragment_copy_reads_back_as_rounded_G3(C):
+    """The scene's bf16 copy of G3 for the tensor-core variants of K1 and
+    K4 (``ClusterScene.G3b``), read back through the PTX ISA's fragment
+    layout of ``mma.sync.m16n8k16`` B (16 x 8, column-major: lane 4g + t
+    holds column g, rows 2t, 2t + 1 in its register 0 and 2t + 8, 2t + 9 in
+    register 1, the lower row in the low half), with product p's column n
+    kind 2p + (n & 1) of triangle 4q + (n >> 1) and a lane's four words its
+    registers of product 0, then of product 1, equals ``round_bf16(G3)``
+    bit for bit, each element once; triangles past C read as zeros."""
+    cs = port_scene(compile_clusters(make_test_scene(), cluster_size=C))
+    n_c, groups = cs.n_clusters, -(-C // 4)
+    words = cs.G3b.numpy().view(np.uint32)
+    assert words.shape == (n_c, groups, 32, 4)
+    back = np.zeros((n_c, 4 * C, 16), np.uint32)
+    seen = np.zeros((4 * C, 16), np.int64)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for word in range(4):
+            product, reg = divmod(word, 2)
+            for half in range(2):
+                k = 2 * t + 8 * reg + half
+                bits = (words[:, :, lane, word] >> (16 * half)) << 16
+                for q in range(groups):
+                    tri = 4 * q + g // 2
+                    if tri >= C:
+                        assert (bits[:, q] == 0).all()
+                        continue
+                    row = (2 * product + g % 2) * C + tri
+                    back[:, row, k] = bits[:, q]
+                    seen[row, k] += 1
+    assert (seen == 1).all()
+    want = dense.round_bf16(cs.G3).numpy().view(np.uint32)
+    np.testing.assert_array_equal(back, want)
+
+
 def _frame(cls, precision, **kw):
     sd = loader.make_test_scene(viewport=(32, 32), max_depth=3)
     cfg = racc.Configuration(wave_size=1024, trace_block=512,

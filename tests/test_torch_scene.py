@@ -14,13 +14,16 @@ import torch
 from rayaccel_tpu.environment import create_environment as jax_env
 from rayaccel_tpu.render.tiled import block_swizzle as jax_swizzle
 from rayaccel_tpu.scene import loader as jax_loader
+from rayaccel_tpu.scene.bvh import build_bvh as jax_build_bvh
 from rayaccel_tpu.scene.clusters import compile_clusters as jax_compile
+from rayaccel_tpu.scene.native import build as jax_native
 
 import rayaccel_tpu_torch as racc
 from rayaccel_tpu_torch import Configuration, rng
 from rayaccel_tpu_torch.environment import create_environment
 from rayaccel_tpu_torch.render.tiled import block_swizzle
 from rayaccel_tpu_torch.scene import loader
+from rayaccel_tpu_torch.scene.bvh import build_bvh
 from rayaccel_tpu_torch.scene.clusters import compile_clusters
 
 torch.set_num_threads(2)
@@ -50,11 +53,7 @@ def test_synthetic_scene_arrays_bitwise(scene_pair):
         (ref.max_depth, ref.viewport_width, ref.cam_fov)
 
 
-@pytest.mark.parametrize("cluster_size", [16, 128])
-def test_cluster_scene_bitwise(scene_pair, cluster_size):
-    ref_sd, port_sd = scene_pair
-    ref = jax_compile(ref_sd, cluster_size=cluster_size)
-    cs = compile_clusters(port_sd, cluster_size=cluster_size, device="cpu")
+def _same_cluster_scene(ref, cs):
     for name in ("G", "attrs", "tri_id", "cl_bbmin", "cl_bbmax",
                  "mat_params"):
         a = getattr(cs, name).numpy()
@@ -71,6 +70,44 @@ def test_cluster_scene_bitwise(scene_pair, cluster_size):
     np.testing.assert_array_equal(cs.bb[:n_c, :3].numpy(),
                                   np.asarray(ref.cl_bbmin))
     assert cs.bb.shape[0] % 128 == 0 and (cs.bb[n_c:] == 3e37).all()
+
+
+def _compare_cluster_scenes(ref_sd, port_sd, cluster_size):
+    """Both packages' cluster compiles, bit for bit, on the BVH of one
+    builder. Always on each package's NumPy golden build; on the default
+    (native) build too where this process has the JAX package's native
+    library loaded: where its build gave up (its compile shares one
+    temporary file between processes), its ``compile_clusters`` falls back
+    to the NumPy build, whose root box may hold +0.0 where the native one
+    holds -0.0, while the port always builds natively."""
+    max_leaf = min(cluster_size, 127)
+    ref = jax_compile(ref_sd, cluster_size=cluster_size, bvh=jax_build_bvh(
+        ref_sd.vertices, np.asarray(ref_sd.indices, np.int64),
+        max_leaf=max_leaf, use_native=False))
+    cs = compile_clusters(port_sd, cluster_size=cluster_size, bvh=build_bvh(
+        port_sd.vertices, np.asarray(port_sd.indices, np.int64),
+        max_leaf=max_leaf, use_native=False), device="cpu")
+    _same_cluster_scene(ref, cs)
+    if jax_native.get_library() is not None:
+        _same_cluster_scene(
+            jax_compile(ref_sd, cluster_size=cluster_size),
+            compile_clusters(port_sd, cluster_size=cluster_size,
+                             device="cpu"))
+
+
+@pytest.mark.parametrize("cluster_size", [16, 128])
+def test_cluster_scene_bitwise(scene_pair, cluster_size):
+    _compare_cluster_scenes(*scene_pair, cluster_size)
+
+
+def test_cluster_scene_bitwise_without_the_jax_native_builder(scene_pair,
+                                                              monkeypatch):
+    """The comparison holds in a worker where the JAX package's native
+    build gave up: its builder forced off, it compares the golden path."""
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_failed", True)
+    assert jax_native.get_library() is None
+    _compare_cluster_scenes(*scene_pair, 128)
 
 
 def test_environment_quad_table_bitwise(scene_pair):
