@@ -40,10 +40,11 @@ is missing. Phases, one JSON line each:
    99.95% of rays; K1's and K4's plain versions walk in the variants'
    group of ``BF16_WARP_RAYS``), their bound over the bf16 tensor peak,
    and their agreement with the fp32 kernel as information
-   (``vs_fp32``); K1's and K4's lines add ``staged_bytes``, the bytes of
-   the scene's bf16 fragment copy of the distinct queued clusters, which
-   those variants stage in place of G3's rows (``bytes`` still counts
-   G3's);
+   (``vs_fp32``); their lines add ``staged_bytes``, the bytes of the
+   scene's bf16 fragment copy of the distinct clusters queued (K1, K4) or
+   named by the items (K3), which the variants stage in place of G3's
+   rows (``bytes`` still counts G3's); K3's bf16 variant runs at the
+   narrow shape too, and takes as many work units as the fp32 form;
 4. slice: ``PathTracingRenderer`` at 1280x720, depth 2, the default
    configuration: one warm-up frame and three timed frames, with every
    kernel's launch count over the timed frames (each must be > 0),
@@ -533,9 +534,9 @@ def main() -> int:
     # follow the four fp32 ones in the kernel table.
     bf16_rows = []
     default = dict(precision="default")
-    dense_default = dict(default, G3b=cs.G3b)
+    kernel_default = dict(default, G3b=cs.G3b)
     plain_default = dict(default, group=dense.BF16_WARP_RAYS)
-    out_b = dense.dense_closest_hit(*args, **dense_default)
+    out_b = dense.dense_closest_hit(*args, **kernel_default)
     out_bp = dense.dense_closest_hit_plain(*args, **plain_default)
     torch.cuda.synchronize()
     hb, tb = winner_t(out_b[1])
@@ -549,11 +550,11 @@ def main() -> int:
                staged_bytes=cluster_bytes(cs.G3b, q[0][queued(q[0], q[2])]),
                pairs_needed=flop // (cs.cluster_size * FLOP_PER_TRIANGLE),
                pairs_walked=counted(dense.dense_closest_hit, args, "walked",
-                                    1, **dense_default)[0],
+                                    1, **kernel_default)[0],
                vs_fp32={k: vs[k] for k in ("hit_agree", "winner_agree",
                                            "t_within_1e3")},
                ms=cuda_ms(lambda: dense.dense_closest_hit(
-                   *args, **dense_default), 20),
+                   *args, **kernel_default), 20),
                plain_ms=cuda_ms(lambda: dense.dense_closest_hit_plain(
                    *args, **plain_default), 3))
     s1b.update(roofline(flop, moved, s1b["ms"], PEAK_BF16_TENSOR_FLOPS))
@@ -665,7 +666,7 @@ def main() -> int:
                         replaces="rayaccel_tpu/ops/trace_sparse.py:77",
                         max_abs_err=s3["max_abs_t"], **kernel_row(s3)))
 
-    pk_b = sparse.pair_hit(*a3, **default)
+    pk_b = sparse.pair_hit(*a3, **kernel_default)
     pp_b = sparse.pair_hit_plain(*a3, **default)
     torch.cuda.synchronize()
     s3b = hit_stats(*(x for pair in zip(per_ray(pk_b), per_ray(pp_b))
@@ -674,12 +675,13 @@ def main() -> int:
                      for x in pair))
     s3b.update(pairs=int(cl.numel()), items=int(items.shape[0]),
                words_differing=int((pk_b != pp_b).sum()),
+               staged_bytes=cluster_bytes(cs.G3b, items[:, 2]),
                **dict(zip(("units", "ctas", "clusters_staged"),
                           counted(sparse.pair_hit, a3, "stats", 3,
-                                  **default))),
+                                  **kernel_default))),
                vs_fp32={k: vs[k] for k in ("hit_agree", "winner_agree",
                                            "t_within_1e3")},
-               ms=cuda_ms(lambda: sparse.pair_hit(*a3, **default), 10),
+               ms=cuda_ms(lambda: sparse.pair_hit(*a3, **kernel_default), 10),
                plain_ms=cuda_ms(lambda: sparse.pair_hit_plain(*a3, **default),
                                 2))
     s3b.update(roofline(*kernel_work(dense, "pair_hit", a3, pk_b,
@@ -687,6 +689,9 @@ def main() -> int:
                         PEAK_BF16_TENSOR_FLOPS))
     emit(dict(phase="kernel", name="K3 pair_hit bf16", **s3b))
     require_oracle_bar("K3 bf16", s3b)
+    if s3b["units"] != s3["units"]:
+        raise AssertionError(f"K3 bf16 took {s3b['units']} work units, the "
+                             f"fp32 form {s3['units']}")
     bf16_rows.append(dict(name="pair_hit_bf16", route="cuda",
                           source="rayaccel_tpu_torch/csrc/pair_hit.cu",
                           replaces="rayaccel_tpu/ops/trace_sparse.py:77",
@@ -738,27 +743,40 @@ def main() -> int:
         raise AssertionError(f"K2's narrow shape has no dead lane or "
                              f"tested too few: {s2}")
 
+    # K3 and its bf16 variant at the narrow shape, each beside its row.
     a = narrow["pair_hit"][1]
-    pk = sparse.pair_hit(*a)
-    pp = sparse.pair_hit_plain(*a)
-    torch.cuda.synchronize()
     run_len = (a[2][:, 1] - a[2][:, 0]).float()
-    s3 = hit_stats(pk < 0x7F000000, pp < 0x7F000000, pk & low, pp & low,
-                   (pk & ~low).view(torch.float32),
-                   (pp & ~low).view(torch.float32))
-    s3.update(pairs=int(a[0].shape[0]), items=int(a[2].shape[0]),
-              mean_run=float(run_len.mean()), max_run=int(run_len.max()),
-              words_differing=int((pk != pp).sum()),
-              **dict(zip(("units", "ctas", "clusters_staged"),
-                         counted(sparse.pair_hit, a, "stats", 3))),
-              ms=cuda_ms(lambda: sparse.pair_hit(*a), 20),
-              plain_ms=cuda_ms(lambda: sparse.pair_hit_plain(*a), 2))
-    s3.update(roofline(*kernel_work(dense, "pair_hit", a, pk,
-                                    cs.n_clusters), s3["ms"]))
-    emit(dict(phase="kernel", name="K3 pair_hit narrow", **s3))
-    kernels[-1]["narrow"] = dict(pairs=s3["pairs"],
-                                 **{k: s3[k] for k in narrow_keys})
-    require_oracle_bar("K3 narrow", s3)
+    units = []
+    for name, row, kw, plain_kw, peak in (
+            ("K3 pair_hit narrow", kernels[-1], {}, {}, PEAK_FP32_FLOPS),
+            ("K3 pair_hit bf16 narrow", bf16_rows[-1], kernel_default,
+             default, PEAK_BF16_TENSOR_FLOPS)):
+        pk = sparse.pair_hit(*a, **kw)
+        pp = sparse.pair_hit_plain(*a, **plain_kw)
+        torch.cuda.synchronize()
+        s3 = hit_stats(pk < 0x7F000000, pp < 0x7F000000, pk & low, pp & low,
+                       (pk & ~low).view(torch.float32),
+                       (pp & ~low).view(torch.float32))
+        s3.update(pairs=int(a[0].shape[0]), items=int(a[2].shape[0]),
+                  mean_run=float(run_len.mean()), max_run=int(run_len.max()),
+                  words_differing=int((pk != pp).sum()),
+                  **dict(zip(("units", "ctas", "clusters_staged"),
+                             counted(sparse.pair_hit, a, "stats", 3, **kw))),
+                  ms=cuda_ms(lambda: sparse.pair_hit(*a, **kw), 20),
+                  plain_ms=cuda_ms(
+                      lambda: sparse.pair_hit_plain(*a, **plain_kw), 2))
+        if kw:
+            s3["staged_bytes"] = cluster_bytes(cs.G3b, a[2][:, 2])
+        s3.update(roofline(*kernel_work(dense, "pair_hit", a, pk,
+                                        cs.n_clusters), s3["ms"], peak))
+        emit(dict(phase="kernel", name=name, **s3))
+        row["narrow"] = dict(pairs=s3["pairs"],
+                             **{k: s3[k] for k in narrow_keys})
+        require_oracle_bar(name, s3)
+        units.append(s3["units"])
+    if units[0] != units[1]:
+        raise AssertionError(f"K3 bf16 took {units[1]} work units at the "
+                             f"narrow shape, the fp32 form {units[0]}")
     del state, pool, F8, Fp, items, sel_k, sel_p, pk, pp, calls, narrow, a
 
     # K4: the shadow rays of K1's wave, built from its hits as the Whitted
@@ -800,7 +818,7 @@ def main() -> int:
                         max_abs_err=float(s4["flags_differing"] > 0),
                         **kernel_row(s4)))
 
-    occ_b = dense.dense_occluded(*a4, **dense_default)
+    occ_b = dense.dense_occluded(*a4, **kernel_default)
     occ_bp = dense.dense_occluded_plain(*a4, **plain_default)
     torch.cuda.synchronize()
     flop, moved = kernel_work(dense, "dense_occluded", a4, occ_b,
@@ -813,10 +831,10 @@ def main() -> int:
                staged_bytes=cluster_bytes(cs.G3b, q4c[queued(q4c, q4n)]),
                pairs_needed=flop // (cs.cluster_size * FLOP_PER_TRIANGLE),
                pairs_walked=counted(dense.dense_occluded, a4, "walked", 1,
-                                    **dense_default)[0],
+                                    **kernel_default)[0],
                vs_fp32=dict(flag_agree=float((occ_b == occ_k).float()
                                              .mean())),
-               ms=cuda_ms(lambda: dense.dense_occluded(*a4, **dense_default),
+               ms=cuda_ms(lambda: dense.dense_occluded(*a4, **kernel_default),
                           20),
                plain_ms=cuda_ms(lambda: dense.dense_occluded_plain(
                    *a4, **plain_default), 3))

@@ -21,8 +21,8 @@
 // first item. Every pair lane belongs to at most one item, so items are
 // independent and the wrapper pre-fills the output with the miss marker.
 //
-// - Work units. A run is cut into units of at most kUnitPairs pairs, so
-//   1,666 uneven runs become ~15,000 even pieces. A one-CTA pass
+// - Work units (walk_units). A run is cut into units of at most kUnitPairs
+//   pairs, so 1,666 uneven runs become ~15,000 even pieces. A one-CTA pass
 //   (pair_hit_units_kernel) writes the exclusive prefix of each item's unit
 //   count; the main kernel's grid is sized to the card (the CTAs that are
 //   resident at once) and CTA b takes the b-th contiguous share of the
@@ -41,10 +41,23 @@
 //   in pieces, or a cluster on both sides of an SP boundary) are staged
 //   once.
 // - No TF32 at precision "highest" (the TPU kernel's Precision.HIGHEST).
-//   At "default" (Precision.DEFAULT, one bf16 pass) the bf16 variant
-//   takes the products from the tensor cores as K1's does
-//   (common.cuh:mma_pairs): a warp's 8 pairs of a unit are the B operand,
-//   and a lane decodes one (pair, triangle) a product.
+//
+// The bf16 variant (precision "default", Precision.DEFAULT: one bf16
+// pass) is K1's bf16 design (csrc/dense_hit.cu, common.cuh:mma_rays) on
+// the same work units: a warp's 16 pairs of a unit are one A fragment,
+// built once a unit from Fp (rows past the unit zeroed), and the ring
+// stages the scene's bf16 fragment copy (ClusterScene.G3b, 16 KB a cluster
+// at C = 128) as it is, so a lane loads the B fragments of a group of 4
+// triangles with one 16-byte shared load and holds two whole (pair,
+// triangle) pairs: no shuffle and no conversion in the loop. The column
+// loop takes kPairGroups groups at a time with no branch (loads and
+// products first, then the decodes, __frcp_rn's slow path only where a
+// lane needs it), and a failed candidate packs the miss marker instead of
+// skipping the minimum. A CTA is 4 warps, one 64-pair unit, so the units
+// and the counters are the fp32 form's. The result does not depend on the
+// order of the columns (every pair meets every column), so the plain
+// version needs no group. The groups in flight were chosen on the card
+// (tools/bf16_variants.py, PERF.md).
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -60,6 +73,10 @@ constexpr int kScanThreads = 1024;
 // CTAs an SM should hold: caps the registers at 80 a thread (chosen on the
 // card among 2, 3 and 4: PERF.md).
 constexpr int kPairMinCtas = 3;
+// Groups of 4 triangles the bf16 variant's column loop takes at once: their
+// loads and products (8 at kFrags = 1) issued before any result is read.
+// Chosen on the card among 2, 4, 8 and 16 (PERF.md).
+constexpr int kPairGroups = 4;
 
 // ustart[i] = the work units of items before i; ustart[n_items] = all. An
 // item that names no cluster of the scene or no pair of the array has none.
@@ -110,20 +127,22 @@ struct Unit {
   int p0, p1, cluster;  // pairs [p0, p1) of one item's run
 };
 
-// The kernel body; kBf16 selects the tensor-core product.
-template <bool Guard, bool kBf16>
-__device__ __forceinline__ void pair_hit(
-    const float* __restrict__ Fp, const float* __restrict__ G3,
+// Walks this CTA's share of the work units: stage(dst, cluster) starts the
+// CTA's copies of a cluster's `stage_f4` 16-byte chunks into dst, and
+// test(g, unit) tests a unit against its staged cluster g. `ring` is
+// kRingStages * stage_f4 chunks of dynamic shared memory. Every thread of
+// the CTA calls it. stats (nullable) gains the units, 1 if there were any,
+// and the clusters staged.
+template <class Stage, class Test>
+__device__ __forceinline__ void walk_units(
     const int* __restrict__ items, const int* __restrict__ ustart,
-    int* __restrict__ out, unsigned long long* __restrict__ stats,
-    int n_items, int C, int col_bits) {
+    unsigned long long* __restrict__ stats, int n_items, int stage_f4,
+    float4* ring, Stage stage, Test test) {
   static_assert(kRingStages == 2, "the waits below assume two stages");
-  extern __shared__ __align__(128) float4 ring[];
   const long long total = ustart[n_items];
   const int u0 = static_cast<int>(total * blockIdx.x / gridDim.x);
   const int u1 = static_cast<int>(total * (blockIdx.x + 1) / gridDim.x);
   if (u0 >= u1) return;
-  const int rows = 4 * C, stage_f4 = rows * kRowF4;
 
   // The item of unit u0: the last whose prefix is at most u0.
   int first = 0;
@@ -150,8 +169,7 @@ __device__ __forceinline__ void pair_hit(
     for (; s_unit < u1; ++s_unit) {
       const Unit w = locate(s_unit, s_item);
       if (w.cluster != s_cluster) {
-        stage_async(ring + (staged % kRingStages) * stage_f4,
-                    G3 + static_cast<size_t>(w.cluster) * rows * kFeat, rows);
+        stage(ring + (staged % kRingStages) * stage_f4, w.cluster);
         s_cluster = w.cluster;
         ++staged;
         ++s_unit;
@@ -161,6 +179,45 @@ __device__ __forceinline__ void pair_hit(
     cp_async_commit();
   };
 
+  stage_next();
+  stage_next();
+  cp_async_wait<1>();  // the first cluster has landed
+  __syncthreads();
+  int item = first, segment = -1, cluster = -1;
+  for (int u = u0; u < u1; ++u) {
+    const Unit w = locate(u, item);
+    if (w.cluster != cluster) {
+      if (segment >= 0) {
+        cp_async_wait<0>();  // the next cluster has landed
+        // After the barrier every thread's copies are visible and the
+        // stage of the cluster just left is free for the one after next.
+        __syncthreads();
+        stage_next();
+      }
+      ++segment;
+      cluster = w.cluster;
+    }
+    test(ring + (segment % kRingStages) * stage_f4, w);
+  }
+  cp_async_wait<0>();
+  if (stats != nullptr && threadIdx.x == 0) {
+    atomicAdd(stats, static_cast<unsigned long long>(u1 - u0));
+    atomicAdd(stats + 1, 1ULL);
+    atomicAdd(stats + 2, static_cast<unsigned long long>(staged));
+  }
+}
+
+#define RACC_PAIR_HIT_ARGS                                                    \
+  const int* __restrict__ items, const int* __restrict__ ustart,             \
+      int* __restrict__ out, unsigned long long* __restrict__ stats,         \
+      int n_items, int C, int col_bits
+
+template <bool Guard>
+__global__ void __launch_bounds__(kCtaThreads, kPairMinCtas)
+pair_hit_kernel(const float* __restrict__ Fp, const float* __restrict__ G3,
+                RACC_PAIR_HIT_ARGS) {
+  extern __shared__ __align__(128) float4 ring[];
+  const int rows = 4 * C;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int sub = lane % kColSplit, slot = lane / kColSplit;
   const int low = (1 << (col_bits + 3)) - 1;
@@ -214,105 +271,130 @@ __device__ __forceinline__ void pair_hit(
       if (sub == 0 && on[i]) out[p[i]] = min(m[i], kMissBits);
     }
   };
-  auto test_bf16 = [&](const float4* g, const Unit& w) {
-    const int base = w.p0 + warp * kWarpRays;
-    const int p = base + mma_ray();
-    float tmin = 0.0f, tmax = 0.0f;
-    int rank_bits = 0;
-    bool on = false;
-    if (p < w.p1) {
-      const float* row = Fp + static_cast<size_t>(p) * kFeat;
-      const int word = __float_as_int(row[12]);
-      on = (word & kClusterMask) == w.cluster;
-      tmin = row[10];
-      tmax = row[11];
-      rank_bits = static_cast<int>(static_cast<unsigned>(word) >> kRankShift)
-                  << col_bits;
+  walk_units(items, ustart, stats, n_items, rows * kRowF4, ring,
+             [&](float4* dst, int cluster) {
+               stage_async(
+                   dst, G3 + static_cast<size_t>(cluster) * rows * kFeat,
+                   rows);
+             },
+             test);
+}
+
+// The bf16 variant: the same units on the scene's bf16 fragment copy, a
+// warp's pairs as the A operand of the tensor-core products (common.cuh:
+// mma_rays), each lane decoding whole (pair, triangle) pairs.
+template <bool Guard>
+__global__ void __launch_bounds__(kFragWarps * 32)
+pair_hit_bf16_kernel(const float* __restrict__ Fp,
+                     const float4* __restrict__ G3b, RACC_PAIR_HIT_ARGS) {
+  extern __shared__ __align__(128) float4 ring[];
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
+  const int chunks = frag_chunks(C), groups = (C + 3) / 4;
+  const int low = (1 << (col_bits + 3)) - 1;
+  auto test = [&](const float4* stage, const Unit& w) {
+    const int base = w.p0 + warp * kFragRays;
+    // This lane's pairs (common.cuh:frag_ray): the A fragment's features
+    // 2t, 2t + 1 and (t = 0) 8, 9, bf16; a row past the unit is zeros (it
+    // may lie past the end of Fp) and, as a pair whose lane word names
+    // another cluster, is not written.
+    unsigned a[kFrags][4];
+    float tmin[kLaneRays], tmax[kLaneRays];
+    int rank_bits[kLaneRays];
+    bool on[kLaneRays], any = false;
+#pragma unroll
+    for (int i = 0; i < kLaneRays; ++i) {
+      const int p = frag_ray(base, i);
+      float2 x = make_float2(0.0f, 0.0f), y = x, window = x;
+      int word = 0;
+      if (p < w.p1) {
+        const float2* row = reinterpret_cast<const float2*>(
+            Fp + static_cast<size_t>(p) * kFeat);
+        x = row[t];
+        if (t == 0) y = row[4];
+        window = row[5];
+        word = __float_as_int(row[6].x);
+      }
+      a[i >> 1][i & 1] = pack_bf16(x.x, x.y);
+      a[i >> 1][2 + (i & 1)] = pack_bf16(y.x, y.y);
+      tmin[i] = window.x;
+      tmax[i] = window.y;
+      on[i] = p < w.p1 && (word & kClusterMask) == w.cluster;
+      rank_bits[i] =
+          static_cast<int>(static_cast<unsigned>(word) >> kRankShift)
+          << col_bits;
+      any |= on[i];
     }
-    if (!__any_sync(0xffffffffu, on)) return;
-    // The B operand: pair lane / 4 of the warp's 8 (a pair whose lane word
-    // names another cluster is multiplied too, and its lane drops it).
-    unsigned b[2] = {0u, 0u};
-    if (base + (lane >> 2) < w.p1)
-      ray_fragment(Fp + static_cast<size_t>(base + (lane >> 2)) * kFeat, b);
-    int m = kIntMax;
-    for (int c0 = 0; c0 < C; c0 += 4) {
-      float det, u, v, tn, ad, ts;
-      bool inside;
-      mma_pairs(g, c0, C, b, det, u, v, tn);
-      decode1(det, u, v, tn, inside, ad, ts);
-      const int c = c0 + (lane >> 3);
-      if (on && c < C && inside && ts > ad * tmin &&
-          (!Guard || ts < ad * tmax)) {
-        const float score = ts * __frcp_rn(ad);
-        m = min(m, (__float_as_int(score) & ~low) | rank_bits | c);
+    if (!__any_sync(0xffffffffu, any)) return;
+    const uint4* g = reinterpret_cast<const uint4*>(stage);
+    int m[kLaneRays];
+#pragma unroll
+    for (int i = 0; i < kLaneRays; ++i) m[i] = kIntMax;
+    // kPairGroups groups at a time, the last one repeated past the
+    // cluster's end (a repeated column cannot change a minimum); a column
+    // past C is dropped. A failed candidate packs the miss marker, which
+    // the final clamp makes the same as no candidate. The reciprocal takes
+    // __frcp_rn's branch only where its fast path does not hold.
+    for (int q0 = 0; q0 < groups; q0 += kPairGroups) {
+      constexpr int N = kPairGroups * kLaneRays;
+      float p[kPairGroups][kLaneRays][4], ad[N], ts[N], r[N];
+      bool inside[N], slow = false;
+#pragma unroll
+      for (int u = 0; u < kPairGroups; ++u)
+        mma_rays(g, min(q0 + u, groups - 1), a, p[u]);
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        decode_rays(p[k / kLaneRays][k % kLaneRays], inside[k], ad[k], ts[k]);
+        r[k] = rcp_newton(ad[k]);
+        slow |= inside[k] & !rcp_fast(ad[k]) & (ad[k] != 0.0f);
+      }
+      if (slow) {
+#pragma unroll
+        for (int k = 0; k < N; ++k)
+          if (!rcp_fast(ad[k])) r[k] = __frcp_rn(ad[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const int i = k % kLaneRays;
+        const int c = 4 * min(q0 + k / kLaneRays, groups - 1) + t;
+        const bool ok = inside[k] & (ts[k] > ad[k] * tmin[i]) &
+                        (!Guard | (ts[k] < ad[k] * tmax[i]));
+        const int score = ok ? __float_as_int(ts[k] * r[k]) : kMissBits;
+        if (c < C) m[i] = min(m[i], (score & ~low) | rank_bits[i] | c);
       }
     }
-    m = min(m, __shfl_xor_sync(0xffffffffu, m, 8));
-    m = min(m, __shfl_xor_sync(0xffffffffu, m, 16));
-    if (lane < 8 && on) out[p] = min(m, kMissBits);
+    // Lanes 4g .. 4g + 3 hold the same pairs.
+#pragma unroll
+    for (int i = 0; i < kLaneRays; ++i) {
+      m[i] = min(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+      m[i] = min(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+      if (t == 0 && on[i]) out[frag_ray(base, i)] = min(m[i], kMissBits);
+    }
   };
-
-  stage_next();
-  stage_next();
-  cp_async_wait<1>();  // the first cluster has landed
-  __syncthreads();
-  int item = first, segment = -1, cluster = -1;
-  for (int u = u0; u < u1; ++u) {
-    const Unit w = locate(u, item);
-    if (w.cluster != cluster) {
-      if (segment >= 0) {
-        cp_async_wait<0>();  // the next cluster has landed
-        // After the barrier every thread's copies are visible and the
-        // stage of the cluster just left is free for the one after next.
-        __syncthreads();
-        stage_next();
-      }
-      ++segment;
-      cluster = w.cluster;
-    }
-    if constexpr (kBf16)
-      test_bf16(ring + (segment % kRingStages) * stage_f4, w);
-    else
-      test(ring + (segment % kRingStages) * stage_f4, w);
-  }
-  cp_async_wait<0>();
-  if (stats != nullptr && threadIdx.x == 0) {
-    atomicAdd(stats, static_cast<unsigned long long>(u1 - u0));
-    atomicAdd(stats + 1, 1ULL);
-    atomicAdd(stats + 2, static_cast<unsigned long long>(staged));
-  }
+  walk_units(items, ustart, stats, n_items, chunks, ring,
+             [&](float4* dst, int cluster) {
+               const float4* src = G3b + static_cast<size_t>(cluster) * chunks;
+               for (int i = threadIdx.x; i < chunks; i += kFragWarps * 32)
+                 cp_async16(dst + i, src + i);
+             },
+             test);
 }
 
-#define RACC_PAIR_HIT_ARGS                                                    \
-  const float* __restrict__ Fp, const float* __restrict__ G3,                \
-      const int* __restrict__ items, const int* __restrict__ ustart,         \
-      int* __restrict__ out, unsigned long long* __restrict__ stats,         \
-      int n_items, int C, int col_bits
-
-template <bool Guard>
-__global__ void __launch_bounds__(kCtaThreads, kPairMinCtas)
-pair_hit_kernel(RACC_PAIR_HIT_ARGS) {
-  pair_hit<Guard, false>(Fp, G3, items, ustart, out, stats, n_items, C,
-                         col_bits);
-}
-
-template <bool Guard>
-__global__ void __launch_bounds__(kCtaThreads, kPairMinCtas)
-pair_hit_bf16_kernel(RACC_PAIR_HIT_ARGS) {
-  pair_hit<Guard, true>(Fp, G3, items, ustart, out, stats, n_items, C,
-                        col_bits);
-}
-
+// Launches one form of the kernel on a grid of the CTAs the card holds at
+// once (asked once a form, at its own CTA and its ring for clusters of
+// kMaxC): G3b non-null launches the bf16 variant on it.
 template <bool Guard, bool kBf16>
-int launch(const float* Fp, const float* G3, const int* items, int* ustart,
-           int* out, unsigned long long* stats, int n_items, int P, int C,
+int launch(const float* Fp, const float* G3, const void* G3b,
+           const int* items, int* ustart, int* out,
+           unsigned long long* stats, int n_items, int P, int C,
            int col_bits, cudaStream_t stream) {
-  // The CTAs of this kernel the card holds at once (asked once).
   static int resident = 0;
-  auto kernel = kBf16 ? pair_hit_bf16_kernel<Guard> : pair_hit_kernel<Guard>;
+  const void* kernel =
+      kBf16 ? reinterpret_cast<const void*>(pair_hit_bf16_kernel<Guard>)
+            : reinterpret_cast<const void*>(pair_hit_kernel<Guard>);
+  constexpr int threads = kBf16 ? kFragWarps * 32 : kCtaThreads;
+  constexpr int most_smem = kBf16 ? frag_ring_bytes(kMaxC) : ring_bytes(kMaxC);
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ring_bytes(kMaxC));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (resident == 0) {
     int dev = 0, sms = 0, per_sm = 0;
@@ -320,7 +402,7 @@ int launch(const float* Fp, const float* G3, const int* items, int* ustart,
         (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess ||
         (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, kCtaThreads, ring_bytes(kMaxC))) != cudaSuccess)
+             &per_sm, kernel, threads, most_smem)) != cudaSuccess)
       return static_cast<int>(e);
     if (sms * per_sm <= 0) return static_cast<int>(cudaErrorInvalidValue);
     resident = sms * per_sm;
@@ -328,8 +410,13 @@ int launch(const float* Fp, const float* G3, const int* items, int* ustart,
   // No launch has more units than this; a CTA without a unit exits.
   const long long most = n_items + static_cast<long long>(P) / kUnitPairs;
   const int grid = static_cast<int>(most < resident ? most : resident);
-  kernel<<<grid, kCtaThreads, ring_bytes(C), stream>>>(
-      Fp, G3, items, ustart, out, stats, n_items, C, col_bits);
+  if constexpr (kBf16)
+    pair_hit_bf16_kernel<Guard><<<grid, threads, frag_ring_bytes(C), stream>>>(
+        Fp, static_cast<const float4*>(G3b), items, ustart, out, stats,
+        n_items, C, col_bits);
+  else
+    pair_hit_kernel<Guard><<<grid, threads, ring_bytes(C), stream>>>(
+        Fp, G3, items, ustart, out, stats, n_items, C, col_bits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -337,15 +424,16 @@ int launch(const float* Fp, const float* G3, const int* items, int* ustart,
 }  // namespace racc
 
 // Fp (P, 16) pair feature rows [d, o, d x o, 1, tmin, tmax, lane word,
-// 0...]; G3 (n_c, 4C, 16); items (n_items, 3) int32 [start, end, cluster];
+// 0...]; G3 (n_c, 4C, 16); G3b (nullable) G3's bf16 fragment copy (n_c,
+// ceil(C/4), 32, 4 words); items (n_items, 3) int32 [start, end, cluster];
 // ustart (n_items + 1,) int32 scratch; out (P,) int32, pre-filled with the
 // miss marker by the caller. stats (nullable, 3 counters) gains the work
-// units, the CTAs that took any, and the clusters staged. bf16 != 0
-// launches the bf16 tensor-core variant.
-extern "C" int racc_pair_hit(const float* Fp, const float* G3, const int* items,
-                             int* ustart, int n_items, int* out,
-                             unsigned long long* stats, int P, int n_c, int C,
-                             int col_bits, int guard_tmax, int bf16,
+// units, the CTAs that took any, and the clusters staged. With G3b the
+// bf16 tensor-core variant runs on it.
+extern "C" int racc_pair_hit(const float* Fp, const float* G3, const void* G3b,
+                             const int* items, int* ustart, int n_items,
+                             int* out, unsigned long long* stats, int P,
+                             int n_c, int C, int col_bits, int guard_tmax,
                              void* stream) {
   using namespace racc;
   if (C < 1 || C > kMaxC || n_items < 0 || P < 0 || n_c < 1)
@@ -356,8 +444,10 @@ extern "C" int racc_pair_hit(const float* Fp, const float* G3, const int* items,
                                                    ustart);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
+  const bool bf16 = G3b != nullptr;
   auto run = guard_tmax
                  ? (bf16 ? &launch<true, true> : &launch<true, false>)
                  : (bf16 ? &launch<false, true> : &launch<false, false>);
-  return run(Fp, G3, items, ustart, out, stats, n_items, P, C, col_bits, st);
+  return run(Fp, G3, G3b, items, ustart, out, stats, n_items, P, C, col_bits,
+             st);
 }

@@ -47,7 +47,7 @@ _SIGNATURES = {
     "racc_select_nearest": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "racc_select_split": [_I],
     "racc_select_max_boxes": [],
-    "racc_pair_hit": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+    "racc_pair_hit": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                       _P],
 }
 

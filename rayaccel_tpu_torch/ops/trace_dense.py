@@ -177,6 +177,19 @@ def _candidates(Ft, G3, cluster, precision: str = "highest"):
     return sign_ok & (torch.abs(u + v) <= ad), ad, ts
 
 
+def fragment_copy(G3b, n_c: int, C: int, precision: str):
+    """The bf16 fragment copy a launch at ``precision`` reads: at
+    "default" ``G3b`` (the scene's ``ClusterScene.G3b``, required there),
+    checked against a scene of n_c clusters of C; at "highest" None."""
+    if not use_bf16(precision):
+        return None
+    if G3b is None:
+        raise ValueError("precision='default' on a card takes G3b, the "
+                         "scene's bf16 fragment copy (ClusterScene.G3b)")
+    _kernels.require(G3b, "G3b", torch.int32, (n_c, -(-C // 4), 32, 4))
+    return G3b
+
+
 def _dense_launch(fn, name, out, F, G3, G3b, q_cluster, q_entry, q_count,
                   tile: int, walked, precision: str):
     """Validate the arguments of a dense kernel and launch it: R / CTA_RAYS
@@ -188,14 +201,8 @@ def _dense_launch(fn, name, out, F, G3, G3b, q_cluster, q_entry, q_count,
     check_tile(tile)
     _kernels.require(F, "F", torch.float32, (R, 16))
     _kernels.require(G3, "G3", torch.float32)
-    n_c, C = G3.shape[0], G3.shape[1] // 4
-    if use_bf16(precision):
-        if G3b is None:
-            raise ValueError("precision='default' on a card takes G3b, the "
-                             "scene's bf16 fragment copy (ClusterScene.G3b)")
-        _kernels.require(G3b, "G3b", torch.int32, (n_c, -(-C // 4), 32, 4))
-    else:
-        G3b = None
+    C = G3.shape[1] // 4
+    G3b = fragment_copy(G3b, G3.shape[0], C, precision)
     _kernels.require(q_cluster, "q_cluster", torch.int32)
     _kernels.require(q_entry, "q_entry", torch.int32, (T, cap))
     _kernels.require(q_count, "q_count", torch.int32, (T,))

@@ -35,7 +35,8 @@ the size of the card.
 
 ``precision`` reaches K3 alone (K2 has no product), as in
 ``ops/trace_dense.py``: "default" is the one-pass bf16 product, on the
-card K3's bf16 tensor-core variant.
+card K3's bf16 tensor-core variant on the scene's bf16 fragment copy
+(``ClusterScene.G3b``).
 """
 
 from __future__ import annotations
@@ -44,8 +45,9 @@ import torch
 
 from rayaccel_tpu_torch.ops import _kernels
 from rayaccel_tpu_torch.ops.intersect import safe_inv_dir
-from rayaccel_tpu_torch.ops.trace_dense import (make_hits, reconstruct,
-                                                round_bf16, use_bf16)
+from rayaccel_tpu_torch.ops.trace_dense import (fragment_copy, make_hits,
+                                                reconstruct, round_bf16,
+                                                use_bf16)
 from rayaccel_tpu_torch.ops.trace_mxu import MxuHits
 from rayaccel_tpu_torch.scene.clusters import ClusterScene
 from rayaccel_tpu_torch.types import Rays
@@ -227,7 +229,7 @@ def _select(cs: ClusterScene, o, inv_d, tmin, tmax_eff, k: int,
 # ---------------------------------------------------------------- K3 ----
 
 def pair_hit(Fp, G3, items, col_bits: int, guard_tmax: bool, *,
-             stats=None, precision: str = "highest") -> torch.Tensor:
+             stats=None, precision: str = "highest", G3b=None) -> torch.Tensor:
     """K3: the pair kernel.
 
     Fp (P, 16) float32 pair rows [d, o, d x o, 1, tmin, tmax, lane word,
@@ -244,11 +246,13 @@ def pair_hit(Fp, G3, items, col_bits: int, guard_tmax: bool, *,
     card shares the units out, each CTA staging a cluster once for the
     consecutive units that name it. Nothing is read on the host.
     ``stats`` (optional, a (3,) int64 CUDA tensor) gains the work units,
-    the CTAs that took any and the clusters staged. On a CPU tensor it
-    runs :func:`pair_hit_plain`. At ``precision="default"`` it launches
-    the bf16 tensor-core variant. ``pair_hit.guard_launches`` counts the
-    launches with ``guard_tmax`` (the any-hit form) and
-    ``pair_hit.launches_bf16`` the bf16 ones among ``pair_hit.launches``."""
+    the CTAs that took any and the clusters staged. At
+    ``precision="default"`` it launches the bf16 tensor-core variant,
+    which reads ``G3b`` (the scene's ``ClusterScene.G3b``, required there).
+    On a CPU tensor it runs :func:`pair_hit_plain`, which needs no
+    ``G3b``. ``pair_hit.guard_launches`` counts the launches with
+    ``guard_tmax`` (the any-hit form) and ``pair_hit.launches_bf16`` the
+    bf16 ones among ``pair_hit.launches``."""
     bf16 = use_bf16(precision)
     if Fp.device.type == "cpu":
         return pair_hit_plain(Fp, G3, items, col_bits, guard_tmax,
@@ -260,6 +264,8 @@ def pair_hit(Fp, G3, items, col_bits: int, guard_tmax: bool, *,
     if G3.dim() != 3 or G3.shape[1] % 4 or G3.shape[2] != 16:
         raise ValueError(f"G3 must have shape (n_c, 4C, 16), got "
                          f"{tuple(G3.shape)}")
+    n_c, C = G3.shape[0], G3.shape[1] // 4
+    G3b = fragment_copy(G3b, n_c, C, precision)
     _kernels.require(items, "items", torch.int32, (n_items, 3))
     if stats is not None:
         _kernels.require(stats, "stats", torch.int64, (3,))
@@ -269,11 +275,11 @@ def pair_hit(Fp, G3, items, col_bits: int, guard_tmax: bool, *,
     unit_start = torch.empty(n_items + 1, dtype=torch.int32, device=Fp.device)
     lib = _kernels.library()
     _kernels.check(lib.racc_pair_hit(
-        _kernels.ptr(Fp), _kernels.ptr(G3), _kernels.ptr(items),
+        _kernels.ptr(Fp), _kernels.ptr(G3),
+        None if G3b is None else _kernels.ptr(G3b), _kernels.ptr(items),
         _kernels.ptr(unit_start), n_items, _kernels.ptr(out),
-        None if stats is None else _kernels.ptr(stats), P, G3.shape[0],
-        G3.shape[1] // 4, col_bits, int(guard_tmax), int(bf16),
-        _kernels.stream()), "racc_pair_hit")
+        None if stats is None else _kernels.ptr(stats), P, n_c, C, col_bits,
+        int(guard_tmax), _kernels.stream()), "racc_pair_hit")
     pair_hit.launches += 1
     pair_hit.guard_launches += bool(guard_tmax)
     pair_hit.launches_bf16 += bf16
@@ -409,7 +415,7 @@ def _sparse_pass(cs: ClusterScene, o, d, inv_d, tlo, tmax_p, K: int, SP: int,
     if cl.numel():
         Fp, items = _pair_inputs(o, d, tlo, tmax_p, cl, ray, rank, SP)
         packed = pair_hit(Fp, cs.G3, items, col_bits, guard_tmax,
-                          precision=precision)
+                          precision=precision, G3b=cs.G3b)
         best_p.scatter_reduce_(0, ray, packed, "amin")
 
     rank_w = (best_p >> col_bits) & 7

@@ -1,5 +1,5 @@
-"""Time the bf16 tensor-core variants of K1 and K4 under other choices of
-their compile-time shape, on one CUDA device.
+"""Time the bf16 tensor-core variants of K1, K3 and K4 under other choices
+of their compile-time shape, on one CUDA device.
 
     python3 -m rayaccel_tpu_torch.tools.bf16_variants
 
@@ -8,10 +8,12 @@ under the git-ignored ``rayaccel_tpu_torch/_build/variants/``, one constant
 of ``csrc/`` is rewritten, and a subprocess builds that copy's kernels and
 times them on ``chip_smoke.py``'s headline inputs (the 65,536-ray primary
 wave of the battlefield-like scene at 1280x720 for K1, the shadow rays of
-its hits for K4): CUDA-event ms (``chip_smoke.py:cuda_ms``), the pairs the
-warps walked, and the words (K1) or flags (K4) differing from the plain
-versions walking in the variant's group. Prints one JSON line a variant;
-the first, ``chosen``, is the tree as it is.
+its hits for K4, the pairs of pass 1 of the first bounce for K3):
+CUDA-event ms (``chip_smoke.py:cuda_ms``), the pairs the warps walked (K1,
+K4) or the work units (K3), and the words (K1, K3) or flags (K4)
+differing from the plain versions (K1's and K4's walking in the
+variant's group). Prints one JSON line a variant; the first, ``chosen``,
+is the tree as it is, and adds fp32 K3's ms in the same process.
 """
 
 import json
@@ -32,6 +34,9 @@ VARIANTS = {
     "hit_groups_16": ("dense_hit.cu", "kHitGroups", 16),
     "occl_groups_8": ("dense_occl.cu", "kOcclGroups", 8),
     "occl_groups_32": ("dense_occl.cu", "kOcclGroups", 32),
+    "pair_groups_2": ("pair_hit.cu", "kPairGroups", 2),
+    "pair_groups_8": ("pair_hit.cu", "kPairGroups", 8),
+    "pair_groups_16": ("pair_hit.cu", "kPairGroups", 16),
 }
 
 
@@ -63,6 +68,8 @@ def measure(name, warp_rays):
     import rayaccel_tpu_torch as racc
     from rayaccel_tpu_torch import rng
     from rayaccel_tpu_torch.ops import trace_dense as dense
+    from rayaccel_tpu_torch.ops import trace_sparse as sparse
+    from rayaccel_tpu_torch.ops.intersect import safe_inv_dir
     from rayaccel_tpu_torch.render import pathtracer, whitted
     from rayaccel_tpu_torch.render.shading import surface_from_attrs
     from rayaccel_tpu_torch.scene.clusters import (cluster_scene_from_numpy,
@@ -106,6 +113,32 @@ def measure(name, warp_rays):
                          pairs_walked=smoke.counted(fn, a, "walked", 1,
                                                     **kw)[0],
                          differing=int((got != want).sum()))
+    # K3: pass 1 of the first bounce of the frame's 983,040-lane pool.
+    state, _ = pathtracer._stage1(cs, cam.as_arrays(dev), r._wave_x,
+                                  r._wave_y, r._wave_alive, rng.PRNGKey(1),
+                                  2, "pallas", tile, opts)
+    pool = state["rays"]
+    tmax = torch.where(state["alive"], pool.tmax,
+                       torch.full_like(pool.tmax, -1))
+    lat_valid, lat_id, _, _ = sparse._select(
+        cs, pool.o, safe_inv_dir(pool.d), pool.tmin, tmax, opts.k_pairs)
+    N, SP = tmax.shape[0], opts.sp_tile
+    cap = min(max(SP, -(-opts.pair_budget * N // SP) * SP),
+              -(-opts.k_pairs * N // SP) * SP)
+    cl, ray, rank, _ = sparse._lattice_pairs(lat_valid, lat_id, cap)
+    Fp, items = sparse._pair_inputs(pool.o, pool.d, pool.tmin, tmax, cl, ray,
+                                    rank, SP)
+    a3 = (Fp, cs.G3, items, max((cs.cluster_size - 1).bit_length(), 1),
+          False)
+    got = sparse.pair_hit(*a3, **kw)
+    want = sparse.pair_hit_plain(*a3, precision="default")
+    line["k3"] = dict(ms=smoke.cuda_ms(lambda: sparse.pair_hit(*a3, **kw),
+                                       20),
+                      units=smoke.counted(sparse.pair_hit, a3, "stats", 3,
+                                          **kw)[0],
+                      differing=int((got != want).sum()))
+    if name == "chosen":
+        line["k3_fp32_ms"] = smoke.cuda_ms(lambda: sparse.pair_hit(*a3), 20)
     print(json.dumps(line), flush=True)
 
 

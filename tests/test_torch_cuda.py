@@ -17,7 +17,8 @@ from rayaccel_tpu_torch.ops import trace_sparse as sparse
 from rayaccel_tpu_torch.render.whitted import shadow_rays
 from rayaccel_tpu_torch.render.shading import surface_from_attrs
 from rayaccel_tpu_torch.scene.clusters import (cluster_scene_from_numpy,
-                                               compile_clusters_np)
+                                               compile_clusters_np,
+                                               mma_fragments)
 from rayaccel_tpu_torch.scene.loader import make_battlefield_like
 from rayaccel_tpu_torch.types import make_rays
 
@@ -553,9 +554,9 @@ def test_bf16_kernels_match_plain(cuda, scene_data, cluster_size):
     against the plain versions at "default" on the card, on clusters of 6
     (a last group of 4 triangles that runs past the cluster), 16 and 128:
     K1 and K3 at the oracle bar, K4's flags on >= 99.95% of rays. Each
-    launch counts as a bf16 launch; the fp32 forms do not run. K1 and K4
-    read the scene's fragment copy, and their plain versions walk in the
-    kernels' group."""
+    launch counts as a bf16 launch; the fp32 forms do not run. The three
+    read the scene's fragment copy, and K1's and K4's plain versions walk
+    in the kernels' group."""
     cs = cluster_scene_from_numpy(
         **compile_clusters_np(scene_data, cluster_size=cluster_size),
         device=cuda)
@@ -589,7 +590,7 @@ def test_bf16_kernels_match_plain(cuda, scene_data, cluster_size):
                                      precision="default")
         for it in (items, short):
             _same_words(sparse.pair_hit(Fp, cs.G3, it, col_bits, guard,
-                                        precision="default"),
+                                        **default),
                         want, (1 << (col_bits + 3)) - 1)
     after = [(fn.launches, fn.launches_bf16) for fn in counted]
     assert [(a - b, c - d) for (a, c), (b, d) in zip(after, before)] == \
@@ -675,6 +676,120 @@ def test_bf16_dense_kernels_match_plain_at_the_walks_edges(
     assert [(fn.launches, fn.launches_bf16)
             for fn in (dense.dense_closest_hit, dense.dense_occluded)] == \
         [(n + 1, b) for n, b in launches]
+
+
+def _unit_edge_items(Fp, n_c, sizes):
+    """Items tiling the pairs [0, P) in runs of ``sizes`` (in turn), each
+    naming the cluster of its first pair, so that a run also holds pairs
+    of other clusters; the last ends at P, and one in the middle names
+    cluster n_c + 5 (no cluster of the scene)."""
+    lanes = Fp[:, 12].contiguous().view(torch.int32).cpu()
+    P = Fp.shape[0]
+    cuts, s, j = [], 0, 0
+    while s < P:
+        e = min(s + sizes[j % len(sizes)], P)
+        cuts.append([s, e, int(lanes[s]) & sparse._CL_MASK])
+        s, j = e, j + 1
+    cuts[len(cuts) // 2][2] = n_c + 5
+    return torch.tensor(cuts, dtype=torch.int32, device=Fp.device)
+
+
+def _integer_operands(Fp, G3, seed):
+    """Fp and G3 with integer features in [-16, 16] and a half-odd
+    constant (feature 9 of G3; Fp's is 1), so that every bf16 operand,
+    product and sum is exact and no sum is zero: the tensor cores and the
+    plain version compute the same bits in any order. G3's zero rows (the
+    padding of a short cluster) stay zero; Fp keeps its tmin, tmax and
+    lane word."""
+    rs = np.random.default_rng(seed)
+    live = (G3[:, :, :10] != 0).any(dim=2, keepdim=True)
+    g = rs.integers(-16, 17, G3.shape).astype(np.float32)
+    g[:, :, 9] = rs.integers(-16, 16, G3.shape[:2]) + 0.5
+    g[:, :, 10:] = 0
+    G3i = torch.where(live, torch.tensor(g, device=G3.device), 0.0)
+    f = rs.integers(-16, 17, (Fp.shape[0], 9)).astype(np.float32)
+    Fpi = Fp.clone()
+    Fpi[:, :9] = torch.tensor(f, device=Fp.device)
+    Fpi[:, 9] = 1.0
+    return Fpi, G3i.contiguous()
+
+
+def _exact_scores(Fp, G3, q, col):
+    """The score t = ts * (1 / |det|) of pair q against column ``col`` of
+    its lane word's cluster, on bf16-rounded features, as
+    ``pair_hit_plain`` computes it at "default"."""
+    C = G3.shape[1] // 4
+    cl = Fp[q, 12].contiguous().view(torch.int32).long() & sparse._CL_MASK
+    rows = col.long()[:, None] + C * torch.arange(4, device=Fp.device)
+    g = dense.round_bf16(G3[cl[:, None], rows, :10])          # (n, 4, 10)
+    f = dense.round_bf16(Fp[q, :10])
+    S = f[:, 0:1] * g[:, :, 0]
+    for i in range(1, 10):
+        S = S + f[:, i:i + 1] * g[:, :, i]
+    det_i = S[:, 0].contiguous().view(torch.int32)
+    ts = (S[:, 3].contiguous().view(torch.int32) ^ (det_i & -0x80000000)
+          ).view(torch.float32)
+    return ts * torch.reciprocal(S[:, 0].abs())
+
+
+@pytest.mark.parametrize("guard_tmax", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("cluster_size", [6, 16, 100, 128])
+def test_bf16_pair_kernel_matches_plain_at_the_units_edges(
+        cuda, scene_data, cluster_size, guard_tmax):
+    """K3's tensor-core variant against its plain version at "default",
+    at the edges of its work units: items of 1, 15, 16, 17, 63, 64, 65 and
+    200 pairs (a warp of 16 pairs partly or wholly past its unit), the last
+    unit ending at P, runs holding pairs whose lane word names another
+    cluster (never written), an item naming no cluster of the scene (no
+    unit), and pairs whose tmin is a hit's exact score (the restart
+    window's edge); clusters of 6 and 100 end inside a group of 4
+    triangles. On integer operands (``_integer_operands``) the words are
+    equal bit for bit, at the tmin edge too; uncovered pairs keep the miss
+    marker, and the work units are those of the fp32 form. Without the
+    scene's fragment copy the wrapper raises."""
+    cs = cluster_scene_from_numpy(
+        **compile_clusters_np(scene_data, cluster_size=cluster_size),
+        device=cuda)
+    Fp, _, _ = _pair_case(cs, 4096, 13, cuda)
+    Fp, G3 = _integer_operands(Fp, cs.G3, cluster_size)
+    G3b = mma_fragments(G3)
+    col_bits = max((cs.cluster_size - 1).bit_length(), 1)
+    sizes = [1, 15, 16, 17, 63, 64, 65, 200]
+    items = _unit_edge_items(Fp, cs.n_clusters, sizes)
+    runs = (items[:, 1] - items[:, 0]).tolist()
+    assert set(sizes) <= set(runs) and int(items[-1, 1]) == Fp.shape[0]
+
+    # A third of the pairs that hit get their winner's exact score as tmin.
+    first = sparse.pair_hit_plain(Fp, G3, items, col_bits, guard_tmax,
+                                  precision="default")
+    q = (first < sparse._MISS_BITS).nonzero().squeeze(1)[::3]
+    assert q.numel() > 0
+    Fp[q, 10] = _exact_scores(Fp, G3, q, first[q] & ((1 << col_bits) - 1))
+    assert (Fp[q, 10] > 0).all()
+
+    with pytest.raises(ValueError, match="G3b"):
+        sparse.pair_hit(Fp, G3, items, col_bits, guard_tmax,
+                        precision="default")
+    want = sparse.pair_hit_plain(Fp, G3, items, col_bits, guard_tmax,
+                                 precision="default")
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    got = sparse.pair_hit(Fp, G3, items, col_bits, guard_tmax, stats=stats,
+                          precision="default", G3b=G3b)
+    assert torch.equal(got, want)
+    hit = want[q] < sparse._MISS_BITS
+    assert hit.any() and not hit.all()      # the edge goes both ways
+    pos = torch.arange(Fp.shape[0], device=cuda)
+    item = torch.searchsorted(items[:, 0].contiguous(), pos.int(),
+                              right=True) - 1
+    lane_cl = Fp[:, 12].contiguous().view(torch.int32) & sparse._CL_MASK
+    covered = lane_cl == items[item, 2]
+    assert (~covered).any() and (got[covered] < sparse._MISS_BITS).any()
+    assert (got[~covered] == sparse._MISS_BITS).all()
+    fp32 = torch.zeros(3, dtype=torch.int64, device=cuda)
+    sparse.pair_hit(Fp, G3, items, col_bits, guard_tmax, stats=fp32)
+    real = items[:, 2] < cs.n_clusters
+    units = int(((items[:, 1] - items[:, 0] + 63) // 64)[real].sum())
+    assert int(stats[0]) == units == int(fp32[0])
 
 
 def test_scene_built_on_the_host_renders_on_the_card(cuda, scenes,

@@ -334,6 +334,7 @@ def test_bf16_fragment_copy_reads_back_as_rounded_G3(C):
 
 
 def _frame(cls, precision, **kw):
+    """A renderer of the test scene after one frame at ``precision``."""
     sd = loader.make_test_scene(viewport=(32, 32), max_depth=3)
     cfg = racc.Configuration(wave_size=1024, trace_block=512,
                              min_stage_width=1024,
@@ -344,7 +345,7 @@ def _frame(cls, precision, **kw):
     r = cls(racc.create_context(cfg, device="cpu"), cam, sd, **kw)
     r.render_frame(rng.PRNGKey(2))
     assert r.dropped == 0
-    return r.image()
+    return r
 
 
 @pytest.mark.parametrize("precision", ["highest", "default"])
@@ -355,30 +356,36 @@ def _frame(cls, precision, **kw):
 def test_precision_reaches_every_product(monkeypatch, precision, cls, kw):
     """Every K1, K3 and K4 call of a frame (the plain versions, on the
     CPU) gets the configuration's precision: the path tracer's K1 and K3,
-    the Whitted renderer's K1, K4 and both forms of K3."""
-    seen = []
+    the Whitted renderer's K1, K4 and both forms of K3. Every call of the
+    three wrappers gets the scene's bf16 fragment copy as ``G3b``, which
+    their bf16 variants read on a card."""
+    seen, fragments = [], []
 
-    def spy(mod, name):
+    def spy(mod, name, log, key):
         fn = getattr(mod, name)
 
         def wrapped(*a, **k):
-            seen.append((name, k.get("precision")))
+            log.append((name, k.get(key)))
             return fn(*a, **k)
         monkeypatch.setattr(mod, name, wrapped)
 
-    spy(dense, "dense_closest_hit_plain")
-    spy(dense, "dense_occluded_plain")
-    spy(sparse, "pair_hit_plain")
-    _frame(cls, precision, **kw)
+    for mod, name in ((dense, "dense_closest_hit"), (dense, "dense_occluded"),
+                      (sparse, "pair_hit")):
+        spy(mod, name, fragments, "G3b")
+        spy(mod, name + "_plain", seen, "precision")
+    r = _frame(cls, precision, **kw)
     names = {"dense_closest_hit_plain", "pair_hit_plain"}
     if kw:
         names.add("dense_occluded_plain")
     assert {n for n, _ in seen} == names
     assert {p for _, p in seen} == {precision}
+    assert {n + "_plain" for n, _ in fragments} == names
+    assert all(g is r.scene.G3b for _, g in fragments)
 
 
 def test_highest_frame_equals_the_default_configuration():
     """precision="highest" named renders bit for bit what the default
     configuration renders."""
-    np.testing.assert_array_equal(_frame(racc.PathTracingRenderer, "highest"),
-                                  _frame(racc.PathTracingRenderer, None))
+    np.testing.assert_array_equal(
+        _frame(racc.PathTracingRenderer, "highest").image(),
+        _frame(racc.PathTracingRenderer, None).image())
