@@ -137,7 +137,23 @@ is missing. Phases, one JSON line each:
 24. slice ``whitted_shadow_default``: ``whitted_shadow`` (BASELINE config
     1) with ``Configuration(precision="default")``: the bf16 variants of
     K1 and K4 must launch and the fp32 forms must not, ``dropped`` 0, with
-    its profiled frame and launch frame.
+    its profiled frame and launch frame;
+25. ``oracle``: ``tools/oracle_lib.py``'s ray sets (65,536 rays each:
+    mid-frame primaries, scattered rays, and sky rays with no candidate
+    pair) on the headline cluster scene, each cluster engine against
+    ``mxu``: every row must pass the oracle bar; the launches of each set,
+    and whether the sky set launched K2 and K3 or skipped them (either is
+    allowed); K1-K4 must launch on the primaries, K2 and K3 on the
+    scattered rays;
+26. ``image_oracle``: ``run_image_oracle`` at 320x180, 2 spp, depth 2: the
+    production frame against the lockstep-BVH ``xla`` engine on the card,
+    ``rmse_trimmed < 1e-3``, ``frac_flip < 0.5%``, ``dropped`` 0, with
+    each side's seconds;
+27. ``bench``: ``python -m rayaccel_tpu_torch.bench`` in a subprocess with
+    ``BENCH_ONLY=2,5,1,6,3,4`` and ``BENCH_FRAMES=2``: exit 0, every line
+    JSON, each config's metric once and none an error or skipped,
+    ``dropped`` 0 on every line, the dry run ok, and the headline last
+    with a value above 0.
 
 Each slice sets every launch count to 0 just before its timed frames and
 reads them just after. After them, each slice renders two more frames:
@@ -177,6 +193,15 @@ PEAK_BYTES_PER_S = 3.35e12
 FLOP_PER_TRIANGLE = 80
 FLOP_PER_SLAB = 24
 NO_LIBRARY = "none: no single PyTorch call computes it"
+# Rays of each of the oracle's ray sets (``tools/oracle_lib.py``'s).
+ORACLE_RAYS = 65536
+# The metrics of ``python -m rayaccel_tpu_torch.bench`` at
+# ``BENCH_ONLY=2,5,1,6,3,4``, the headline first.
+BENCH_HEADLINE = "pt_battlefield_mrays_per_s_per_chip"
+BENCH_METRICS = (BENCH_HEADLINE, "multichip_mesh1_gpu_mrays_per_s",
+                 "whitted_primary_shadow_mrays_per_s",
+                 "whitted_depth8_mrays_per_s", "pt8_fullbsdf_mrays_per_s",
+                 "pt_stratified_mrays_per_s", "multichip_cpu_mesh_smoke")
 # Each kernel's name in a profiler trace; "_bf16" names the bf16
 # tensor-core variant (precision "default") of K1, K3 and K4. K3's unit
 # pass, which both of its forms run, is reported beside them.
@@ -384,22 +409,23 @@ def hit_stats(hit_a, hit_b, win_a, win_b, t_a, t_b):
         max_abs_t=float((t_a - t_b).abs()[both].max()) if both.any() else 0.0)
 
 
-def require_oracle_bar(name, s):
-    if not (s["hit_agree"] >= 0.9995 and s["t_within_1e3"] >= 0.9995):
-        raise AssertionError(f"{name} fails the oracle bar: {s}")
-
-
-def two_class_gate(img, ref):
-    """``tools/oracle_lib.py:run_image_oracle``'s two-class gate."""
-    import numpy as np
-    diff = img - ref
-    pix = np.abs(diff).max(axis=1)
-    flip = pix > 0.05
-    trim = diff[~flip]
-    return dict(rmse_trimmed=float(np.sqrt(np.mean(trim * trim))),
-                frac_flip=float(flip.mean()),
-                image_rmse=float(np.sqrt(np.mean(diff * diff))),
-                max_abs=float(pix.max()), n_pixels=int(len(pix)))
+def check_bench(rc, lines):
+    """Raise unless ``python -m rayaccel_tpu_torch.bench`` with
+    ``BENCH_ONLY=2,5,1,6,3,4`` exited 0 with its contract: the knobs line,
+    each config's metric once and none an error or skipped, every
+    ``dropped`` 0, the dry run ok, and the headline again last with a
+    positive value."""
+    metrics = [ln["metric"] for ln in lines[1:-1]]
+    bad = [ln for ln in lines[1:]
+           if ln.get("unit") in ("error", "skipped_deadline")
+           or ln.get("dropped") != 0]
+    smoke = [ln for ln in lines if ln["metric"] == "multichip_cpu_mesh_smoke"]
+    if not (rc == 0 and lines and lines[0]["metric"] == "bench_knobs"
+            and sorted(metrics) == sorted(BENCH_METRICS) and not bad
+            and lines[-1] == lines[1]
+            and lines[-1]["metric"] == BENCH_HEADLINE
+            and lines[-1]["value"] > 0 and smoke[0]["value"] == 1):
+        raise AssertionError(f"bench failed (rc {rc}): {lines}")
 
 
 def read_pfm(path):
@@ -440,6 +466,9 @@ def main() -> int:
                                                  make_battlefield_like,
                                                  save_scene)
     from rayaccel_tpu_torch import cli as racc_cli
+    from rayaccel_tpu_torch.tools import oracle_lib
+    from rayaccel_tpu_torch.tools.oracle_lib import (require_oracle_bar,
+                                                     two_class_gate)
     from rayaccel_tpu_torch.utils import image, profiling
     from rayaccel_tpu_torch.utils.viewer import Viewer
 
@@ -1591,6 +1620,62 @@ def main() -> int:
           ["dense_closest_hit_bf16", "dense_occluded_bf16"])
     require_no_fp32("whitted_shadow_default",
                     slices["whitted_shadow_default"][0])
+
+    # ---- 25. the ray-set oracle: the cluster engines against mxu ----
+    t0 = time.perf_counter()
+    rows, set_launches = [], {}
+    for set_name, set_rays, engines in oracle_lib.ray_sets(
+            cs, sd, ORACLE_RAYS):
+        reset_counts()
+        rows += oracle_lib.compare_set(cs, set_name, set_rays, engines)
+        torch.cuda.synchronize()
+        set_launches[set_name] = read_counts()
+    sky = set_launches["sky"]
+    oracle_ok = oracle_lib.oracle_bar(rows)
+    emit(dict(phase="oracle", n_rays=ORACLE_RAYS, ok=oracle_ok, rows=rows,
+              launches=set_launches,
+              sky_k2=("launched" if sky["select_nearest"] else "skipped"),
+              sky_k3=("launched" if sky["pair_hit"] else "skipped"),
+              seconds=time.perf_counter() - t0))
+    if not oracle_ok:
+        raise AssertionError(f"oracle: a row fails the bar: {rows}")
+    require_launches("oracle primary", set_launches["primary"],
+                     ["dense_closest_hit", "dense_occluded", "select_nearest",
+                      "pair_hit"])
+    require_launches("oracle scattered", set_launches["scattered"],
+                     ["select_nearest", "pair_hit"])
+    app_launches["oracle"] = (
+        {k: sum(c[k] for c in set_launches.values()) for k in sky}, None)
+
+    # ---- 26. the image oracle: the production frame against xla ----
+    t0 = time.perf_counter()
+    reset_counts()
+    img_oracle = oracle_lib.run_image_oracle(cs, sd, n_spp=2,
+                                             viewport=(320, 180),
+                                             max_depth=2)
+    launches = read_counts()
+    emit(dict(phase="image_oracle", **img_oracle, launches=launches,
+              seconds=time.perf_counter() - t0))
+    if not (img_oracle["rmse_trimmed"] < 1e-3
+            and img_oracle["frac_flip"] < 0.005
+            and img_oracle["dropped"] == 0):
+        raise AssertionError(f"image_oracle failed: {img_oracle}")
+    require_launches("image_oracle", launches,
+                     ["dense_closest_hit", "select_nearest", "pair_hit"])
+    app_launches["image_oracle"] = (launches, None)
+
+    # ---- 27. the port's benchmark, configs 2, 5, 1, 6, 3 and 4 ----
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rayaccel_tpu_torch.bench"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env={**os.environ, "BENCH_ONLY": "2,5,1,6,3,4", "BENCH_FRAMES": "2"},
+        capture_output=True, text=True, timeout=900)
+    bench_lines = [json.loads(ln) for ln in proc.stdout.splitlines()]
+    emit(dict(phase="bench", rc=proc.returncode,
+              seconds=time.perf_counter() - t0, lines=bench_lines,
+              stderr=proc.stderr[-2000:] if proc.returncode else ""))
+    check_bench(proc.returncode, bench_lines)
 
     # Launches of each kernel over the timed frames of the deep slices and
     # per frame; its device ms in each slice's profiled frame; and, from

@@ -6,6 +6,16 @@ The port's context holds the configuration, one explicit ``torch.device``
 ``mesh_shape=(D,)``, the :class:`~rayaccel_tpu_torch.parallel.mesh.Mesh`
 of the D ranks of a ``torch.distributed`` process group, one process a
 rank.
+
+Two differences from the JAX context, both decided:
+
+- ``Context.device_count`` is the number of ranks of the mesh, 1 without
+  one: the devices this context renders on. The JAX context counts every
+  device it can see, mesh or not.
+- ``create_context(device=...)`` takes one device, where JAX's
+  ``create_context(devices=[...])`` takes a list: a process of the port
+  drives one device, and a mesh's other devices belong to its other
+  ranks.
 """
 
 from __future__ import annotations
@@ -41,6 +51,11 @@ class Context:
     configuration: Configuration
     device: torch.device
     mesh: Optional[Mesh] = None
+
+    @property
+    def device_count(self) -> int:
+        """The mesh's number of ranks; 1 without a mesh."""
+        return self.mesh.size if self.mesh else 1
 
 
 def create_context(configuration: Optional[Configuration] = None,
@@ -83,11 +98,10 @@ def destroy(context: Context) -> None:
 
 
 def info(context: Context) -> ContextInfo:
-    """Counterpart of ``rayaccel_tpu/context.py:info``. ``device_count`` is
-    the mesh's number of ranks, 1 without a mesh; the JAX context counts
-    every device it can see, mesh or not."""
+    """Counterpart of ``rayaccel_tpu/context.py:info``, with
+    :attr:`Context.device_count`."""
     cfg = context.configuration
-    return ContextInfo(device_count=context.mesh.size if context.mesh else 1,
+    return ContextInfo(device_count=context.device_count,
                        wave_size=cfg.wave_size,
                        max_rays_in_flight=cfg.max_rays_in_flight,
                        backend=cfg.backend)

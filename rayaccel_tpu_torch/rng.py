@@ -1,7 +1,8 @@
 """Threefry-2x32 random streams, bit-exact with ``jax.random``.
 
 Counterpart of the ``jax.random`` calls on the headline path
-(``PRNGKey``, ``fold_in``, ``uniform``) and of
+(``PRNGKey``, ``fold_in``, ``uniform``), of ``split`` and ``normal`` (the
+oracle's scattered rays and the dry run's per-rank keys) and of
 ``rayaccel_tpu/render/pathtracer.py:_lane_uniform``. A key is a tuple of
 two Python ints (the two uint32 words of a raw jax key), so folding a
 scalar into a key is host arithmetic; the per-element streams run as int64
@@ -11,6 +12,12 @@ Matching jax (0.9, ``jax_threefry_partitionable=True``):
 
 - ``uniform`` hashes a 64-bit iota split into (hi, lo) words and uses
   ``bits1 ^ bits2`` (``jax/_src/prng.py:_threefry_random_bits_partitionable``);
+- ``split`` hashes the same iota into whole keys
+  (``_threefry_split_foldlike``), so its i-th key is ``fold_in(key, i)``;
+- ``normal`` is ``sqrt(2) * erf_inv(u)`` with ``u`` uniform on
+  (-1, 1), and ``erf_inv`` is XLA's single-precision polynomial (M. Giles,
+  "Approximating the erfinv function"), which ``torch.special.erfinv``
+  does not round alike;
 - ``lane_uniform`` calls the raw ``threefry_2x32``, which splits its counter
   array in half and pairs element i with element n/2 + i.
 
@@ -58,6 +65,11 @@ def PRNGKey(seed: int) -> Key:
 def fold_in(key: Key, data: int) -> Key:
     """``jax.random.fold_in``: hash the counter pair (0, data)."""
     return threefry2x32(key[0], key[1], 0, int(data) & _M32)
+
+
+def split(key: Key, n: int = 2) -> list:
+    """``jax.random.split(key, n)``: n keys, bitwise equal to JAX's."""
+    return [fold_in(key, i) for i in range(n)]
 
 
 def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
@@ -110,3 +122,37 @@ def lane_uniform(key: Key, lane: torch.Tensor) -> torch.Tensor:
     b0, _ = threefry2x32(key[0], key[1], (l + (1 << 30)) & _M32,
                          (l + (3 << 30)) & _M32)
     return _bits_to_unit_float(torch.stack([a0, b0, a1], dim=1))
+
+
+# XLA's erf_inv for float32 (``ErfInv32``): a degree-8 polynomial in
+# w - 2.5 below w = 5 and in sqrt(w) - 3 above, with w = -log1p(-x^2).
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+# The lower end of normal's uniform draw: the float32 after -1 toward 0.
+_NORMAL_LO = -1.0 + 2.0 ** -24
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` on a float32 tensor in (-1, 1)."""
+    w = -torch.log1p(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = torch.where(lt, a, b) + p * w
+    return p * x
+
+
+def normal(key: Key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)`` on ``device``, to a few
+    float32 ulps (``erf_inv``'s ``log1p`` rounds as the device's does)."""
+    # uniform(key, shape, minval=lo, maxval=1): (1 - lo) rounds to 2 in
+    # float32, so f * 2 + lo is one rounding, as in JAX.
+    u = torch.clamp_min(uniform(key, shape, device) * 2.0 + _NORMAL_LO,
+                        _NORMAL_LO)
+    return erf_inv(u) * torch.tensor(2.0 ** 0.5, dtype=torch.float32,
+                                     device=u.device)

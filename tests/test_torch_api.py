@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import rayaccel_tpu as jracc
 from rayaccel_tpu.camera import Camera as JaxCamera
 from rayaccel_tpu.materials import default_materials as jax_default_materials
@@ -96,6 +97,16 @@ def test_context_info_and_lifecycle():
     assert racc.destroy(ctx) is None
     assert racc.deinit() is None
     assert racc.info(ctx) == got           # destroy leaves the context usable
+
+
+def test_context_device_count_equals_jax():
+    """``Context.device_count``: 1 on one device, as ``info`` reports it and
+    as the JAX context on one device counts it."""
+    ctx = racc.create_context(device="cpu")
+    jctx = jracc.create_context(devices=jax.devices()[:1])
+    assert ctx.device_count == 1 == racc.info(ctx).device_count
+    assert ctx.device_count == jctx.device_count == jracc.info(
+        jctx).device_count
 
 
 def test_tile_size_and_end_frame_hook():

@@ -22,13 +22,12 @@ from rayaccel_tpu.utils import checkpoint as jax_ckpt
 import rayaccel_tpu_torch as racc
 from rayaccel_tpu_torch import cli, rng
 from rayaccel_tpu_torch.scene.loader import make_test_scene, save_scene
+from rayaccel_tpu_torch.tools.oracle_lib import two_class_gate
 from rayaccel_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                  save_checkpoint,
                                                  scene_fingerprint)
 from rayaccel_tpu_torch.utils.image import rmse, tonemap
 from rayaccel_tpu_torch.utils.stats import RenderStats
-
-from tests.test_torch_frame import two_class_gate
 
 torch.set_num_threads(2)
 
@@ -262,10 +261,8 @@ def test_cli_image_matches_jax_cli(tmp_path, backend):
     img, ref = read_pfm(ours), read_pfm(theirs)
     assert img.shape == ref.shape == (64, 64, 3)
     assert np.isfinite(img).all() and img.max() > 0
-    rmse_trimmed, frac_flip = two_class_gate(img.reshape(-1, 3),
-                                             ref.reshape(-1, 3))
-    assert rmse_trimmed < 1e-3 and frac_flip < 0.005, (rmse_trimmed,
-                                                       frac_flip)
+    gate = two_class_gate(img.reshape(-1, 3), ref.reshape(-1, 3))
+    assert gate["rmse_trimmed"] < 1e-3 and gate["frac_flip"] < 0.005, gate
 
 
 def test_checkpoint_jax_to_port(tmp_path):
@@ -280,10 +277,9 @@ def test_checkpoint_jax_to_port(tmp_path):
     assert cli_main(args + ["--spp", "3", "--seed", "999", "--checkpoint",
                             ck, "--out", ours]) == 0
     assert jax_cli.main(args + ["--spp", "3", "--out", theirs]) == 0
-    rmse_trimmed, frac_flip = two_class_gate(
-        read_pfm(ours).reshape(-1, 3), read_pfm(theirs).reshape(-1, 3))
-    assert rmse_trimmed < 1e-3 and frac_flip < 0.005, (rmse_trimmed,
-                                                       frac_flip)
+    gate = two_class_gate(read_pfm(ours).reshape(-1, 3),
+                          read_pfm(theirs).reshape(-1, 3))
+    assert gate["rmse_trimmed"] < 1e-3 and gate["frac_flip"] < 0.005, gate
 
 
 def test_checkpoint_port_to_jax(tmp_path):

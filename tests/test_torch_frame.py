@@ -21,23 +21,13 @@ from rayaccel_tpu_torch import rng
 from rayaccel_tpu_torch.environment import create_environment
 from rayaccel_tpu_torch.render.pathtracer import pt_trace_frame
 from rayaccel_tpu_torch.render.tiled import block_swizzle
+from rayaccel_tpu_torch.tools.oracle_lib import two_class_gate
 
 from tests.torch_helpers import port_scene
 
 torch.set_num_threads(2)
 
 SIZE, WAVE, TILE, DEPTH = 64, 1024, 512, 2
-
-
-def two_class_gate(img, ref):
-    """``tools/oracle_lib.py:run_image_oracle``'s gate: pixels that differ
-    by more than 0.05 in some channel are winner flips (a shared-edge or
-    near-tie pick re-aims the whole path); the rest must agree to an RMSE
-    of 1e-3, and flips must stay under 0.5% of pixels."""
-    diff = img - ref
-    flip = np.abs(diff).max(axis=1) > 0.05
-    trim = diff[~flip]
-    return float(np.sqrt(np.mean(trim * trim))), float(flip.mean())
 
 
 @pytest.fixture(scope="module")
@@ -79,10 +69,8 @@ def test_frame_matches_jax(frame_inputs):
     assert abs(int(traced) - int(traced_ref)) <= 0.005 * int(traced_ref)
     valid = perm >= 0
     img = rad.reshape(-1, 3).numpy()[valid]
-    rmse_trimmed, frac_flip = two_class_gate(
-        img, np.asarray(ref).reshape(-1, 3)[valid])
-    assert rmse_trimmed < 1e-3 and frac_flip < 0.005, (rmse_trimmed,
-                                                       frac_flip)
+    gate = two_class_gate(img, np.asarray(ref).reshape(-1, 3)[valid])
+    assert gate["rmse_trimmed"] < 1e-3 and gate["frac_flip"] < 0.005, gate
     assert np.isfinite(img).all() and img.max() > 0
 
 

@@ -36,6 +36,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from rayaccel_tpu_torch.tools.oracle_lib import two_class_gate
+
 D = 4
 SIZE, DEPTH, LANES = 128, 3, 128 * 128      # the frames: one wave
 N = LANES // D                              # a rank's lanes
@@ -46,16 +48,6 @@ FRAME_KEY = 7
 RANK_TIMEOUT = 120                          # seconds a collective may wait
 JOB_TIMEOUT = 300                           # seconds the whole job may take
 WHITTED_FRAME = dict(stack_size=4, min_stage_width=1024)
-
-
-def two_class_gate(img, ref):
-    """``tools/oracle_lib.py:run_image_oracle``'s gate: (rmse over the
-    pixels that differ by at most 0.05 in every channel, share of pixels
-    that differ by more)."""
-    diff = img - ref
-    flip = np.abs(diff).max(axis=1) > 0.05
-    trim = diff[~flip]
-    return float(np.sqrt(np.mean(trim * trim))), float(flip.mean())
 
 
 # ---- the launcher ----
@@ -319,6 +311,7 @@ def _port_side(rank, inputs):
         wave_size=RSIZE * RSIZE, trace_block=512, min_stage_width=1024),
         device="cpu")
     out["info"] = racc.info(ctx)
+    out["device_count"] = ctx.device_count
     out["renderers"] = _port_renderers(ctx, rank, inputs)
     out["rebind"] = _port_rebind(ctx, rank, inputs)
     out["per_wave"] = _port_per_wave(rank, inputs)
@@ -491,9 +484,8 @@ def test_sharded_frame_matches_jax(runs, kind):
     want = ref["frames"][kind]
     rad = np.concatenate([g["rad"].reshape(N, 3) for g in got])
     valid = inputs["frames"]["gross"][2]
-    rmse_trimmed, frac_flip = two_class_gate(rad[valid], want["rad"][valid])
-    assert rmse_trimmed < 1e-3 and frac_flip < 0.005, (rmse_trimmed,
-                                                       frac_flip)
+    gate = two_class_gate(rad[valid], want["rad"][valid])
+    assert gate["rmse_trimmed"] < 1e-3 and gate["frac_flip"] < 0.005, gate
     traced = np.array([g["traced"] for g in got])
     assert np.all(np.abs(traced - want["traced"])
                   <= 0.005 * np.maximum(want["traced"], 1)), (traced,
@@ -553,10 +545,8 @@ def test_renderer_matches_jax(runs, kind):
     # lane order: a winner flip keeps its full size in a sum of frames,
     # where the image's mean over frames would shrink it below the gate's
     # flip class.
-    rmse_trimmed, frac_flip = two_class_gate(got[0]["frame_buffer"],
-                                             want["frame_buffer"])
-    assert rmse_trimmed < 1e-3 and frac_flip < 0.005, (rmse_trimmed,
-                                                       frac_flip)
+    gate = two_class_gate(got[0]["frame_buffer"], want["frame_buffer"])
+    assert gate["rmse_trimmed"] < 1e-3 and gate["frac_flip"] < 0.005, gate
     img = np.zeros((RSIZE * RSIZE, 3), np.float32)
     valid = inputs["renderer_perm"] >= 0
     img[inputs["renderer_perm"][valid]] = got[0]["frame_buffer"][valid]
@@ -581,6 +571,14 @@ def test_info_counts_the_ranks(runs):
     port, _, _ = runs
     assert {p["info"].device_count for p in port} == {D}
     assert port[0]["info"].backend == "mxu"
+
+
+def test_device_count_counts_the_ranks(runs):
+    """``Context.device_count`` is the mesh's size on every rank, as
+    ``info`` reports it."""
+    port, _, _ = runs
+    assert [p["device_count"] for p in port] == [D] * D
+    assert all(p["device_count"] == p["info"].device_count for p in port)
 
 
 def test_per_wave_body_folds_the_rank_before_the_wave(runs):

@@ -25,9 +25,9 @@ from rayaccel_tpu_torch.environment import create_environment
 from rayaccel_tpu_torch.render import regroup
 from rayaccel_tpu_torch.render.tiled import block_swizzle
 from rayaccel_tpu_torch.render.whitted import whitted_trace_wave
+from rayaccel_tpu_torch.tools.oracle_lib import two_class_gate
 from rayaccel_tpu_torch.types import Rays
 
-from tests.test_torch_frame import two_class_gate
 from tests.torch_helpers import port_scene
 
 torch.set_num_threads(2)
@@ -138,9 +138,8 @@ def test_whitted_wave_with_regroup_matches_jax():
     assert int(dropped) == int(dropped_ref) == 0
     assert abs(int(traced) - int(traced_ref)) <= 0.005 * int(traced_ref)
     img = rad.numpy()[alive]
-    rmse_trimmed, frac_flip = two_class_gate(img, np.asarray(ref)[alive])
-    assert rmse_trimmed < 1e-3 and frac_flip < 0.005, (rmse_trimmed,
-                                                       frac_flip)
+    gate = two_class_gate(img, np.asarray(ref)[alive])
+    assert gate["rmse_trimmed"] < 1e-3 and gate["frac_flip"] < 0.005, gate
     assert np.isfinite(img).all() and img.max() > 0
     flat, traced_flat, _ = whitted_trace_wave(*port_args, regroup=False, **kw)
     np.testing.assert_array_equal(rad.numpy(), flat.numpy())

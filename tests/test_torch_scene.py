@@ -127,15 +127,21 @@ def test_block_swizzle_bitwise(w, h, pad):
 
 
 def test_import_loads_no_jax():
-    """The port imports torch and never jax."""
+    """The port imports torch and never jax, the JAX package, the repo-root
+    ``tools`` package, ``bench`` or ``__graft_entry__``: its benchmark,
+    oracle and dry run included."""
+    banned = ("jax", "rayaccel_tpu", "tools", "bench", "__graft_entry__")
     code = ("import sys, rayaccel_tpu_torch, rayaccel_tpu_torch.render."
-            "pathtracer; sys.exit(1 if any(m in ('jax', 'rayaccel_tpu') or "
-            "m.startswith(('jax.', 'rayaccel_tpu.')) for m in sys.modules) "
-            "else 0)")
+            "pathtracer, rayaccel_tpu_torch.bench, rayaccel_tpu_torch.tools."
+            "oracle_lib, rayaccel_tpu_torch.tools.dryrun; "
+            f"banned = {banned!r}; "
+            "loaded = [m for m in sys.modules if m in banned or "
+            "m.startswith(tuple(b + '.' for b in banned))]; "
+            "print(loaded); sys.exit(1 if loaded else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120,
                           cwd=os.path.dirname(os.path.dirname(__file__)))
-    assert proc.returncode == 0, proc.stderr
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("kw", [dict(backend="mxu"),

@@ -29,8 +29,8 @@ from rayaccel_tpu_torch.render.tiled import block_swizzle
 from rayaccel_tpu_torch.render.whitted import (whitted_shade,
                                                whitted_trace_frame,
                                                whitted_trace_wave)
+from rayaccel_tpu_torch.tools.oracle_lib import two_class_gate
 
-from tests.test_torch_frame import two_class_gate
 from tests.torch_helpers import camera_rays, port_rays, port_scene
 
 torch.set_num_threads(2)
@@ -187,10 +187,8 @@ def test_whitted_frame_matches_jax(frame_inputs):
     assert abs(int(traced) - int(traced_ref)) <= 0.005 * int(traced_ref)
     valid = perm >= 0
     img = rad.reshape(-1, 3).numpy()[valid]
-    rmse_trimmed, frac_flip = two_class_gate(
-        img, np.asarray(ref).reshape(-1, 3)[valid])
-    assert rmse_trimmed < 1e-3 and frac_flip < 0.005, (rmse_trimmed,
-                                                       frac_flip)
+    gate = two_class_gate(img, np.asarray(ref).reshape(-1, 3)[valid])
+    assert gate["rmse_trimmed"] < 1e-3 and gate["frac_flip"] < 0.005, gate
     assert np.isfinite(img).all() and img.max() > 0
 
 
@@ -238,10 +236,8 @@ def test_scanned_dense_bounce_matches_jax(frame_inputs):
     assert int(dropped) == int(dropped_ref) == 0
     valid = perm >= 0
     img = rad.reshape(-1, 3).numpy()[valid]
-    rmse_trimmed, frac_flip = two_class_gate(
-        img, np.asarray(ref).reshape(-1, 3)[valid])
-    assert rmse_trimmed < 1e-3 and frac_flip < 0.005, (rmse_trimmed,
-                                                       frac_flip)
+    gate = two_class_gate(img, np.asarray(ref).reshape(-1, 3)[valid])
+    assert gate["rmse_trimmed"] < 1e-3 and gate["frac_flip"] < 0.005, gate
     assert np.isfinite(img).all() and img.max() > 0
 
 
