@@ -11,7 +11,7 @@ is missing. Phases, one JSON line each:
 
 1. device: the card's name, and ``nvidia-smi``'s name and power limit
    (also printed raw on a line of their own);
-2. build: the four hand-written kernels (``rayaccel_tpu_torch/csrc``)
+2. build: the hand-written kernels (``rayaccel_tpu_torch/csrc``)
    compiled by nvcc for sm_90a (one nvcc per source, in parallel), with
    ptxas's register report;
 3. kernels: each kernel against its plain PyTorch version on the card, at
@@ -44,7 +44,18 @@ is missing. Phases, one JSON line each:
    scene's bf16 fragment copy of the distinct clusters queued (K1, K4) or
    named by the items (K3), which the variants stage in place of G3's
    rows (``bytes`` still counts G3's); K3's bf16 variant runs at the
-   narrow shape too, and takes as many work units as the fp32 form;
+   narrow shape too, and takes as many work units as the fp32 form. After
+   K3's line, the ``probes`` line: the ports of the TPU probes, P1-P3
+   (``tools/probe_dma.py``'s steps A-C, ``csrc/probe_dma.cu``) and P4
+   (``tools/probe_pair_dma.py``'s multi-block pair kernel,
+   ``csrc/pair_hit_mb.cu``, on K3's inputs), first driven through their
+   entry points' ``run`` with their launch counts set to 0 just before
+   and read just after (each must be > 0), then P1-P3 bit for bit against
+   their plain versions, with their bound (bytes over 3.35 TB/s) and the
+   one PyTorch call that computes each (``library_ms``), and P4 with 0
+   differing words from K3 on the pairs an item covers, K3's oracle bar
+   against ``pair_hit_plain``, its ms at 1, 2 and 4 blocks a CTA beside
+   K3's, and K3's bound;
 4. slice: ``PathTracingRenderer`` at 1280x720, depth 2, the default
    configuration: one warm-up frame and three timed frames, with every
    kernel's launch count over the timed frames (each must be > 0),
@@ -150,10 +161,11 @@ is missing. Phases, one JSON line each:
     ``rmse_trimmed < 1e-3``, ``frac_flip < 0.5%``, ``dropped`` 0, with
     each side's seconds;
 27. ``bench``: ``python -m rayaccel_tpu_torch.bench`` in a subprocess with
-    ``BENCH_ONLY=2,5,1,6,3,4`` and ``BENCH_FRAMES=2``: exit 0, every line
-    JSON, each config's metric once and none an error or skipped,
-    ``dropped`` 0 on every line, the dry run ok, and the headline last
-    with a value above 0.
+    ``BENCH_ONLY=2,5`` and ``BENCH_FRAMES=2`` (the headline, the one-rank
+    mesh and its group's teardown, and the dry run; the other configs are
+    the slices above): exit 0, every line JSON, each config's metric once
+    and none an error or skipped, ``dropped`` 0 on every line, the dry run
+    ok, and the headline first and again last with a value above 0.
 
 Each slice sets every launch count to 0 just before its timed frames and
 reads them just after. After them, each slice renders two more frames:
@@ -196,12 +208,11 @@ NO_LIBRARY = "none: no single PyTorch call computes it"
 # Rays of each of the oracle's ray sets (``tools/oracle_lib.py``'s).
 ORACLE_RAYS = 65536
 # The metrics of ``python -m rayaccel_tpu_torch.bench`` at
-# ``BENCH_ONLY=2,5,1,6,3,4``, the headline first.
+# ``BENCH_ONLY=2,5``, the headline first.
+BENCH_ONLY = "2,5"
 BENCH_HEADLINE = "pt_battlefield_mrays_per_s_per_chip"
 BENCH_METRICS = (BENCH_HEADLINE, "multichip_mesh1_gpu_mrays_per_s",
-                 "whitted_primary_shadow_mrays_per_s",
-                 "whitted_depth8_mrays_per_s", "pt8_fullbsdf_mrays_per_s",
-                 "pt_stratified_mrays_per_s", "multichip_cpu_mesh_smoke")
+                 "multichip_cpu_mesh_smoke")
 # Each kernel's name in a profiler trace; "_bf16" names the bf16
 # tensor-core variant (precision "default") of K1, K3 and K4. K3's unit
 # pass, which both of its forms run, is reported beside them.
@@ -374,26 +385,6 @@ def kernel_row(s):
                               "share_of_bound", "library_ms", "library")}
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds of ``fn()`` on the current stream over ``reps``
-    runs after one warm-up, timed with CUDA events. The device first
-    spins for about a millisecond, so that the host has every run
-    enqueued before the first starts: a launch that takes the device less
-    than the host takes to enqueue it (the narrow ones) is then timed at
-    the device's pace and not the host's."""
-    import torch
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(2_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def hit_stats(hit_a, hit_b, win_a, win_b, t_a, t_b):
     """Oracle-table agreement between two traces of the same rays."""
     import torch
@@ -411,7 +402,7 @@ def hit_stats(hit_a, hit_b, win_a, win_b, t_a, t_b):
 
 def check_bench(rc, lines):
     """Raise unless ``python -m rayaccel_tpu_torch.bench`` with
-    ``BENCH_ONLY=2,5,1,6,3,4`` exited 0 with its contract: the knobs line,
+    ``BENCH_ONLY=2,5`` exited 0 with its contract: the knobs line,
     each config's metric once and none an error or skipped, every
     ``dropped`` 0, the dry run ok, and the headline again last with a
     positive value."""
@@ -466,10 +457,11 @@ def main() -> int:
                                                  make_battlefield_like,
                                                  save_scene)
     from rayaccel_tpu_torch import cli as racc_cli
-    from rayaccel_tpu_torch.tools import oracle_lib
+    from rayaccel_tpu_torch.tools import oracle_lib, probe_dma, probe_pair_dma
     from rayaccel_tpu_torch.tools.oracle_lib import (require_oracle_bar,
                                                      two_class_gate)
     from rayaccel_tpu_torch.utils import image, profiling
+    from rayaccel_tpu_torch.utils.profiling import cuda_ms
     from rayaccel_tpu_torch.utils.viewer import Viewer
 
     dev = torch.device("cuda", 0)
@@ -695,6 +687,78 @@ def main() -> int:
                         replaces="rayaccel_tpu/ops/trace_sparse.py:77",
                         max_abs_err=s3["max_abs_t"], **kernel_row(s3)))
 
+    # The probes, P1-P3 (tools/probe_dma.py) and P4 (tools/probe_pair_dma.py,
+    # on K3's inputs): first their own path, the entry points' runs, with
+    # their launch counts set to 0 just before and read just after; then
+    # each kernel against its plain version on the same inputs.
+    probe_fns = (probe_dma.copy_static, probe_dma.copy_dynamic,
+                 probe_dma.copy_worklist, probe_pair_dma.pair_hit_mb)
+    for fn in probe_fns:
+        fn.launches = 0
+    dma_lines = probe_dma.run(dev)
+    exact, timing = probe_pair_dma.run(*a3[:4], sp=SP)
+    probe_launches = {fn.__name__: fn.launches for fn in probe_fns}
+    if not (all(ln["ok"] for ln in dma_lines)
+            and not any(exact["n_diff_by_gb"].values())
+            and min(probe_launches.values()) > 0):
+        raise AssertionError(f"probes failed: {dma_lines} {exact} "
+                             f"{probe_launches}")
+    probe_rows, steps = [], []
+    for (step, fn, fargs, _, text), line, line_no in zip(
+            probe_dma.steps(probe_dma.probe_input(dev)), dma_lines,
+            (33, 57, 88)):
+        plain = getattr(probe_dma, fn.__name__ + "_plain")
+        got, want = fn(*fargs), plain(*fargs)
+        torch.cuda.synchronize()
+        # Bytes: each block read, the output written, the index list read.
+        blocks = fargs[1].numel() if step == "C" else 1
+        flop = blocks * got.numel() if step == "C" else 0
+        ps = dict(step=step, bitwise_equal=bool(torch.equal(got, want)),
+                  ms=line["kernel_us"] / 1e3,
+                  plain_ms=cuda_ms(lambda: plain(*fargs), 100))
+        ps.update(roofline(flop, (blocks + 1) * nbytes(got)
+                           + nbytes(*fargs[1:]), ps["ms"]))
+        ps.update(library_ms=line["library_us"] / 1e3, library=text)
+        steps.append(dict(name=fn.__name__, **ps))
+        if not ps["bitwise_equal"]:
+            raise AssertionError(f"{fn.__name__} differs from its plain "
+                                 f"version: {ps}")
+        probe_rows.append(dict(
+            name=fn.__name__, route="cuda",
+            source="rayaccel_tpu_torch/csrc/probe_dma.cu",
+            replaces=f"tools/probe_dma.py:{line_no}",
+            launches=probe_launches[fn.__name__],
+            max_abs_err=float((got - want).abs().max()), **kernel_row(ps)))
+    mb = probe_pair_dma.pair_hit_mb(*a3, sp=SP)
+    torch.cuda.synchronize()
+    live = sparse.covered_pairs(Fp, items)[0]
+    s_mb = hit_stats(*(x for pair in zip(per_ray(mb), per_ray(pp))
+                       for x in pair))
+    s_mb.update(live_pairs=int(live.sum()),
+                words_differing_k3=int(((mb != pk) & live).sum()),
+                words_differing=int((mb != pp).sum()),
+                gb=timing["gb"], blocks=timing["blocks"],
+                **timing["counters"], ms=timing["mb_ms"],
+                k3_ms=timing["base_ms"], mb_ms_by_gb=timing["mb_ms_by_gb"],
+                plain_ms=cuda_ms(
+                    lambda: probe_pair_dma.pair_hit_mb_plain(*a3, sp=SP),
+                    1))
+    s_mb.update(roofline(*kernel_work(dense, "pair_hit", a3, mb,
+                                      cs.n_clusters), s_mb["ms"]))
+    emit(dict(phase="probes", launches=probe_launches, steps=steps,
+              mb_exactness=exact, pair_hit_mb=s_mb))
+    require_oracle_bar("P4", s_mb)
+    if s_mb["words_differing_k3"]:
+        raise AssertionError(f"P4 differs from K3: {s_mb}")
+    probe_rows.append(dict(
+        name="pair_hit_mb", route="cuda",
+        source="rayaccel_tpu_torch/csrc/pair_hit_mb.cu",
+        replaces="tools/probe_pair_dma.py:63",
+        launches=probe_launches["pair_hit_mb"],
+        max_abs_err=s_mb["max_abs_t"], k3_ms=s_mb["k3_ms"],
+        mb_ms_by_gb=s_mb["mb_ms_by_gb"], **kernel_row(s_mb)))
+    del mb, live
+
     pk_b = sparse.pair_hit(*a3, **kernel_default)
     pp_b = sparse.pair_hit_plain(*a3, **default)
     torch.cuda.synchronize()
@@ -881,7 +945,7 @@ def main() -> int:
 
     del surf, F4, a4, q4c, q4e, q4n, occ_k, occ_p, occ_b, occ_bp
     if sys.argv[1:] == ["--kernels"]:
-        emit(dict(kernels_ok=True, kernels=kernels + bf16_rows))
+        emit(dict(kernels_ok=True, kernels=kernels + bf16_rows + probe_rows))
         return 0
 
     wrappers = (dense.dense_closest_hit, dense.dense_occluded,
@@ -1664,12 +1728,12 @@ def main() -> int:
                      ["dense_closest_hit", "select_nearest", "pair_hit"])
     app_launches["image_oracle"] = (launches, None)
 
-    # ---- 27. the port's benchmark, configs 2, 5, 1, 6, 3 and 4 ----
+    # ---- 27. the port's benchmark, configs 2 and 5 ----
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "rayaccel_tpu_torch.bench"],
         cwd=os.path.dirname(os.path.abspath(__file__)),
-        env={**os.environ, "BENCH_ONLY": "2,5,1,6,3,4", "BENCH_FRAMES": "2"},
+        env={**os.environ, "BENCH_ONLY": BENCH_ONLY, "BENCH_FRAMES": "2"},
         capture_output=True, text=True, timeout=900)
     bench_lines = [json.loads(ln) for ln in proc.stdout.splitlines()]
     emit(dict(phase="bench", rc=proc.returncode,
@@ -1702,7 +1766,9 @@ def main() -> int:
         for key in ("ms", "bound_ms", "gap_ms", "share_of_bound"):
             k[f"frame_{key}"] = {name: per[n][key] for name, (*_, per) in
                                  slices.items()}
-    emit(dict(kernels=kernels))
+    # The probes lie on no renderer path: their launches are their own
+    # path's (the probes phase).
+    emit(dict(kernels=kernels + probe_rows))
     emit(dict(ok=True, device=dict(platform="gpu", kind=kind,
                                    count=torch.cuda.device_count())))
     return 0

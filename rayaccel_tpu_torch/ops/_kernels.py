@@ -49,6 +49,11 @@ _SIGNATURES = {
     "racc_select_max_boxes": [],
     "racc_pair_hit": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                       _P],
+    "racc_probe_static": [_P, _I, _I, _I, _I, _P, _P, _I, _P],
+    "racc_probe_dynamic": [_P, _I, _I, _P, _I, _P, _P, _I, _P],
+    "racc_probe_worklist": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _P],
+    "racc_pair_hit_mb": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _P],
 }
 
 
@@ -134,6 +139,23 @@ def library() -> ctypes.CDLL:
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+# The error words of the kernels that wait on an mbarrier
+# (``csrc/tma.cuh``): err[0] a code, err[1] the step it failed at.
+_DEVICE_ERRORS = {1: "was given less dynamic shared memory than it needs",
+                  2: "timed out waiting on an mbarrier",
+                  3: "read a row block index out of range"}
+
+
+def check_device(err: torch.Tensor, name: str) -> None:
+    """Raise if a kernel reported a failure in its error word ``err`` (a
+    (2,) int32 CUDA tensor of zeros before the launch). Reads it on the
+    host, so it waits for the kernels before it on the stream."""
+    code, step = err.tolist()
+    if code != 0:
+        what = _DEVICE_ERRORS.get(code, f"reported error {code}")
+        raise RuntimeError(f"{name}: the kernel {what} (step {step})")
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

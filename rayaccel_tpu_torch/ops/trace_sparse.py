@@ -304,47 +304,65 @@ def pair_hit_plain(Fp, G3, items, col_bits: int, guard_tmax: bool,
     G3) are rounded to bf16 before the products; tmin and tmax are not."""
     bf16 = use_bf16(precision)
     P = Fp.shape[0]
-    C = G3.shape[1] // 4
     out = torch.full((P,), _MISS_BITS, dtype=torch.int32, device=Fp.device)
     if items.shape[0] == 0:
         return out
+    covered, cl = covered_pairs(Fp, items)
+    sel = covered.nonzero().squeeze(1)
+    lanes = Fp[:, 12].contiguous().view(torch.int32)
+    G10 = round_bf16(G3[:, :, :10]) if bf16 else G3[:, :, :10]
+    for s in range(0, sel.numel(), chunk):
+        q = sel[s:s + chunk]
+        out[q] = pair_words(Fp[q], G10[cl[q]], lanes[q], col_bits,
+                            guard_tmax, col_split, bf16)
+    return out
+
+
+def covered_pairs(Fp, items):
+    """(covered (P,) bool, cluster (P,) int64): the pairs of ``Fp`` that an
+    item covers and whose lane word names the item's cluster (the pairs
+    K3 writes), and the cluster of the item at or before each pair.
+    ``items`` sorted by start, at least one."""
+    P = Fp.shape[0]
     starts, ends, clusters = (items[:, i].long().contiguous() for i in range(3))
     pos = torch.arange(P, device=Fp.device)
     item = torch.clamp_min(torch.searchsorted(starts, pos, right=True) - 1, 0)
     lanes = Fp[:, 12].contiguous().view(torch.int32)
     cl = clusters[item]
-    covered = ((pos >= starts[item]) & (pos < ends[item])
-               & ((lanes & _CL_MASK) == cl))
-    sel = covered.nonzero().squeeze(1)
+    return ((pos >= starts[item]) & (pos < ends[item])
+            & ((lanes & _CL_MASK) == cl)), cl
+
+
+def pair_words(f, g, lanes, col_bits: int, guard_tmax: bool,
+               col_split: int = 1, bf16: bool = False) -> torch.Tensor:
+    """K3's arithmetic for pair rows ``f`` (n, 16) against their clusters'
+    columns ``g`` ((n, 4C, 10), or (1, 4C, 10) for one cluster; already
+    bf16-rounded with ``bf16``), with the pairs' lane words ``lanes``
+    (n,): each pair's min(miss marker, packed (score | rank | column))."""
+    C = g.shape[1] // 4
     low = (1 << (col_bits + 3)) - 1
-    col = torch.arange(C, dtype=torch.int32, device=Fp.device)
-    G10 = round_bf16(G3[:, :, :10]) if bf16 else G3[:, :, :10]
-    for s in range(0, sel.numel(), chunk):
-        q = sel[s:s + chunk]
-        f = Fp[q]
-        fx = round_bf16(f[:, :10]) if bf16 else f
-        g = G10[cl[q]]                                     # (n, 4C, 10)
-        S = fx[:, 0:1] * g[:, :, 0]
-        for i in range(1, 10):
-            S = S + fx[:, i:i + 1] * g[:, :, i]
-        det, u, v, tn = S[:, :C], S[:, C:2 * C], S[:, 2 * C:3 * C], S[:, 3 * C:]
-        det_i = det.view(torch.int32)
-        sign_ok = ((u.view(torch.int32) ^ det_i)
-                   | (v.view(torch.int32) ^ det_i)) >= 0
-        ad = torch.abs(det)
-        ts = (tn.view(torch.int32) ^ (det_i & _INT_MIN)).view(torch.float32)
-        valid = (sign_ok & (torch.abs(u + v) <= ad)
-                 & (ts > ad * f[:, 10:11]))
-        if guard_tmax:
-            valid = valid & (ts < ad * f[:, 11:12])
-        score = torch.where(valid, ts * torch.reciprocal(ad),
-                            torch.full_like(ts, 3e38))
-        rank = (lanes[q] >> _RANK_SHIFT) << col_bits
-        sp = (score.view(torch.int32) & ~low) | rank[:, None] | col
-        parts = torch.stack([sp[:, p::col_split].amin(dim=1)
-                             for p in range(col_split)])
-        out[q] = torch.clamp_max(parts.amin(dim=0), _MISS_BITS)
-    return out
+    col = torch.arange(C, dtype=torch.int32, device=f.device)
+    fx = round_bf16(f[:, :10]) if bf16 else f
+    S = fx[:, 0:1] * g[:, :, 0]
+    for i in range(1, 10):
+        S = S + fx[:, i:i + 1] * g[:, :, i]
+    det, u, v, tn = S[:, :C], S[:, C:2 * C], S[:, 2 * C:3 * C], S[:, 3 * C:]
+    det_i = det.view(torch.int32)
+    sign_ok = ((u.view(torch.int32) ^ det_i)
+               | (v.view(torch.int32) ^ det_i)) >= 0
+    ad = torch.abs(det)
+    ts = (tn.view(torch.int32) ^ (det_i & _INT_MIN)).view(torch.float32)
+    valid = (sign_ok & (torch.abs(u + v) <= ad)
+             & (ts > ad * f[:, 10:11]))
+    if guard_tmax:
+        valid = valid & (ts < ad * f[:, 11:12])
+    score = torch.where(valid, ts * torch.reciprocal(ad),
+                        torch.full_like(ts, 3e38))
+    rank = (lanes >> _RANK_SHIFT) << col_bits
+    sp = (score.view(torch.int32) & ~low) | rank[:, None] | col
+    parts = torch.stack([sp[:, p::col_split].amin(dim=1)
+                         for p in range(col_split)])
+    return torch.clamp_max(parts.amin(dim=0), _MISS_BITS)
 
 
 # -------------------------------------------------------- pass + trace ----

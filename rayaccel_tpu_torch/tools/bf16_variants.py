@@ -9,7 +9,7 @@ of ``csrc/`` is rewritten, and a subprocess builds that copy's kernels and
 times them on ``chip_smoke.py``'s headline inputs (the 65,536-ray primary
 wave of the battlefield-like scene at 1280x720 for K1, the shadow rays of
 its hits for K4, the pairs of pass 1 of the first bounce for K3):
-CUDA-event ms (``chip_smoke.py:cuda_ms``), the pairs the warps walked (K1,
+CUDA-event ms (``utils/profiling.py:cuda_ms``), the pairs the warps walked (K1,
 K4) or the work units (K3), and the words (K1, K3) or flags (K4)
 differing from the plain versions (K1's and K4's walking in the
 variant's group). Prints one JSON line a variant; the first, ``chosen``,
@@ -75,6 +75,7 @@ def measure(name, warp_rays):
     from rayaccel_tpu_torch.scene.clusters import (cluster_scene_from_numpy,
                                                    compile_clusters_np)
     from rayaccel_tpu_torch.scene.loader import make_battlefield_like
+    from rayaccel_tpu_torch.utils import profiling
     dev = torch.device("cuda", 0)
     sd = make_battlefield_like(max_depth=2)
     cs = cluster_scene_from_numpy(**compile_clusters_np(sd), device=dev)
@@ -109,7 +110,7 @@ def measure(name, warp_rays):
              a1),
             ("k4", dense.dense_occluded, dense.dense_occluded_plain, a4)):
         got, want = fn(*a, **kw), fn_plain(*a, **plain)
-        line[key] = dict(ms=smoke.cuda_ms(lambda: fn(*a, **kw), 20),
+        line[key] = dict(ms=profiling.cuda_ms(lambda: fn(*a, **kw), 20),
                          pairs_walked=smoke.counted(fn, a, "walked", 1,
                                                     **kw)[0],
                          differing=int((got != want).sum()))
@@ -132,13 +133,13 @@ def measure(name, warp_rays):
           False)
     got = sparse.pair_hit(*a3, **kw)
     want = sparse.pair_hit_plain(*a3, precision="default")
-    line["k3"] = dict(ms=smoke.cuda_ms(lambda: sparse.pair_hit(*a3, **kw),
+    line["k3"] = dict(ms=profiling.cuda_ms(lambda: sparse.pair_hit(*a3, **kw),
                                        20),
                       units=smoke.counted(sparse.pair_hit, a3, "stats", 3,
                                           **kw)[0],
                       differing=int((got != want).sum()))
     if name == "chosen":
-        line["k3_fp32_ms"] = smoke.cuda_ms(lambda: sparse.pair_hit(*a3), 20)
+        line["k3_fp32_ms"] = profiling.cuda_ms(lambda: sparse.pair_hit(*a3), 20)
     print(json.dumps(line), flush=True)
 
 

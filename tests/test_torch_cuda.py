@@ -842,3 +842,115 @@ def test_oracle_on_the_card_passes_the_bar(cuda):
     assert ok and oracle_bar(rows)
     assert [r["rays"] for r in rows].count("sky") == 4
     assert all(fn.launches > n for fn, n in before.items())
+
+
+# ---- the probes: P1-P3 (tools/probe_dma.py), P4 (tools/probe_pair_dma.py)
+
+@pytest.mark.parametrize("case", [
+    ("static", 0), ("static", 8), ("static", 56),
+    ("dynamic", [0]), ("dynamic", [3]), ("dynamic", [7]),
+    ("worklist", [1, 5, 2, 7]), ("worklist", [0]),
+    ("worklist", [7, 7, 0, 3, 3, 1]), ("worklist", list(range(8)) * 4)],
+    ids=str)
+def test_dma_probes_match_plain_bitwise(cuda, case):
+    """P1-P3 on the probe's x and on a (96, 36) array in blocks of 4 rows
+    (576 bytes) against their plain versions, bit for bit: P3 reuses its
+    buffer and barrier once per index, so a wrong parity shows as a stale
+    block or a timeout."""
+    from rayaccel_tpu_torch.tools import probe_dma as pd
+    kind, arg = case
+    other = torch.tensor(np.random.default_rng(7).normal(size=(96, 36)),
+                         dtype=torch.float32, device=cuda)
+    for x, rows in ((pd.probe_input(cuda), 8), (other, 4)):
+        fn = getattr(pd, f"copy_{kind}")
+        plain = getattr(pd, f"copy_{kind}_plain")
+        args = ((x, arg * rows // 8, rows) if kind == "static" else
+                (x, torch.tensor(arg, dtype=torch.int32, device=cuda), rows))
+        launches = fn.launches
+        got = fn(*args)
+        assert fn.launches == launches + 1
+        assert torch.equal(got, plain(*args))
+        assert torch.equal(got.cpu(), plain(*(a.cpu() if torch.is_tensor(a)
+                                              else a for a in args)))
+
+
+def test_dma_probes_raise_instead_of_copying_wrong(cuda):
+    """A bulk copy whose size is not a multiple of 16 bytes or whose start
+    is not 16-byte aligned is refused before the launch; an index read on
+    the device out of range, too little shared memory and a launch the
+    card refuses (more shared memory than a CTA may have) each raise, and
+    no output is returned."""
+    from rayaccel_tpu_torch.tools import probe_dma as pd
+    narrow = torch.zeros((64, 3), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pd.copy_static(narrow, 0, 1)                      # 12 bytes
+    with pytest.raises(ValueError, match="16 bytes"):
+        pd.copy_static(narrow, 1, 4)                      # starts at byte 12
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pd.copy_worklist(narrow, torch.tensor([0], dtype=torch.int32,
+                                              device=cuda), 1)
+    x = pd.probe_input(cuda)
+    bad = torch.tensor([1, 8], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="out of range"):
+        pd.copy_worklist(x, bad)
+    with pytest.raises(RuntimeError, match="out of range"):
+        pd.copy_dynamic(x, bad[1:])
+    with pytest.raises(RuntimeError, match="less dynamic shared memory"):
+        pd.copy_static(x, smem=2048)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pd.copy_static(x, smem=400_000)
+    # The card is still usable, and a good launch still right.
+    assert torch.equal(pd.copy_static(x), x[8:16])
+
+
+@pytest.mark.parametrize("gb", [1, 2, 4])
+@pytest.mark.parametrize("cluster_size", [6, 16, 128])
+def test_pair_hit_mb_equals_k3(cuda, scene_data, cluster_size, gb):
+    """P4 against K3 on the same pairs (runs longer than a 64-pair chunk,
+    a cluster on both sides of an SP boundary, and the same pairs cut into
+    items of 1-5), closest and any hit: every word equal, the uncovered
+    pairs the miss marker; at the oracle bar against the plain version;
+    the counters report every run, one staged cluster block each, and no
+    more CTAs than the grid."""
+    from rayaccel_tpu_torch.tools import probe_pair_dma as pm
+    cs = cluster_scene_from_numpy(
+        **compile_clusters_np(scene_data, cluster_size=cluster_size),
+        device=cuda)
+    Fp, items, short = _pair_case(cs, 4096, 11, cuda)
+    col_bits = max((cs.cluster_size - 1).bit_length(), 1)
+    blocks = -(-Fp.shape[0] // 512)
+    for guard in (False, True):
+        for it in (items, short):
+            stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+            got = pm.pair_hit_mb(Fp, cs.G3, it, col_bits, guard, gb=gb,
+                                 sp=512, stats=stats)
+            assert torch.equal(got, sparse.pair_hit(Fp, cs.G3, it, col_bits,
+                                                    guard))
+            runs, ctas, staged = stats.tolist()
+            assert runs == it.shape[0] and 0 < ctas <= -(-blocks // gb)
+            assert staged == runs * 4 * cluster_size * 64
+        _same_words(got, pm.pair_hit_mb_plain(Fp, cs.G3, short, col_bits,
+                                              guard, sp=512),
+                    (1 << (col_bits + 3)) - 1)
+
+
+def test_pair_hit_mb_raises_instead_of_returning_stale_words(cuda, scenes):
+    """P4 launched with less shared memory than its ring raises (the kernel
+    checks what it was given), as does a launch the card refuses and a G3
+    whose cluster blocks do not start on 16 bytes; none falls back to the
+    plain version."""
+    from rayaccel_tpu_torch.tools import probe_pair_dma as pm
+    _, cs = scenes
+    Fp, items, _ = _pair_case(cs, 1024, 3, cuda)
+    col_bits = max((cs.cluster_size - 1).bit_length(), 1)
+    args = (Fp, cs.G3, items, col_bits, False)
+    with pytest.raises(RuntimeError, match="less dynamic shared memory"):
+        pm.pair_hit_mb(*args, sp=512, smem=4096)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pm.pair_hit_mb(*args, sp=512, smem=400_000)
+    flat = torch.zeros(cs.G3.numel() + 1, device=cuda)
+    shifted = flat[1:].view(cs.G3.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        pm.pair_hit_mb(Fp, shifted, items, col_bits, False, sp=512)
+    assert torch.equal(pm.pair_hit_mb(*args, sp=512),
+                       sparse.pair_hit(*args))

@@ -129,11 +129,13 @@ def test_block_swizzle_bitwise(w, h, pad):
 def test_import_loads_no_jax():
     """The port imports torch and never jax, the JAX package, the repo-root
     ``tools`` package, ``bench`` or ``__graft_entry__``: its benchmark,
-    oracle and dry run included."""
+    oracle, dry run and probes included."""
     banned = ("jax", "rayaccel_tpu", "tools", "bench", "__graft_entry__")
     code = ("import sys, rayaccel_tpu_torch, rayaccel_tpu_torch.render."
             "pathtracer, rayaccel_tpu_torch.bench, rayaccel_tpu_torch.tools."
-            "oracle_lib, rayaccel_tpu_torch.tools.dryrun; "
+            "oracle_lib, rayaccel_tpu_torch.tools.dryrun, "
+            "rayaccel_tpu_torch.tools.probe_dma, "
+            "rayaccel_tpu_torch.tools.probe_pair_dma; "
             f"banned = {banned!r}; "
             "loaded = [m for m in sys.modules if m in banned or "
             "m.startswith(tuple(b + '.' for b in banned))]; "
