@@ -52,10 +52,14 @@ is missing. Phases, one JSON line each:
    entry points' ``run`` with their launch counts set to 0 just before
    and read just after (each must be > 0), then P1-P3 bit for bit against
    their plain versions, with their bound (bytes over 3.35 TB/s) and the
-   one PyTorch call that computes each (``library_ms``), and P4 with 0
-   differing words from K3 on the pairs an item covers, K3's oracle bar
-   against ``pair_hit_plain``, its ms at 1, 2 and 4 blocks a CTA beside
-   K3's, and K3's bound;
+   one PyTorch call that computes each (``library_ms``), and P4 (K3's
+   work units, a producer warp's TMA tensor copies into a ring of 2, 3
+   or 4 stages) with 0 differing words from K3 on the pairs an item
+   covers at every ring depth, its counters (units, CTAs, bytes staged)
+   equal to the host's plan and, on K3's grid, its bytes K3's clusters
+   staged x 48 bytes a row, K3's oracle bar against ``pair_hit_plain``,
+   its ms at each depth beside K3's (timed first and last), and K3's
+   bound; P4 again at K3's narrow shape (after K3's narrow lines);
 4. slice: ``PathTracingRenderer`` at 1280x720, depth 2, the default
    configuration: one warm-up frame and three timed frames, with every
    kernel's launch count over the timed frames (each must be > 0),
@@ -419,6 +423,22 @@ def check_bench(rc, lines):
         raise AssertionError(f"bench failed (rc {rc}): {lines}")
 
 
+def check_mb(exact, timing, k3, C, shape):
+    """P4's run (``tools/probe_pair_dma.py:run``) at one shape: no word
+    differs from K3's at any ring depth, the kernel's counters equal the
+    plan's, and where its CTAs are K3's (the same grid) it staged K3's
+    clusters (``k3``: K3's kernel line), 48 bytes a G3 row."""
+    bad = [S for S, n in exact["n_diff_by_stages"].items() if n]
+    bad += [S for S, ok in exact["counters_equal_plan"].items() if not ok]
+    for S, got in timing["counters"].items():
+        if got["ctas"] == k3["ctas"] and (got["bytes_staged"] != k3[
+                "clusters_staged"] * 4 * C * 48):
+            bad.append(S)
+    if bad:
+        raise AssertionError(f"P4 at the {shape} shape failed at ring depths "
+                             f"{sorted(set(bad))}: {exact} {timing}")
+
+
 def read_pfm(path):
     """(H, W, 3) float32 of a PFM file (bottom-up rows, little-endian)."""
     import numpy as np
@@ -696,13 +716,12 @@ def main() -> int:
     for fn in probe_fns:
         fn.launches = 0
     dma_lines = probe_dma.run(dev)
-    exact, timing = probe_pair_dma.run(*a3[:4], sp=SP)
+    exact, timing = probe_pair_dma.run(*a3[:4])
     probe_launches = {fn.__name__: fn.launches for fn in probe_fns}
     if not (all(ln["ok"] for ln in dma_lines)
-            and not any(exact["n_diff_by_gb"].values())
             and min(probe_launches.values()) > 0):
-        raise AssertionError(f"probes failed: {dma_lines} {exact} "
-                             f"{probe_launches}")
+        raise AssertionError(f"probes failed: {dma_lines} {probe_launches}")
+    check_mb(exact, timing, s3, cs.cluster_size, "headline")
     probe_rows, steps = [], []
     for (step, fn, fargs, _, text), line, line_no in zip(
             probe_dma.steps(probe_dma.probe_input(dev)), dma_lines,
@@ -729,7 +748,7 @@ def main() -> int:
             replaces=f"tools/probe_dma.py:{line_no}",
             launches=probe_launches[fn.__name__],
             max_abs_err=float((got - want).abs().max()), **kernel_row(ps)))
-    mb = probe_pair_dma.pair_hit_mb(*a3, sp=SP)
+    mb = probe_pair_dma.pair_hit_mb(*a3)
     torch.cuda.synchronize()
     live = sparse.covered_pairs(Fp, items)[0]
     s_mb = hit_stats(*(x for pair in zip(per_ray(mb), per_ray(pp))
@@ -737,9 +756,10 @@ def main() -> int:
     s_mb.update(live_pairs=int(live.sum()),
                 words_differing_k3=int(((mb != pk) & live).sum()),
                 words_differing=int((mb != pp).sum()),
-                gb=timing["gb"], blocks=timing["blocks"],
-                **timing["counters"], ms=timing["mb_ms"],
-                k3_ms=timing["base_ms"], mb_ms_by_gb=timing["mb_ms_by_gb"],
+                stages=timing["stages"], counters=timing["counters"],
+                plan=timing["plan"], k3_counters=timing["k3_counters"],
+                ms=timing["mb_ms"], k3_ms=timing["base_ms"],
+                mb_ms_by_stages=timing["mb_ms_by_stages"],
                 plain_ms=cuda_ms(
                     lambda: probe_pair_dma.pair_hit_mb_plain(*a3, sp=SP),
                     1))
@@ -755,8 +775,9 @@ def main() -> int:
         source="rayaccel_tpu_torch/csrc/pair_hit_mb.cu",
         replaces="tools/probe_pair_dma.py:63",
         launches=probe_launches["pair_hit_mb"],
-        max_abs_err=s_mb["max_abs_t"], k3_ms=s_mb["k3_ms"],
-        mb_ms_by_gb=s_mb["mb_ms_by_gb"], **kernel_row(s_mb)))
+        max_abs_err=s_mb["max_abs_t"], stages=s_mb["stages"],
+        k3_ms=s_mb["k3_ms"], mb_ms_by_stages=s_mb["mb_ms_by_stages"],
+        **kernel_row(s_mb)))
     del mb, live
 
     pk_b = sparse.pair_hit(*a3, **kernel_default)
@@ -863,6 +884,8 @@ def main() -> int:
         s3.update(roofline(*kernel_work(dense, "pair_hit", a, pk,
                                         cs.n_clusters), s3["ms"], peak))
         emit(dict(phase="kernel", name=name, **s3))
+        if not kw:
+            k3_narrow = s3
         row["narrow"] = dict(pairs=s3["pairs"],
                              **{k: s3[k] for k in narrow_keys})
         require_oracle_bar(name, s3)
@@ -870,6 +893,26 @@ def main() -> int:
     if units[0] != units[1]:
         raise AssertionError(f"K3 bf16 took {units[1]} work units at the "
                              f"narrow shape, the fp32 form {units[0]}")
+    # P4 at the narrow shape, every ring depth beside K3 (timed first and
+    # last), its counters against the plan's.
+    exact, timing = probe_pair_dma.run(*a[:4])
+    check_mb(exact, timing, k3_narrow, cs.cluster_size, "narrow")
+    mb = probe_pair_dma.pair_hit_mb(*a[:4], False)
+    s_mb = dict(pairs=int(a[0].shape[0]), items=int(a[2].shape[0]),
+                live_pairs=exact["n"], stages=timing["stages"],
+                counters=timing["counters"], plan=timing["plan"],
+                k3_counters=timing["k3_counters"], ms=timing["mb_ms"],
+                k3_ms=timing["base_ms"],
+                mb_ms_by_stages=timing["mb_ms_by_stages"])
+    s_mb.update(roofline(*kernel_work(dense, "pair_hit", a, mb,
+                                      cs.n_clusters), s_mb["ms"]))
+    emit(dict(phase="probes", name="P4 pair_hit_mb narrow",
+              mb_exactness=exact, pair_hit_mb=s_mb))
+    probe_rows[-1]["narrow"] = dict(
+        pairs=s_mb["pairs"], k3_ms=s_mb["k3_ms"],
+        mb_ms_by_stages=s_mb["mb_ms_by_stages"],
+        **{k: s_mb[k] for k in narrow_keys})
+    del mb
     del state, pool, F8, Fp, items, sel_k, sel_p, pk, pp, calls, narrow, a
 
     # K4: the shadow rays of K1's wave, built from its hits as the Whitted

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from rayaccel_tpu_torch import rng
+from rayaccel_tpu_torch.device import resolve_device
 from rayaccel_tpu_torch.ops.intersect import dot3
 from rayaccel_tpu_torch.types import Rays
 
@@ -85,8 +86,11 @@ class Camera:
         fwd = fwd - t * np.dot(fwd, t)
         return _normalize(fwd)
 
-    def as_arrays(self, device="cpu"):
-        """(origin, view, right, up) as float32 tensors on ``device``."""
+    def as_arrays(self, device=None):
+        """(origin, view, right, up) as float32 tensors on ``device``
+        (default: the current CUDA device; with none visible this raises,
+        as :func:`device.resolve_device` does)."""
+        device = resolve_device(device)
         return tuple(torch.as_tensor(np.asarray(a, np.float32), device=device)
                      for a in (self.origin, self.view, self.right, self.up))
 

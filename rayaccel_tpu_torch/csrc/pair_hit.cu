@@ -451,3 +451,17 @@ extern "C" int racc_pair_hit(const float* Fp, const float* G3, const void* G3b,
   return run(Fp, G3, G3b, items, ustart, out, stats, n_items, P, C, col_bits,
              st);
 }
+
+// The work-unit prefix alone: ustart (n_items + 1,) int32 as racc_pair_hit
+// writes it. The pair kernel's TMA-staged probe (pair_hit_mb.cu) walks the
+// same units.
+extern "C" int racc_pair_units(const int* items, int n_items, int n_c, int P,
+                               int* ustart, void* stream) {
+  using namespace racc;
+  if (n_items < 1 || P < 0 || n_c < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  pair_hit_units_kernel<<<1, kScanThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      items, n_items, n_c, P, ustart);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,5 +1,6 @@
-// P4: K3's function with several pair blocks a CTA and each run's cluster
-// staged by one TMA bulk copy.
+// P4: K3's function on K3's balanced work units, each cluster staged by a
+// TMA tensor copy into a ring that a producer warp keeps ahead of the
+// consumer warps.
 //
 // Replaces tools/probe_pair_dma.py:_kernel_mb (:63-136, pallas_call :163),
 // the TPU probe of a multi-block pair kernel: each grid step owns GB
@@ -9,31 +10,43 @@
 // word on the covered pairs: for every pair of a run whose lane word names
 // the run's cluster, min(miss marker, packed (score | rank | column)).
 //
-// Design. A CTA owns blocks [gb * blockIdx.x, gb * blockIdx.x + gb) and
-// their runs, items[starts[b0] .. starts[b1]) (runs are block-major in the
-// items). Its shared memory is a two-stage ring of whole G3 cluster blocks
-// (4C rows of 64 bytes, 32 KB at C = 128) with one mbarrier a stage. One
-// thread arms the next run's barrier and issues one bulk copy of its
-// cluster block into the other stage (tma.cuh) while the CTA tests the
-// present run; every thread waits on the stage's parity, which flips each
-// time the stage comes round. A run is tested 64 pairs at a time with K1's
-// thread shape (common.cuh: two pairs a thread, kColSplit threads on every
-// kColSplit-th column) and K3's decode (decode2) and packed score (the
-// IEEE reciprocal, the same FMA order), so the words equal K3's; only the
-// run's own pairs are tested (a run is contiguous in a cluster-sorted
-// block). Whole 64-byte rows put two staged rows in the same banks where
-// K3's 48-byte rows put none, so the lanes are laid out the other way from
-// K3's: the kColSplit threads of a pair are lanes 4 apart, a quarter warp
-// reads two neighbouring rows for four pairs each, and no load conflicts.
+// Design. The work is K3's: the runs cut into 64-pair work units
+// (pair_hit.cu:pair_hit_units_kernel writes the prefix), a grid of the
+// CTAs the card holds at once, and CTA b the b-th contiguous share of the
+// units, so the probe's "several blocks a grid step" is what a share
+// spans, not a knob. Only the staging differs from K3's:
+//
+// - A tensor copy a cluster. The host encodes a 3-D tensor map over G3
+//   (16 floats, C rows, 4 n_c kinds; strides 64 and 64C bytes) whose box
+//   is 12 floats x C rows x 4 kinds: one copy lands the 48 live bytes of
+//   each of the cluster's 4C rows densely, which is K3's staged layout
+//   (row k C + c at 48 (k C + c) bytes, conflict-free for decode2), 24 KB
+//   at C = 128.
+// - Warp specialisation. Warps 0-7 are K3's CTA (kColSplit threads on two
+//   pairs, decode2, the packed score), warp 8 the producer: its first lane
+//   walks the share's units ahead of the consumers and, at each change of
+//   cluster, waits for the ring stage to be empty, arms its full barrier
+//   with the stage's bytes and issues the copy. Consecutive units of one
+//   cluster are staged once, as in K3. A consumer warp waits on a stage's
+//   full barrier when its walk reaches the next cluster and arrives on the
+//   empty barrier of the stage it leaves. A ring of `stages` stages (2 to
+//   4) keeps up to that many clusters in flight.
+//
+// Every wait is bounded (tma.cuh) and names its step in the error word; a
+// CTA checks the dynamic shared memory it was given.
 //
 // What bounds it on the H100: K3's work, the fp32 FMA rate (40 FMAs a
-// (pair, triangle)). It stages a cluster once a run where K3 stages it once
-// for consecutive units of one cluster, and its balance is per block, not
-// per 64-pair unit.
+// (pair, triangle)).
+#include <cuda.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "common.cuh"
 #include "tma.cuh"
+
+extern "C" int racc_pair_units(const int* items, int n_items, int n_c, int P,
+                               int* ustart, void* stream);
 
 namespace racc {
 namespace {
@@ -41,61 +54,107 @@ namespace {
 constexpr int kRankShift = 20;
 constexpr int kClusterMask = (1 << kRankShift) - 1;
 constexpr int kMissBits = 0x7F000000;
-constexpr int kRunPairs = kCtaRays;   // pairs a CTA tests at once
-constexpr int kMbMinCtas = 3;         // as K3: 80 registers a thread
-constexpr int kStageRowF4 = kFeat / 4;  // a staged row: a whole G3 row
+constexpr int kUnitPairs = kCtaRays;          // K3's work unit
+constexpr int kMbThreads = kCtaThreads + 32;  // K3's CTA and a producer warp
+// CTAs an SM should hold: K3's 3, so that the grid and the shares are
+// K3's. With the producer warp's 32 threads this caps every thread at 72
+// registers (K3: 80) and the consumers spill; at 2 an SM P4 is faster,
+// on other shares (PERF.md; tools/probe_pair_dma.py --min-ctas).
+constexpr int kMbMinCtas = 3;
+constexpr int kMbMaxStages = 4;
+constexpr int kSmemAlign = 128;               // a tensor copy's destination
 
-// Bytes of one staged cluster block and of the ring, for clusters of C.
+// Bytes of one staged cluster of C (the 48 live bytes of each of its 4C
+// rows), the stride of a ring stage, and the dynamic shared memory of a
+// ring of S stages (with room to align its start).
 __host__ __device__ constexpr int mb_stage_bytes(int C) {
-  return 4 * C * kFeat * static_cast<int>(sizeof(float));
+  return 4 * C * kRowF4 * static_cast<int>(sizeof(float4));
 }
-__host__ __device__ constexpr int mb_ring_bytes(int C) {
-  return kRingStages * mb_stage_bytes(C);
+__host__ __device__ constexpr int mb_stage_stride(int C) {
+  return (mb_stage_bytes(C) + kSmemAlign - 1) / kSmemAlign * kSmemAlign;
+}
+__host__ __device__ constexpr int mb_ring_bytes(int C, int S) {
+  return S * mb_stage_stride(C) + kSmemAlign;
 }
 
 template <bool Guard>
-__global__ void __launch_bounds__(kCtaThreads, kMbMinCtas)
-pair_hit_mb_kernel(const float* __restrict__ Fp, const float* __restrict__ G3,
+__global__ void __launch_bounds__(kMbThreads, kMbMinCtas)
+pair_hit_mb_kernel(const __grid_constant__ CUtensorMap g3,
+                   const float* __restrict__ Fp,
                    const int* __restrict__ items,
-                   const int* __restrict__ starts, int* __restrict__ out,
+                   const int* __restrict__ ustart, int* __restrict__ out,
                    unsigned long long* __restrict__ stats,
-                   int* __restrict__ err, int n_blocks, int gb, int n_c,
-                   int P, int C, int col_bits) {
-  extern __shared__ __align__(128) float4 ring[];
-  __shared__ __align__(8) unsigned long long bar[kRingStages];
-  static_assert(kRingStages == 2, "the parities below assume two stages");
-  const unsigned bytes = mb_stage_bytes(C);
-  const int stage_f4 = 4 * C * kStageRowF4;
-  if (dynamic_smem_bytes() < kRingStages * bytes) {
+                   int* __restrict__ err, int n_items, int C, int col_bits,
+                   int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) unsigned long long full[kMbMaxStages];
+  __shared__ __align__(8) unsigned long long empty[kMbMaxStages];
+  const unsigned stride = mb_stage_stride(C);
+  const unsigned pad =
+      (kSmemAlign - shared_u32(smem) % kSmemAlign) % kSmemAlign;
+  if (dynamic_smem_bytes() < pad + stages * stride) {
     if (threadIdx.x == 0) report_error(err, kErrSmem, blockIdx.x);
     return;
   }
-  const int b0 = blockIdx.x * gb;
-  const int j1 = starts[min(b0 + gb, n_blocks)];
-  // The next run from j that names a cluster of the scene and pairs of the
-  // array (K3 gives any other item no work unit).
-  auto next_run = [&](int j) {
-    for (; j < j1; ++j) {
-      const int s = items[3 * j], e = items[3 * j + 1], cl = items[3 * j + 2];
-      if (s >= 0 && e > s && e <= P && cl >= 0 && cl < n_c) break;
-    }
-    return j;
-  };
-  int j = next_run(starts[b0]);
-  if (j >= j1) return;
+  float4* ring = reinterpret_cast<float4*>(smem + pad);
+  const int stage_f4 = stride / sizeof(float4);
+
+  // This CTA's share of the units, as K3's walk_units cuts it.
+  const long long total = ustart[n_items];
+  const int u0 = static_cast<int>(total * blockIdx.x / gridDim.x);
+  const int u1 = static_cast<int>(total * (blockIdx.x + 1) / gridDim.x);
+  if (u0 >= u1) return;
+  // The item of unit u0: the last whose prefix is at most u0.
+  int first = 0;
+  for (int hi = n_items; hi - first > 1;) {
+    const int mid = (first + hi) >> 1;
+    if (ustart[mid] <= u0) first = mid; else hi = mid;
+  }
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int sub = lane / kWarpPairs, slot = lane % kWarpPairs;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kWarps) {
+    // The producer: one lane walks the share's items (an item's units share
+    // its cluster; an item with no unit is passed over, as the consumers'
+    // walk passes it) and stages each change of cluster. Staging n goes to
+    // stage n % stages once the consumers have left staging n - stages.
+    if (lane != 0) return;
+    const unsigned bytes = mb_stage_bytes(C);
+    int cluster = -1;
+    unsigned staged = 0;
+    for (int item = first; item < n_items && ustart[item] < u1; ++item) {
+      const int cl = items[3 * item + 2];
+      if (ustart[item + 1] == ustart[item] || cl == cluster) continue;
+      const int s = staged % stages;
+      if (staged >= static_cast<unsigned>(stages) &&
+          !mbar_wait(&empty[s], (staged / stages - 1) & 1)) {
+        report_error(err, kErrWait, -1 - static_cast<int>(staged));
+        return;
+      }
+      mbar_arrive_expect_tx(&full[s], bytes);
+      tensor_copy_g2s_3d(ring + s * stage_f4, &g3, 0, 0, 4 * cl, &full[s]);
+      cluster = cl;
+      ++staged;
+    }
+    if (stats != nullptr) {
+      atomicAdd(stats, static_cast<unsigned long long>(u1 - u0));
+      atomicAdd(stats + 1, 1ULL);
+      atomicAdd(stats + 2, static_cast<unsigned long long>(staged) * bytes);
+    }
+    return;
+  }
+
+  // The consumers: K3's test of a unit (pair_hit.cu:pair_hit_kernel).
+  const int sub = lane % kColSplit, slot = lane / kColSplit;
   const int low = (1 << (col_bits + 3)) - 1;
-  auto issue = [&](int run, int stage) {
-    const int cl = items[3 * run + 2];
-    mbar_arrive_expect_tx(&bar[stage], bytes);
-    bulk_copy_g2s(ring + stage * stage_f4,
-                  G3 + static_cast<size_t>(cl) * 4 * C * kFeat, bytes,
-                  &bar[stage]);
-  };
-  // Pairs [p0, p1) of a run of `cluster` against the staged block g: K3's
-  // test (pair_hit.cu:pair_hit_kernel) with this kernel's lanes.
   auto test = [&](const float4* g, int p0, int p1, int cluster) {
     float f[2][10], tmin[2], tmax[2];
     int p[2], rank_bits[2];
@@ -124,7 +183,7 @@ pair_hit_mb_kernel(const float* __restrict__ Fp, const float* __restrict__ G3,
       for (int c = sub; c < C; c += kColSplit) {
         bool inside[2];
         float ad[2], ts[2];
-        decode2<kStageRowF4>(g, c, C, f, inside, ad, ts);
+        decode2(g, c, C, f, inside, ad, ts);
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           if (inside[i] && ts[i] > ad[i] * tmin[i] &&
@@ -138,84 +197,173 @@ pair_hit_mb_kernel(const float* __restrict__ Fp, const float* __restrict__ G3,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
 #pragma unroll
-      for (int o = kWarpPairs; o < 32; o <<= 1)
+      for (int o = 1; o < kColSplit; o <<= 1)
         m[i] = min(m[i], __shfl_xor_sync(0xffffffffu, m[i], o));
       if (sub == 0 && on[i]) out[p[i]] = min(m[i], kMissBits);
     }
   };
 
-  if (threadIdx.x == 0) {
-    mbar_init(&bar[0], 1);
-    mbar_init(&bar[1], 1);
-    mbar_fence_init();
-    issue(j, 0);
-  }
-  __syncthreads();
-  int n = 0;  // runs tested; run n sits in stage n & 1
-  while (j < j1) {
-    const int nxt = next_run(j + 1), stage = n & 1;
-    // The other stage was last read by run n - 1, before the barrier that
-    // ended it.
-    if (threadIdx.x == 0 && nxt < j1) issue(nxt, stage ^ 1);
-    if (__syncthreads_or(!mbar_wait(&bar[stage], (n >> 1) & 1))) {
-      if (threadIdx.x == 0) report_error(err, kErrWait, j);
-      return;
+  // Each warp walks the share's units; segment j (the j-th change of
+  // cluster) sits in stage j % stages, its full barrier's phase j / stages.
+  int item = first, segment = -1, cluster = -1, stage = 0;
+  for (int u = u0; u < u1; ++u) {
+    while (ustart[item + 1] <= u) ++item;
+    const int p0 = items[3 * item] + (u - ustart[item]) * kUnitPairs;
+    const int p1 = min(p0 + kUnitPairs, items[3 * item + 1]);
+    const int cl = items[3 * item + 2];
+    if (cl != cluster) {
+      if (segment >= 0) {
+        __syncwarp();  // every lane's reads of the stage it leaves are done
+        if (lane == 0) mbar_arrive(&empty[stage]);
+      }
+      ++segment;
+      cluster = cl;
+      stage = segment % stages;
+      const bool ok = mbar_wait(&full[stage], (segment / stages) & 1);
+      if (__any_sync(0xffffffffu, !ok)) {
+        if (lane == 0) report_error(err, kErrWait, segment);
+        return;
+      }
     }
-    const int s = items[3 * j], e = items[3 * j + 1], cl = items[3 * j + 2];
-    for (int p0 = s; p0 < e; p0 += kRunPairs)
-      test(ring + stage * stage_f4, p0, min(p0 + kRunPairs, e), cl);
-    __syncthreads();  // every read of this stage before its next copy
-    j = nxt;
-    ++n;
-  }
-  if (stats != nullptr && threadIdx.x == 0) {
-    atomicAdd(stats, static_cast<unsigned long long>(n));
-    atomicAdd(stats + 1, 1ULL);
-    atomicAdd(stats + 2, static_cast<unsigned long long>(n) * bytes);
+    test(ring + stage * stage_f4, p0, p1, cl);
   }
 }
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so that the library links nothing beyond the runtime.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The codes racc_pair_hit_mb returns when the tensor map over G3 cannot be
+// encoded (the wrapper names the argument): kEncodeArg + the refused
+// argument (1 globalAddress, 2 globalDim, 3 globalStrides, 4 boxDim),
+// kEncodeEntry (the driver has no cuTensorMapEncodeTiled), kEncodeDriver +
+// the driver's CUresult (an argument it refused that the checks passed).
+constexpr int kEncodeArg = 10000;
+constexpr int kEncodeEntry = 10100;
+constexpr int kEncodeDriver = 20000;
+
+int encode_g3(CUtensorMap* map, const float* G3, int n_c, int C) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess ||
+        fn == nullptr) {
+      cudaGetLastError();
+      return kEncodeEntry;
+    }
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  // G3 (n_c, 4C, 16) f32 seen as (4 n_c kinds, C rows, 16 floats).
+  const cuuint64_t dim[3] = {static_cast<cuuint64_t>(kFeat),
+                             static_cast<cuuint64_t>(C),
+                             4 * static_cast<cuuint64_t>(n_c)};
+  const cuuint64_t strides[2] = {kFeat * sizeof(float),
+                                 static_cast<cuuint64_t>(C) * kFeat *
+                                     sizeof(float)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(4 * kRowF4),
+                             static_cast<cuuint32_t>(C), 4};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  if (reinterpret_cast<std::uintptr_t>(G3) % 16 != 0) return kEncodeArg + 1;
+  for (cuuint64_t d : dim)
+    if (d < 1 || d > (1ULL << 32)) return kEncodeArg + 2;
+  for (cuuint64_t s : strides)
+    if (s % 16 != 0 || s >= (1ULL << 40)) return kEncodeArg + 3;
+  for (int i = 0; i < 3; ++i)
+    if (box[i] < 1 || box[i] > 256 || box[i] > dim[i]) return kEncodeArg + 4;
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(G3), dim,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeDriver + static_cast<int>(r);
+}
+
+template <bool Guard>
+const void* mb_kernel() {
+  return reinterpret_cast<const void*>(pair_hit_mb_kernel<Guard>);
+}
+
+// The dynamic shared memory each form of the kernel may take so far.
+int allowed[2] = {0, 0};
 
 }  // namespace
 }  // namespace racc
 
-// Fp (P, 16) pair rows and G3 (n_c, 4C, 16) as K3 takes them (G3 16-byte
-// aligned); items (n_items, 3) int32 [start, end, cluster], block-major;
-// starts (n_blocks + 1,) int32, the first item of each SP-pair block
-// (tools/probe_pair_dma.py:block_runs); out (P,) int32, pre-filled with
-// the miss marker by the caller; err (2,) int32 zeros (tma.cuh: code,
-// step). stats (nullable, 3 counters) gains the runs tested, the CTAs that
-// tested any and the bytes staged. gb blocks a CTA. smem 0 gives the
-// kernel its ring for clusters of C; another value is used as it is.
-extern "C" int racc_pair_hit_mb(const float* Fp, const float* G3,
-                                const int* items, const int* starts, int* out,
-                                unsigned long long* stats, int* err, int P,
-                                int n_c, int C, int col_bits, int guard_tmax,
-                                int n_blocks, int gb, int smem, void* stream) {
+// The CTAs of P4 the card holds at once with a ring of `stages` stages for
+// clusters of 128 (what the launcher sizes the grid by), or minus a CUDA
+// error code.
+extern "C" int racc_pair_hit_mb_resident(int guard_tmax, int stages) {
   using namespace racc;
-  if (C < 1 || C > kMaxC || P < 0 || n_c < 1 || n_blocks < 0 || gb < 1 ||
-      reinterpret_cast<size_t>(G3) % 16 != 0)
+  static int resident[2][kMbMaxStages + 1] = {};
+  if (stages < 2 || stages > kMbMaxStages)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  const int g = guard_tmax ? 1 : 0;
+  if (resident[g][stages] > 0) return resident[g][stages];
+  const void* kernel = g ? mb_kernel<true>() : mb_kernel<false>();
+  const int smem = mb_ring_bytes(kMaxC, stages);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e;
+  if ((e = allow_smem(kernel, smem, allowed[g])) != cudaSuccess ||
+      (e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kMbThreads, smem)) != cudaSuccess)
+    return -static_cast<int>(e);
+  if (sms * per_sm <= 0) return -static_cast<int>(cudaErrorInvalidValue);
+  resident[g][stages] = sms * per_sm;
+  return resident[g][stages];
+}
+
+// Fp (P, 16) pair rows and G3 (n_c, 4C, 16) as K3 takes them; items
+// (n_items, 3) int32 [start, end, cluster]; ustart (n_items + 1,) int32
+// scratch (the unit prefix, written here by K3's unit pass); out (P,)
+// int32, pre-filled with the miss marker by the caller; err (2,) int32
+// zeros (tma.cuh: code, step). stats (nullable, 3 counters) gains the
+// units tested, the CTAs that tested any and the bytes staged. `grid`
+// CTAs (racc_pair_hit_mb_resident, capped by the units there can be),
+// `stages` ring stages (2 to 4). smem 0 gives the kernel its ring for
+// clusters of C; another value is used as it is. A tensor map the host
+// cannot encode returns a code above 10000 (encode_g3).
+extern "C" int racc_pair_hit_mb(const float* Fp, const float* G3,
+                                const int* items, int* ustart, int n_items,
+                                int* out, unsigned long long* stats, int* err,
+                                int P, int n_c, int C, int col_bits,
+                                int guard_tmax, int stages, int grid,
+                                int smem, void* stream) {
+  using namespace racc;
+  if (C < 1 || C > kMaxC || P < 0 || n_c < 1 || n_items < 0 || grid < 1 ||
+      stages < 2 || stages > kMbMaxStages)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_blocks == 0 || P == 0) return static_cast<int>(cudaSuccess);
-  const int dyn = smem > 0 ? smem : mb_ring_bytes(C);
-  const int grid = (n_blocks + gb - 1) / gb;
+  if (n_items == 0 || P == 0) return static_cast<int>(cudaSuccess);
+  CUtensorMap map;
+  const int code = encode_g3(&map, G3, n_c, C);
+  if (code != 0) return code;
+  int e = racc_pair_units(items, n_items, n_c, P, ustart, stream);
+  if (e != 0) return e;
+  const int g = guard_tmax ? 1 : 0;
+  const int dyn = smem > 0 ? smem : mb_ring_bytes(C, stages);
+  e = allow_smem(g ? mb_kernel<true>() : mb_kernel<false>(), dyn, allowed[g]);
+  if (e != 0) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const void* kernel =
-      guard_tmax ? reinterpret_cast<const void*>(pair_hit_mb_kernel<true>)
-                 : reinterpret_cast<const void*>(pair_hit_mb_kernel<false>);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dyn > mb_ring_bytes(kMaxC) ? dyn : mb_ring_bytes(kMaxC));
-  if (e != cudaSuccess) {
-    cudaGetLastError();  // the refusal is returned, not left for the next
-    return static_cast<int>(e);
-  }
-  if (guard_tmax)
-    pair_hit_mb_kernel<true><<<grid, kCtaThreads, dyn, st>>>(
-        Fp, G3, items, starts, out, stats, err, n_blocks, gb, n_c, P, C,
-        col_bits);
+  if (g)
+    pair_hit_mb_kernel<true><<<grid, kMbThreads, dyn, st>>>(
+        map, Fp, items, ustart, out, stats, err, n_items, C, col_bits, stages);
   else
-    pair_hit_mb_kernel<false><<<grid, kCtaThreads, dyn, st>>>(
-        Fp, G3, items, starts, out, stats, err, n_blocks, gb, n_c, P, C,
-        col_bits);
+    pair_hit_mb_kernel<false><<<grid, kMbThreads, dyn, st>>>(
+        map, Fp, items, ustart, out, stats, err, n_items, C, col_bits, stages);
   return static_cast<int>(cudaGetLastError());
 }

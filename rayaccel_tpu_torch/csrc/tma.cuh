@@ -3,9 +3,12 @@
 // pltpu.make_async_copy with a DMA semaphore. One thread arms the barrier
 // with the bytes it expects and issues the copy; the hardware moves the
 // bytes and completes the barrier's phase; every thread waits on the
-// phase's parity. Used by the DMA probes (probe_dma.cu) and the pair
-// kernel's TMA-staged form (pair_hit_mb.cu). Kept apart from common.cuh so
-// that the trace kernels K1-K4 compile as they did.
+// phase's parity. A copy is a plain bulk copy (a contiguous run of bytes)
+// or a tensor copy (a box of a tensor map encoded on the host). A bulk
+// store moves shared memory back to global memory and completes on the
+// issuing thread's bulk group. Used by the DMA probes (probe_dma.cu) and
+// the pair kernel's TMA-staged form (pair_hit_mb.cu). Kept apart from
+// common.cuh so that the trace kernels K1-K4 compile as they did.
 //
 // A wait is bounded: a wrong parity or a copy that never lands would spin
 // forever (on the TPU a wrong manual DMA hung the chip for an hour,
@@ -14,6 +17,7 @@
 // raises.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 namespace racc {
@@ -63,6 +67,12 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* bar,
                :: "r"(shared_u32(bar)), "r"(bytes) : "memory");
 }
 
+// Arrives on the barrier (one of the `count` arrivals of its phase).
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(shared_u32(bar)) : "memory");
+}
+
 // Starts a bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
 // aligned) from global to shared memory, completing on `bar`.
 __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
@@ -73,6 +83,42 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
       "[%0], [%1], %2, [%3];"
       :: "r"(shared_u32(dst)), "l"(src), "r"(bytes), "r"(shared_u32(bar))
       : "memory");
+}
+
+// Starts a tensor copy of the box at coordinates (x, y, z) of a 3-D tensor
+// map (a __grid_constant__ kernel parameter) into dst (128-byte aligned),
+// completing on `bar` with the box's bytes.
+__device__ __forceinline__ void tensor_copy_g2s_3d(void* dst,
+                                                   const CUtensorMap* map,
+                                                   int x, int y, int z,
+                                                   unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];"
+      :: "r"(shared_u32(dst)), "l"(reinterpret_cast<unsigned long long>(map)),
+         "r"(x), "r"(y), "r"(z), "r"(shared_u32(bar))
+      : "memory");
+}
+
+// Orders this thread's view of shared memory (the bytes a bulk copy landed,
+// seen through a completed barrier) before its next bulk operation.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Starts a bulk store of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from shared to global memory in this thread's bulk group.
+__device__ __forceinline__ void bulk_store_s2g(void* dst, const void* src,
+                                               unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               :: "l"(dst), "r"(shared_u32(src)), "r"(bytes) : "memory");
+}
+
+// Commits this thread's bulk stores and waits until they have read their
+// shared memory (the writes land before the kernel is complete).
+__device__ __forceinline__ void bulk_store_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
 // Whether the phase of parity `parity` has completed (the hardware may
@@ -99,6 +145,22 @@ __device__ __forceinline__ bool mbar_wait(unsigned long long* bar,
   while (!mbar_try_wait(bar, parity))
     if (clock64() - t0 > kWaitCycles) return false;
   return true;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory: the attribute is set
+// the first time a launch needs more than `allowed` (once per process and
+// size, not once per launch). A refusal is cleared and returned.
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int bytes, int& allowed) {
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // the refusal is returned, not left for the next
+    return e;
+  }
+  allowed = bytes;
+  return cudaSuccess;
 }
 
 }  // namespace racc

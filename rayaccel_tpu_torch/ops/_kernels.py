@@ -52,8 +52,10 @@ _SIGNATURES = {
     "racc_probe_static": [_P, _I, _I, _I, _I, _P, _P, _I, _P],
     "racc_probe_dynamic": [_P, _I, _I, _P, _I, _P, _P, _I, _P],
     "racc_probe_worklist": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _P],
-    "racc_pair_hit_mb": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _P],
+    "racc_pair_units": [_P, _I, _I, _I, _P, _P],
+    "racc_pair_hit_mb_resident": [_I, _I],
+    "racc_pair_hit_mb": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _P],
 }
 
 

@@ -32,6 +32,8 @@ from typing import Tuple
 
 import torch
 
+from rayaccel_tpu_torch.device import resolve_device
+
 Key = Tuple[int, int]
 
 _M32 = 0xFFFFFFFF
@@ -100,8 +102,11 @@ def uniform_pair_each(k0: torch.Tensor, k1: torch.Tensor) -> torch.Tensor:
     return _bits_to_unit_float(torch.stack(draws, dim=-1))
 
 
-def uniform(key: Key, shape, device="cpu") -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32)`` on ``device``."""
+def uniform(key: Key, shape, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` on ``device`` (default:
+    the current CUDA device; with none visible this raises, as
+    :func:`device.resolve_device` does)."""
+    device = resolve_device(device)
     n = 1
     for s in shape:
         n *= int(s)
@@ -147,9 +152,10 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return p * x
 
 
-def normal(key: Key, shape, device="cpu") -> torch.Tensor:
-    """``jax.random.normal(key, shape, float32)`` on ``device``, to a few
-    float32 ulps (``erf_inv``'s ``log1p`` rounds as the device's does)."""
+def normal(key: Key, shape, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)`` on ``device`` (as for
+    :func:`uniform`), to a few float32 ulps (``erf_inv``'s ``log1p``
+    rounds as the device's does)."""
     # uniform(key, shape, minval=lo, maxval=1): (1 - lo) rounds to 2 in
     # float32, so f * 2 + lo is one rounding, as in JAX.
     u = torch.clamp_min(uniform(key, shape, device) * 2.0 + _NORMAL_LO,

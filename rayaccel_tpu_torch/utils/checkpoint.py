@@ -33,7 +33,7 @@ def scene_fingerprint(renderer) -> str:
         h.update(np.asarray(sd.materials, np.float32).tobytes())
     cam = getattr(renderer, "camera", None)
     if cam is not None:
-        for a in cam.as_arrays():
+        for a in cam.as_arrays("cpu"):
             h.update(np.asarray(a.cpu().numpy(), np.float32).tobytes())
     return h.hexdigest()
 

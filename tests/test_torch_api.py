@@ -285,3 +285,43 @@ def test_constructors_never_pick_the_cpu(monkeypatch, name):
         make()
     out = make(device="cpu")
     assert all(a.device == torch.device("cpu") for a in out)
+
+
+@pytest.mark.parametrize("name", ["Camera.as_arrays", "rng.uniform",
+                                  "rng.normal"])
+def test_arrays_and_draws_never_pick_the_cpu(monkeypatch, name):
+    """``Camera.as_arrays``, ``rng.uniform`` and ``rng.normal`` follow the
+    device rule: with no CUDA device and no ``device`` they raise; with
+    ``device="cpu"`` they give the JAX package's values (the camera's
+    arrays and the uniform draw bit for bit, the normal draw within 4
+    float32 ulps: XLA's ``log1p`` rounds otherwise)."""
+    sd = make_test_scene(viewport=(32, 24))
+    args = (sd.cam_origin, sd.cam_dir, sd.cam_up, sd.cam_fov, 32, 24)
+    shape = (257, 3)
+    port, want = {
+        "Camera.as_arrays": (racc.Camera.look_at(*args).as_arrays,
+                             lambda: JaxCamera.look_at(*args).as_arrays()),
+        "rng.uniform": (lambda **d: rng.uniform(rng.PRNGKey(5), shape, **d),
+                        lambda: jax.random.uniform(jax.random.PRNGKey(5),
+                                                   shape)),
+        "rng.normal": (lambda **d: rng.normal(rng.PRNGKey(5), shape, **d),
+                       lambda: jax.random.normal(jax.random.PRNGKey(5),
+                                                 shape)),
+    }[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        port()
+    got = port(device="cpu")
+    got, want = ((got,), (want(),)) if torch.is_tensor(got) else (got, want())
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.device == torch.device("cpu") and g.dtype == torch.float32
+        g, w = g.numpy(), np.asarray(w, np.float32)
+        assert g.shape == w.shape
+        if name == "rng.normal":
+            ulps = np.abs(g.view(np.int32).astype(np.int64)
+                          - w.view(np.int32).astype(np.int64))
+            assert ulps.max() <= 4
+        else:
+            np.testing.assert_array_equal(g.view(np.uint32),
+                                          w.view(np.uint32))

@@ -903,54 +903,91 @@ def test_dma_probes_raise_instead_of_copying_wrong(cuda):
     assert torch.equal(pd.copy_static(x), x[8:16])
 
 
-@pytest.mark.parametrize("gb", [1, 2, 4])
-@pytest.mark.parametrize("cluster_size", [6, 16, 128])
-def test_pair_hit_mb_equals_k3(cuda, scene_data, cluster_size, gb):
-    """P4 against K3 on the same pairs (runs longer than a 64-pair chunk,
+@pytest.mark.parametrize("stages", [2, 3, 4])
+@pytest.mark.parametrize("cluster_size", [6, 16, 64, 128])
+def test_pair_hit_mb_equals_k3(cuda, scene_data, cluster_size, stages):
+    """P4 against K3 on the same pairs (runs longer than a 64-pair unit,
     a cluster on both sides of an SP boundary, and the same pairs cut into
-    items of 1-5), closest and any hit: every word equal, the uncovered
-    pairs the miss marker; at the oracle bar against the plain version;
-    the counters report every run, one staged cluster block each, and no
-    more CTAs than the grid."""
+    items of 1-5), closest and any hit, at each ring depth: every word
+    equal, the uncovered pairs the miss marker; at the oracle bar against
+    the plain version; every unit tested, by no more CTAs than the grid,
+    and 48 bytes staged a G3 row."""
     from rayaccel_tpu_torch.tools import probe_pair_dma as pm
     cs = cluster_scene_from_numpy(
         **compile_clusters_np(scene_data, cluster_size=cluster_size),
         device=cuda)
     Fp, items, short = _pair_case(cs, 4096, 11, cuda)
     col_bits = max((cs.cluster_size - 1).bit_length(), 1)
-    blocks = -(-Fp.shape[0] // 512)
     for guard in (False, True):
         for it in (items, short):
             stats = torch.zeros(3, dtype=torch.int64, device=cuda)
-            got = pm.pair_hit_mb(Fp, cs.G3, it, col_bits, guard, gb=gb,
-                                 sp=512, stats=stats)
+            got = pm.pair_hit_mb(Fp, cs.G3, it, col_bits, guard,
+                                 stages=stages, stats=stats)
             assert torch.equal(got, sparse.pair_hit(Fp, cs.G3, it, col_bits,
                                                     guard))
-            runs, ctas, staged = stats.tolist()
-            assert runs == it.shape[0] and 0 < ctas <= -(-blocks // gb)
-            assert staged == runs * 4 * cluster_size * 64
+            units, ctas, staged = stats.tolist()
+            runs = (it[:, 1] - it[:, 0]).long()
+            assert units == int(((runs + 63) // 64).sum())
+            assert 0 < ctas <= pm.launch_grid(Fp.shape[0], it.shape[0],
+                                              stages, guard)
+            assert staged % (4 * cluster_size * 48) == 0 and staged > 0
         _same_words(got, pm.pair_hit_mb_plain(Fp, cs.G3, short, col_bits,
                                               guard, sp=512),
                     (1 << (col_bits + 3)) - 1)
 
 
+@pytest.mark.parametrize("stages", [2, 3, 4])
+def test_pair_hit_mb_counters_equal_the_plan(cuda, scene_data, stages):
+    """P4's counters (units tested, CTAs that took any, bytes staged) equal
+    the host's plan of its grid, computed from the items alone, on a
+    pass's runs and on the same runs cut into items of 1-5, with clusters
+    of 128; where the grid is K3's, the bytes are K3's clusters staged
+    times 48 bytes a row."""
+    from rayaccel_tpu_torch.tools import probe_pair_dma as pm
+    cs = cluster_scene_from_numpy(**compile_clusters_np(scene_data),
+                                  device=cuda)
+    C = cs.cluster_size
+    col_bits = max((C - 1).bit_length(), 1)
+    for R in (1024, 65536):
+        Fp, items, short = _pair_case(cs, R, R + stages, cuda)
+        P = Fp.shape[0]
+        for it in (items, short):
+            stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+            pm.pair_hit_mb(Fp, cs.G3, it, col_bits, False, stages=stages,
+                           stats=stats)
+            grid = pm.launch_grid(P, it.shape[0], stages)
+            want = pm.plan(it, P, cs.n_clusters, C, grid)
+            assert stats.tolist() == [want["units"], want["ctas"],
+                                      want["bytes_staged"]]
+            k3 = torch.zeros(3, dtype=torch.int64, device=cuda)
+            sparse.pair_hit(Fp, cs.G3, it, col_bits, False, stats=k3)
+            units, ctas, clusters = k3.tolist()
+            assert units == want["units"]
+            if ctas == want["ctas"]:
+                assert want["bytes_staged"] == clusters * pm.stage_bytes(C)
+
+
 def test_pair_hit_mb_raises_instead_of_returning_stale_words(cuda, scenes):
     """P4 launched with less shared memory than its ring raises (the kernel
-    checks what it was given), as does a launch the card refuses and a G3
-    whose cluster blocks do not start on 16 bytes; none falls back to the
-    plain version."""
+    checks what it was given), as does a launch the card refuses, a ring
+    depth outside 2-4, and a G3 that does not start on 16 bytes, whose
+    tensor map the host refuses to encode, naming the argument; none falls
+    back to K3 or to the plain version."""
     from rayaccel_tpu_torch.tools import probe_pair_dma as pm
     _, cs = scenes
     Fp, items, _ = _pair_case(cs, 1024, 3, cuda)
     col_bits = max((cs.cluster_size - 1).bit_length(), 1)
     args = (Fp, cs.G3, items, col_bits, False)
+    launches = pm.pair_hit_mb.launches
     with pytest.raises(RuntimeError, match="less dynamic shared memory"):
-        pm.pair_hit_mb(*args, sp=512, smem=4096)
+        pm.pair_hit_mb(*args, smem=4096)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        pm.pair_hit_mb(*args, sp=512, smem=400_000)
+        pm.pair_hit_mb(*args, smem=400_000)
+    with pytest.raises(ValueError, match="stages"):
+        pm.pair_hit_mb(*args, stages=1)
     flat = torch.zeros(cs.G3.numel() + 1, device=cuda)
     shifted = flat[1:].view(cs.G3.shape)
-    with pytest.raises(ValueError, match="16-byte"):
-        pm.pair_hit_mb(Fp, shifted, items, col_bits, False, sp=512)
-    assert torch.equal(pm.pair_hit_mb(*args, sp=512),
-                       sparse.pair_hit(*args))
+    with pytest.raises(ValueError, match="globalAddress.*16 bytes"):
+        pm.pair_hit_mb(Fp, shifted, items, col_bits, False)
+    assert pm.pair_hit_mb.launches == launches + 1
+    assert torch.equal(pm.pair_hit_mb(*args), sparse.pair_hit(*args))

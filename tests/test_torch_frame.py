@@ -49,7 +49,7 @@ def _port_frame(sd, cs, xya, seed, **kw):
     env = create_environment(px, px.shape[1], px.shape[0], device="cpu")
     return pt_trace_frame(
         cs, env, racc.Camera(cam.origin, cam.view, cam.right,
-                             cam.up).as_arrays(),
+                             cam.up).as_arrays("cpu"),
         x.to(torch.int32), y.to(torch.int32), a, rng.PRNGKey(seed), DEPTH,
         backend="pallas", tile=TILE, bounce_backend="sparse", **kw)
 

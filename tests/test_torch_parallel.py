@@ -181,7 +181,7 @@ def _port_frames(mesh, rank, inputs):
     from rayaccel_tpu_torch.render.pathtracer import pt_trace_frame
     from rayaccel_tpu_torch.render.whitted import whitted_trace_frame
     cs, env = _port_scene(inputs)
-    cam = _camera(SIZE).as_arrays()
+    cam = _camera(SIZE).as_arrays("cpu")
     out = {}
     sl = slice(rank * N, (rank + 1) * N)
     for case, (x, y, alive) in inputs["frames"].items():
@@ -245,8 +245,9 @@ def _port_per_wave(rank, inputs):
     stats = r.render_frame(rng.PRNGKey(5))
     key = rng.fold_in(rng.PRNGKey(5), rank)
     waves = [pt_trace_wave(r.scene, r.environment,
-                           r.camera.as_arrays(), r._wave_x[w], r._wave_y[w],
-                           r._wave_alive[w], rng.fold_in(key, w), 2,
+                           r.camera.as_arrays("cpu"), r._wave_x[w],
+                           r._wave_y[w], r._wave_alive[w],
+                           rng.fold_in(key, w), 2,
                            backend="mxu", tile=r.tile)
              for w in range(r.n_waves)]
     return dict(pooled=r.pooled, waves=r.n_waves,

@@ -193,8 +193,8 @@ def test_pair_hit_mb_plain_equals_pair_hit_plain(battlefield, C, guard):
         assert (want < sparse._MISS_BITS).any()
         assert torch.equal(pm.pair_hit_mb_plain(Fp, cs.G3, it, col_bits,
                                                 guard, sp=SP), want)
-        assert torch.equal(pm.pair_hit_mb(Fp, cs.G3, it, col_bits, guard,
-                                          sp=SP), want)
+        assert torch.equal(pm.pair_hit_mb(Fp, cs.G3, it, col_bits, guard),
+                           want)
     ghost = items.clone()
     ghost[::3, 2] = cs.n_clusters
     live = sparse.covered_pairs(Fp, ghost)[0]
@@ -263,9 +263,86 @@ def test_pair_hit_mb_plain_agrees_with_pallas(scenes, ray_set, guard):
 def test_pair_probe_entry_point_on_the_cpu(capsys):
     """The entry point on a 64x64 frame of the battlefield-like scene in
     one wave of 4096 lanes: P4's plain walk against K3's, word for word
-    at every blocks-a-CTA it tries."""
+    at every ring depth it tries, on pass 1 of the first bounce and on
+    its first restart pass."""
     assert pm.main(["--device", "cpu", "--width", "64", "--height", "64",
-                    "--wave-size", "4096"]) == 0
+                    "--wave-size", "4096", "--stages", "4,2"]) == 0
     out = capsys.readouterr().out
-    assert '"stage": "mb_exactness", "n_diff": 0' in out
-    assert '"stage": "pair_kernel_frame_width"' in out
+    for shape in ("headline", "narrow"):
+        assert f'"shape": "{shape}"' in out
+    assert out.count('"stage": "mb_exactness", "n_diff": 0') == 2
+    assert out.count('"n_diff_by_stages": {"4": 0, "2": 0}') == 2
+    assert out.count('"stage": "pair_kernel_frame_width"') == 2
+
+
+# ---- P4: the plan of its work (units, shares, clusters staged) ----
+
+@pytest.fixture(scope="module")
+def frame_pairs():
+    """The entry point's pair arrays on a 64x64 frame of the
+    battlefield-like scene in one wave of 4096 lanes."""
+    return pm.bounce_pairs("cpu", 64, 64, 4096)
+
+
+def _grids(units):
+    return [1, 2, 7, 132, 396, units, units + 5]
+
+
+def test_plan_covers_every_unit_once_in_contiguous_shares(frame_pairs):
+    """The plan's shares on any grid tile the units [0, total) in order,
+    each CTA's share contiguous and within one unit of the others' (K3's
+    cut), and the units are the 64-pair pieces of the runs that name a
+    cluster of the scene and pairs of the array (an item naming neither
+    has none)."""
+    Fp, G3, items, _, _ = frame_pairs
+    P, n_c, C = Fp.shape[0], G3.shape[0], G3.shape[1] // 4
+    runs = (items[:, 1] - items[:, 0]).long()
+    total = int(((runs + 63) // 64).sum())
+    ghost = items.clone()
+    ghost[::5, 2] = n_c
+    ghost_total = int(((runs + 63) // 64)[torch.arange(len(runs)) % 5 != 0]
+                      .sum())
+    for it, want in ((items, total), (ghost, ghost_total)):
+        for grid in _grids(want):
+            p = pm.plan(it, P, n_c, C, grid)
+            shares = p["shares"]
+            assert p["units"] == want and shares.shape == (grid, 2)
+            assert shares[0, 0] == 0 and shares[-1, 1] == want
+            assert torch.equal(shares[1:, 0], shares[:-1, 1])
+            sizes = shares[:, 1] - shares[:, 0]
+            assert int(sizes.max() - sizes.min()) <= 1
+            assert p["ctas"] == int((sizes > 0).sum()) == min(grid, want)
+
+
+def test_plan_counts_equal_a_brute_recount(frame_pairs):
+    """The plan's clusters staged and bytes equal a unit-by-unit recount
+    of each CTA's share (a new cluster at the share's first unit and at
+    every change), on the runs of a pass and on the same runs cut into
+    items of 1-5 pairs, at several grids."""
+    Fp, G3, items, _, _ = frame_pairs
+    P, n_c, C = Fp.shape[0], G3.shape[0], G3.shape[1] // 4
+    rs = np.random.default_rng(5)
+    cuts = []
+    for s, e, c in items.tolist():
+        while s < e:
+            k = min(int(rs.integers(1, 6)), e - s)
+            cuts.append((s, s + k, c))
+            s += k
+    for it in (items, torch.tensor(cuts, dtype=torch.int32)):
+        unit_cluster = [c for s, e, c in it.tolist()
+                        for _ in range(-(-(e - s) // 64))]
+        total = len(unit_cluster)
+        for grid in _grids(total):
+            staged = ctas = 0
+            for b in range(grid):
+                u0, u1 = total * b // grid, total * (b + 1) // grid
+                ctas += u1 > u0
+                last = None
+                for u in range(u0, u1):
+                    staged += unit_cluster[u] != last
+                    last = unit_cluster[u]
+            p = pm.plan(it, P, n_c, C, grid)
+            assert (p["units"], p["ctas"], p["clusters_staged"]) == (
+                total, ctas, staged)
+            assert p["bytes_staged"] == staged * 4 * C * 48
+            assert pm.stage_bytes(C) == 4 * C * 48

@@ -130,7 +130,7 @@ def test_whitted_wave_with_regroup_matches_jax():
         4, regroup=True, **kw)
     port_args = (cs, create_environment(px, px.shape[1], px.shape[0],
                                          device="cpu"),
-                 racc.Camera.look_at(*args).as_arrays(),
+                 racc.Camera.look_at(*args).as_arrays("cpu"),
                  torch.tensor(x, dtype=torch.int32),
                  torch.tensor(y, dtype=torch.int32), torch.tensor(alive),
                  rng.PRNGKey(3), 4)

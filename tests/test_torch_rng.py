@@ -40,7 +40,7 @@ def test_uniform_bitwise(shape):
     key = rng.fold_in(rng.PRNGKey(11), 2)
     ref = jax.random.uniform(jax.random.fold_in(jax.random.PRNGKey(11), 2),
                              shape, jnp.float32)
-    got = rng.uniform(key, shape)
+    got = rng.uniform(key, shape, device="cpu")
     assert got.dtype == torch.float32 and tuple(got.shape) == shape
     np.testing.assert_array_equal(got.numpy().view(np.uint32),
                                   np.asarray(ref).view(np.uint32))

@@ -58,7 +58,7 @@ def test_camera_rays():
     x, y = xx.ravel().astype(np.int32), yy.ravel().astype(np.int32)
     ref = jax_rays(jcam.as_arrays(), jnp.asarray(x), jnp.asarray(y),
                    key=jax.random.fold_in(jax.random.PRNGKey(3), 0))
-    got = generate_pixel_rays(cam.as_arrays(), _t(x), _t(y),
+    got = generate_pixel_rays(cam.as_arrays("cpu"), _t(x), _t(y),
                               key=rng.fold_in(rng.PRNGKey(3), 0))
     np.testing.assert_array_equal(got.o.numpy(), np.asarray(ref.o))
     np.testing.assert_allclose(got.d.numpy(), np.asarray(ref.d), rtol=0,

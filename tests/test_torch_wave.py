@@ -44,7 +44,7 @@ def wave_inputs():
 def _cams(sd):
     args = (sd.cam_origin, sd.cam_dir, sd.cam_up, sd.cam_fov, SIZE, SIZE)
     return (JaxCamera.look_at(*args).as_arrays(),
-            racc.Camera.look_at(*args).as_arrays())
+            racc.Camera.look_at(*args).as_arrays("cpu"))
 
 
 def _port_wave(sd, cs, perm, x, y, seed, **kw):

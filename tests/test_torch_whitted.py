@@ -61,7 +61,7 @@ def _port_env(sd):
 
 def _port_cam(sd):
     return racc.Camera.look_at(sd.cam_origin, sd.cam_dir, sd.cam_up,
-                               sd.cam_fov, SIZE, SIZE).as_arrays()
+                               sd.cam_fov, SIZE, SIZE).as_arrays("cpu")
 
 
 def _port_frame(sd, cs, xya, seed, depth, **kw):
