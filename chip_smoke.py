@@ -52,7 +52,10 @@ is missing. Phases, one JSON line each:
    entry points' ``run`` with their launch counts set to 0 just before
    and read just after (each must be > 0), then P1-P3 bit for bit against
    their plain versions, with their bound (bytes over 3.35 TB/s) and the
-   one PyTorch call that computes each (``library_ms``), and P4 (K3's
+   one PyTorch call that computes each (``library_ms``; P3's is
+   ``index_select(...).sum(0)``), P3 with its stages (``stages``,
+   ``probe_dma.worklist_plan``: a copy a stage is issued before any
+   wait), and P4 (K3's
    work units, a producer warp's TMA tensor copies into a ring of 2, 3
    or 4 stages) with 0 differing words from K3 on the pairs an item
    covers at every ring depth, its counters (units, CTAs, bytes staged)
@@ -732,12 +735,17 @@ def main() -> int:
         # Bytes: each block read, the output written, the index list read.
         blocks = fargs[1].numel() if step == "C" else 1
         flop = blocks * got.numel() if step == "C" else 0
-        ps = dict(step=step, bitwise_equal=bool(torch.equal(got, want)),
+        ps = dict(step=step, bitwise_equal=bool(torch.equal(
+                      got.view(torch.int32), want.view(torch.int32))),
                   ms=line["kernel_us"] / 1e3,
                   plain_ms=cuda_ms(lambda: plain(*fargs), 100))
         ps.update(roofline(flop, (blocks + 1) * nbytes(got)
                            + nbytes(*fargs[1:]), ps["ms"]))
         ps.update(library_ms=line["library_us"] / 1e3, library=text)
+        if step == "C":
+            # P3's stages: the host's plan, a copy a stage issued before
+            # any wait.
+            ps.update(stages=line["plan"]["stages"])
         steps.append(dict(name=fn.__name__, **ps))
         if not ps["bitwise_equal"]:
             raise AssertionError(f"{fn.__name__} differs from its plain "

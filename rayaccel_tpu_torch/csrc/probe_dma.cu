@@ -18,17 +18,30 @@
 // block's bytes, issues the bulk load, waits on the phase, and issues one
 // bulk store of the buffer to the output, whose shared-memory reads it
 // waits for before it exits (the global writes complete with the kernel).
-// No thread passes a value through its registers. P3 adds each block to
-// an accumulator, so it is one CTA of kSumThreads: one thread issues each
-// block's copy, every thread waits on the phase's parity and adds its
-// elements; the buffer and the barrier are reused, so the parity flips
-// each iteration, and a __syncthreads orders every thread's read of the
-// buffer before the next copy into it. The accumulator is the output in
-// device memory: each thread owns the same elements in every iteration and
-// adds in the list's order, from zeros, as the plain version does.
+// No thread passes a value through its registers.
 //
-// Each kernel's dynamic shared memory limit is raised once per process
-// and size (tma.cuh:allow_smem), not before every launch.
+// P3 keeps its whole work list in flight. The TPU kernel waits on each
+// block before it copies the next, so n blocks pay n round trips and the
+// adds between them; here the CTA first checks every index (a bad one: the
+// first is reported and no copy starts), then a producer warp's first lane
+// issues one bulk copy a stage for as many blocks as the stages hold, each
+// stage a buffer with a full and an empty barrier, before any thread waits.
+// A longer list goes through the stages as a ring (pair_hit_mb.cu's
+// pattern): a stage is refilled only once every consumer warp has arrived
+// on its empty barrier, and each barrier's parity flips with each use. The
+// stages are as many as the dynamic shared memory the kernel is launched
+// with holds, at most the list's pieces; the host sizes that memory
+// (tools/probe_dma.py:worklist_plan). Eight consumer warps sum in
+// registers: each thread owns
+// the same float4s of every block, adds them from 0.0f in the list's order
+// (so the sum is the plain version's zeros + x[...] + ..., -0.0 included)
+// and writes them to `out` once, by coalesced stores; `out` is never read.
+// A block over 64 KB goes through in slices of 64 KB (16 float4 a thread),
+// the list once a slice.
+//
+// Every wait is bounded and names its step in the error word; each
+// kernel's dynamic shared memory limit is raised once per process and
+// size (tma.cuh:allow_smem), not before every launch.
 //
 // What bounds them on the H100: nothing but latency. The probe's block is
 // 8 x 128 f32 = 4 KB (8 KB moved by P1 and P2, 20 KB by P3), a few
@@ -43,7 +56,12 @@
 namespace racc {
 namespace {
 
-constexpr int kSumThreads = 256;
+constexpr int kSumThreads = 256;                 // P3's consumer threads
+constexpr int kSumWarps = kSumThreads / 32;
+constexpr int kSumCta = kSumThreads + 32;        // and a producer warp
+constexpr int kSumMaxF4 = 16;                    // float4s a consumer thread
+constexpr int kPieceF4 = kSumThreads * kSumMaxF4;  // a stage's most: 64 KB
+constexpr int kStageBarBytes = 16;               // a full and an empty barrier
 
 // P1 (Indexed false: the block at row row0) and P2 (Indexed true: the
 // block at row idx[0] * rows) of x (R, W) f32 into out, through shared
@@ -80,45 +98,138 @@ probe_bulk_kernel(const float* __restrict__ x, int R, int W, int row0,
 }
 
 // P3: out = the sum from zeros of the n row blocks of x (R, W) f32 at rows
-// idx[j] * rows, j < n, added in the list's order.
-__global__ void __launch_bounds__(kSumThreads)
+// idx[j] * rows, j < n, added in the list's order. Each block is `slices`
+// pieces of piece_f4 float4s (the last may be shorter); piece i = slice
+// * n + j lands in stage i % stages, a buffer of piece_f4 float4s, with
+// the stages' full and then empty barriers after the last buffer. K:
+// float4s a consumer thread owns, K * kSumThreads >= piece_f4.
+template <int K>
+__global__ void __launch_bounds__(kSumCta)
 probe_sum_kernel(const float* __restrict__ x, int R, int W,
-                 const int* __restrict__ idx, int n, int rows,
-                 float* __restrict__ out, int* __restrict__ err) {
-  extern __shared__ __align__(128) float4 buf4[];
-  __shared__ __align__(8) unsigned long long bar;
-  const float* buf = reinterpret_cast<const float*>(buf4);
-  const int count = rows * W;
-  const unsigned bytes = static_cast<unsigned>(count) * sizeof(float);
-  if (dynamic_smem_bytes() < bytes) {
+                 const int* __restrict__ idx, int n, int rows, int piece_f4,
+                 int slices, int stages, float* __restrict__ out,
+                 int* __restrict__ err) {
+  extern __shared__ __align__(128) float4 ring[];
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(ring + stages * piece_f4);
+  unsigned long long* empty = full + stages;
+  const unsigned stage_bytes = piece_f4 * sizeof(float4) + kStageBarBytes;
+  if (dynamic_smem_bytes() < stages * stage_bytes) {
     if (threadIdx.x == 0) report_error(err, kErrSmem, 0);
     return;
   }
+  // The whole list is checked before any copy starts: index j by the
+  // thread of rank j mod kSumCta, the producer warp's lanes first, so that
+  // lane l holds idx[l] when it issues its first copy.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rank = warp == kSumWarps ? lane : threadIdx.x + 32;
+  auto outside = [&](int block) {
+    const long long r = static_cast<long long>(block) * rows;
+    return r < 0 || r + rows > R;
+  };
+  const int mine = rank < n ? idx[rank] : 0;
+  bool bad = rank < n && outside(mine);
+  for (int j = rank + kSumCta; j < n; j += kSumCta) bad |= outside(idx[j]);
   if (threadIdx.x == 0) {
-    mbar_init(&bar, 1);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kSumWarps);
+    }
     mbar_fence_init();
   }
-  __syncthreads();
-  for (int j = 0; j < n; ++j) {
-    // Every thread reads the index, so all leave together on a bad one.
-    const long long r = static_cast<long long>(idx[j]) * rows;
-    if (r < 0 || r + rows > R) {
-      if (threadIdx.x == 0) report_error(err, kErrIndex, j);
-      return;
-    }
+  if (__syncthreads_or(bad)) {
     if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(&bar, bytes);
-      bulk_copy_g2s(buf4, x + r * W, bytes, &bar);
+      int j = 0;
+      while (!outside(idx[j])) ++j;
+      report_error(err, kErrIndex, j);
     }
-    if (__syncthreads_or(!mbar_wait(&bar, j & 1))) {
-      if (threadIdx.x == 0) report_error(err, kErrWait, j);
-      return;
+    return;
+  }
+
+  const int block_f4 = rows * W / 4;
+  const int pieces = n * slices;
+  if (warp == kSumWarps) {
+    // The producer. Piece i, slice `slice` of block idx[j], goes to stage
+    // s = i % stages: the first lane arms the stage's full barrier with the
+    // piece's bytes and issues the bulk copy.
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    auto issue = [&](int s, int slice, int block) {
+      const int f4 = min(piece_f4, block_f4 - slice * piece_f4);
+      mbar_arrive_expect_tx(&full[s], f4 * sizeof(float4));
+      bulk_copy_g2s(ring + s * piece_f4,
+                    x4 + static_cast<long long>(block) * block_f4 +
+                        slice * piece_f4,
+                    f4 * sizeof(float4), &full[s]);
+    };
+    int slice = 0, j = 0;
+    auto next = [&] {
+      if (++j == n) {
+        j = 0;
+        ++slice;
+      }
+    };
+    // Every stage's first piece, before any thread waits; the block
+    // indices below 32 come from the lanes that checked them.
+    for (int s = 0; s < stages; ++s, next()) {
+      const int block = j < 32 ? __shfl_sync(0xffffffffu, mine, j) : idx[j];
+      if (lane == 0) issue(s, slice, block);
     }
-    for (int e = threadIdx.x; e < count; e += kSumThreads) {
-      const float acc = j ? out[e] : 0.0f;
-      out[e] = acc + buf[e];
+    // The ring: piece i goes to stage s once every consumer warp has left
+    // piece i - stages (the empty barrier's previous phase there).
+    if (lane != 0) return;
+    for (int i = stages, s = 0, use = 1; i < pieces; ++i, next()) {
+      if (!mbar_wait(&empty[s], (use - 1) & 1)) {
+        report_error(err, kErrWait, -1 - i);
+        return;
+      }
+      issue(s, slice, idx[j]);
+      if (++s == stages) {
+        s = 0;
+        ++use;
+      }
     }
-    __syncthreads();  // every read of buf before the next copy into it
+    return;
+  }
+
+  // The consumers: float4 k * kSumThreads + threadIdx.x of every piece.
+  float4* out4 = reinterpret_cast<float4*>(out);
+  for (int slice = 0, i = 0, s = 0, use = 0; slice < slices; ++slice) {
+    const int f4 = min(piece_f4, block_f4 - slice * piece_f4);
+    float4 acc[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int j = 0; j < n; ++j, ++i) {
+      const bool ok = mbar_wait(&full[s], use & 1);
+      if (__any_sync(0xffffffffu, !ok)) {
+        if (lane == 0) report_error(err, kErrWait, i);
+        return;
+      }
+      const float4* buf = ring + s * piece_f4;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int e = k * kSumThreads + threadIdx.x;
+        if (e < f4) {
+          const float4 v = buf[e];
+          acc[k].x += v.x;
+          acc[k].y += v.y;
+          acc[k].z += v.z;
+          acc[k].w += v.w;
+        }
+      }
+      if (i + stages < pieces) {
+        __syncwarp();  // every lane's reads of the stage are done
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+      if (++s == stages) {
+        s = 0;
+        ++use;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int e = k * kSumThreads + threadIdx.x;
+      if (e < f4) out4[slice * piece_f4 + e] = acc[k];
+    }
   }
 }
 
@@ -128,6 +239,24 @@ bool blocks_ok(const float* x, int R, int W, int rows, int n) {
   const long long bytes = static_cast<long long>(rows) * W * sizeof(float);
   return R >= 1 && W >= 1 && rows >= 1 && n >= 1 && bytes % 16 == 0 &&
          reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
+}
+
+// P3's pieces for blocks of `bytes` (a multiple of 16): at most kPieceF4
+// float4s (slices a block), a stage's bytes (a piece's buffer and its two
+// barriers) and the float4s a consumer thread owns (a power of two).
+struct SumPlan {
+  int piece_f4, slices, stage, k;
+};
+
+bool sum_plan(int n, long long bytes, SumPlan& p) {
+  const long long f4 = bytes / static_cast<long long>(sizeof(float4));
+  p.piece_f4 = static_cast<int>(f4 < kPieceF4 ? f4 : kPieceF4);
+  const long long slices = (f4 + p.piece_f4 - 1) / p.piece_f4;
+  if (slices * n > 0x7fffffff) return false;
+  p.slices = static_cast<int>(slices);
+  p.stage = p.piece_f4 * static_cast<int>(sizeof(float4)) + kStageBarBytes;
+  for (p.k = 1; p.k * kSumThreads < p.piece_f4;) p.k *= 2;
+  return true;
 }
 
 template <bool Indexed>
@@ -144,6 +273,47 @@ int launch_bulk(const float* x, int R, int W, int row0, const int* idx,
   probe_bulk_kernel<Indexed><<<1, 32, dyn, static_cast<cudaStream_t>(stream)>>>(
       x, R, W, row0, idx, rows, out, err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int K>
+int launch_sum(const float* x, int R, int W, const int* idx, int n, int rows,
+               float* out, int* err, const SumPlan& p, int dyn, int stages,
+               void* stream) {
+  static int allowed = 0;
+  const cudaError_t e = allow_smem(probe_sum_kernel<K>, dyn, allowed);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  probe_sum_kernel<K><<<1, kSumCta, dyn, static_cast<cudaStream_t>(stream)>>>(
+      x, R, W, idx, n, rows, p.piece_f4, p.slices, stages, out, err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P3 in `smem` bytes of dynamic shared memory (0: one stage's): as many
+// stages as fit, at most the list's pieces; where not one fits, the kernel
+// is launched with one and reports too little shared memory.
+int launch_worklist(const float* x, int R, int W, const int* idx, int n,
+                    int rows, float* out, int* err, int smem, void* stream) {
+  SumPlan p;
+  if (!blocks_ok(x, R, W, rows, n) ||
+      !sum_plan(n, static_cast<long long>(rows) * W * sizeof(float), p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int dyn = smem > 0 ? smem : p.stage;
+  const long long pieces = static_cast<long long>(n) * p.slices;
+  const int stages =
+      static_cast<int>(pieces < dyn / p.stage ? pieces : dyn / p.stage);
+  const int s = stages > 0 ? stages : 1;
+  switch (p.k) {
+    case 1: return launch_sum<1>(x, R, W, idx, n, rows, out, err, p, dyn, s,
+                                 stream);
+    case 2: return launch_sum<2>(x, R, W, idx, n, rows, out, err, p, dyn, s,
+                                 stream);
+    case 4: return launch_sum<4>(x, R, W, idx, n, rows, out, err, p, dyn, s,
+                                 stream);
+    case 8: return launch_sum<8>(x, R, W, idx, n, rows, out, err, p, dyn, s,
+                                 stream);
+    default:
+      return launch_sum<16>(x, R, W, idx, n, rows, out, err, p, dyn, s,
+                            stream);
+  }
 }
 
 }  // namespace
@@ -168,19 +338,11 @@ extern "C" int racc_probe_dynamic(const float* x, int R, int W,
                                  stream);
 }
 
-// P3: the sum of the blocks at rows idx[j] * rows, j < n, from zeros.
+// P3: the sum of the blocks at rows idx[j] * rows, j < n, from zeros, in
+// as many stages as smem holds (0: one stage).
 extern "C" int racc_probe_worklist(const float* x, int R, int W,
                                    const int* idx, int n, int rows,
                                    float* out, int* err, int smem,
                                    void* stream) {
-  using namespace racc;
-  static int allowed = 0;
-  if (!blocks_ok(x, R, W, rows, n))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int dyn = smem > 0 ? smem : rows * W * static_cast<int>(sizeof(float));
-  cudaError_t e = allow_smem(probe_sum_kernel, dyn, allowed);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  probe_sum_kernel<<<1, kSumThreads, dyn, static_cast<cudaStream_t>(stream)>>>(
-      x, R, W, idx, n, rows, out, err);
-  return static_cast<int>(cudaGetLastError());
+  return racc::launch_worklist(x, R, W, idx, n, rows, out, err, smem, stream);
 }

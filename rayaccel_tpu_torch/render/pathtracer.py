@@ -204,7 +204,12 @@ def pt_trace_wave(scene, env: Environment, cam_arrays, x: torch.Tensor,
     radiance is the same with and without.
 
     Returns (radiance (R, 3), traced, dropped): ``dropped`` counts the
-    dense and sparse engines' overflow (0 elsewhere)."""
+    dense and sparse engines' overflow (0 elsewhere).
+
+    The engine defaults to ``backend="pallas"``, the port's kernel path. The
+    JAX package's ``pt_trace_wave`` defaults to "mxu", which in the port is
+    the plain ``torch.bmm`` engine, so a call that leaves ``backend`` out
+    runs another engine in each package; the renderers always pass theirs."""
     R = x.shape[0]
     device = x.device
     if bounce_backend is None:
@@ -409,7 +414,12 @@ def pt_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
     reassembly.
 
     Returns (radiance (W, R, 3) in lane order, traced, dropped): this
-    rank's. With ``info``, whether the reshard fired is written to it."""
+    rank's. With ``info``, whether the reshard fired is written to it.
+
+    The engine defaults to ``backend="pallas"``, the port's kernel path. The
+    JAX package's ``pt_trace_frame`` defaults to "mxu", which in the port is
+    the plain ``torch.bmm`` engine, so a call that leaves ``backend`` out
+    runs another engine in each package; the renderers always pass theirs."""
     W, R = xs.shape
     N = W * R
     # Global lane ids are exact in the float32 reassembly rows only below

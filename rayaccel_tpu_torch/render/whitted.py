@@ -329,7 +329,13 @@ def whitted_trace_wave(scene, env: Environment, cam_arrays,
     at the end. It is off for ``primary_only`` (no bounce follows the first
     shade) and for the "xla" engine.
 
-    Returns (radiance (R, 3), traced, dropped)."""
+    Returns (radiance (R, 3), traced, dropped).
+
+    The engine defaults to ``backend="pallas"``, the port's kernel path. The
+    JAX package's ``whitted_trace_wave`` defaults to "mxu", which in the
+    port is the plain ``torch.bmm`` engine, so a call that leaves
+    ``backend`` out runs another engine in each package; the renderers
+    always pass theirs."""
     R = x.shape[0]
     if bounce_backend is None:
         bounce_backend = backend
@@ -436,7 +442,13 @@ def whitted_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
     Returns (radiance (W, R, 3) in lane order, traced, dropped): this
     rank's. With ``info``, the numbers of bounce-loop iterations, shrinks
     and shrinks that moved the deep stack levels, and whether the reshard
-    fired, are written to it."""
+    fired, are written to it.
+
+    The engine defaults to ``backend="pallas"``, the port's kernel path. The
+    JAX package's ``whitted_trace_frame`` defaults to "mxu", which in the
+    port is the plain ``torch.bmm`` engine, so a call that leaves
+    ``backend`` out runs another engine in each package; the renderers
+    always pass theirs."""
     W, R = xs.shape
     N = W * R
     # Global lane ids are exact in the float32 reassembly rows only below

@@ -13,14 +13,18 @@ arange(64 * 128) as (64, 128) float32:
 - B, :func:`copy_dynamic` (P2, ``kern_b``): row block ``idx[0]`` (3: rows
   24:32), the index read on the device;
 - C, :func:`copy_worklist` (P3, ``kern_c``): the sum from zeros of the row
-  blocks of the work list [1, 5, 2, 7], in that order, through one
-  scratch buffer.
+  blocks of the work list [1, 5, 2, 7], in that order: the TPU kernel
+  waits on each block's copy before the next, the port issues every
+  block's copy before it waits on any, one stage of shared memory each
+  (:func:`worklist_plan`; a longer list goes through the stages as a
+  ring), and sums in registers.
 
 Prints one JSON line for the device, then one a step: whether the output
 equals the probe's own expectation bit for bit, the kernel's CUDA-event
 microseconds and those of the one PyTorch call that computes the same
-function (``library``), timed on the card only. Exits non-zero on a
-mismatch. With no CUDA device and no ``--device`` it raises.
+function (``library``), timed on the card only; on the card step C's line
+adds the stage plan the kernel is launched with (``plan``). Exits non-zero
+on a mismatch. With no CUDA device and no ``--device`` it raises.
 
 On a CUDA tensor each wrapper checks its argument (float32, 2-D,
 contiguous, a 16-byte-aligned start and a block whose bytes are a
@@ -47,6 +51,12 @@ ROWS = 8                  # rows of a block: the probe's (8, 128) scratch
 STATIC_START = 8          # step A's rows 8:16
 DYNAMIC_INDEX = 3         # step B's block: rows 24:32
 WORK_LIST = (1, 5, 2, 7)  # step C's blocks
+
+# P3's stages (csrc/probe_dma.cu:sum_plan): a piece of at most 64 KB of a
+# block (16 float4s for each of 256 consumer threads) and its full and
+# empty mbarriers.
+PIECE_BYTES = 256 * 16 * 16
+STAGE_BARRIER_BYTES = 16
 
 
 def probe_input(device) -> torch.Tensor:
@@ -160,11 +170,20 @@ def copy_worklist(x, idx, rows: int = ROWS, *, err=None,
                   smem: int = 0) -> torch.Tensor:
     """P3: the sum from zeros of the row blocks ``idx[0]``, ``idx[1]``, ...
     of x, added in that order, ``idx`` an int32 tensor read on the device.
-    ``err`` and ``smem`` as for :func:`copy_static`."""
+    The kernel checks every index before it copies any block, then issues
+    a copy a stage, as many stages as :func:`worklist_plan` fits in the
+    card's opt-in shared memory, before any thread waits. ``err`` as for
+    :func:`copy_static`; ``smem`` (bytes of dynamic shared memory, 0: the
+    plan's) is used as it is, its stages as many as it holds (the card
+    tests force too few and too many)."""
     if x.device.type == "cpu":
         return copy_worklist_plain(x, idx, rows)
     _check_block(x, rows)
     _index(idx)
+    if not smem:
+        block = rows * x.shape[1] * x.element_size()
+        smem = worklist_plan(idx.numel(), block,
+                             smem_optin(x.device))["smem_bytes"]
     out = torch.empty((rows, x.shape[1]), dtype=torch.float32,
                       device=x.device)
     return _launch(copy_worklist, "racc_probe_worklist", out, err, smem,
@@ -173,6 +192,30 @@ def copy_worklist(x, idx, rows: int = ROWS, *, err=None,
 
 
 copy_worklist.launches = 0
+
+
+def smem_optin(device) -> int:
+    """The dynamic shared memory a CTA may opt in to on a CUDA device."""
+    return torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+
+
+def worklist_plan(n: int, block_bytes: int, room: int) -> dict:
+    """P3's plan for a work list of ``n`` blocks of ``block_bytes`` (a
+    multiple of 16) in ``room`` bytes of dynamic shared memory: each block
+    in ``slices`` pieces of at most 64 KB (``piece_bytes``), and
+    ``stages`` stages (a piece's buffer and its two barriers), as many as
+    fit, at most the list's pieces; 0 where not one fits (the kernel then
+    reports too little shared memory). ``smem_bytes`` is what
+    :func:`copy_worklist` launches the kernel with: the stages' bytes (one
+    stage's where none fits), from which ``csrc/probe_dma.cu`` makes the
+    same stages."""
+    piece = min(block_bytes, PIECE_BYTES)
+    slices = -(-block_bytes // piece)
+    stage = piece + STAGE_BARRIER_BYTES
+    stages = min(n * slices, room // stage)
+    return dict(stages=stages, slices=slices, piece_bytes=piece,
+                smem_bytes=max(stages, 1) * stage)
 
 
 def copy_worklist_plain(x, idx, rows: int = ROWS) -> torch.Tensor:
@@ -227,6 +270,9 @@ def run(device, reps: int = 100) -> list:
         ok = bool(np.array_equal(got.cpu().numpy(), expected(step)))
         line = dict(step=step, kernel=fn.__name__, ok=ok, kernel_us=None,
                     library_us=None, library=text)
+        if on_card and step == "C":
+            line["plan"] = worklist_plan(len(WORK_LIST), got.numel() * 4,
+                                         smem_optin(x.device))
         if on_card:
             err = torch.zeros(2, dtype=torch.int32, device=x.device)
             line["kernel_us"] = cuda_ms(lambda: fn(*args, err=err), reps) * 1e3

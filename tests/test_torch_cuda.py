@@ -846,32 +846,68 @@ def test_oracle_on_the_card_passes_the_bar(cuda):
 
 # ---- the probes: P1-P3 (tools/probe_dma.py), P4 (tools/probe_pair_dma.py)
 
+_LIST64 = [(5 * j + 3) % 8 for j in range(64)]
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
 @pytest.mark.parametrize("case", [
     ("static", 0), ("static", 8), ("static", 56),
     ("dynamic", [0]), ("dynamic", [3]), ("dynamic", [7]),
     ("worklist", [1, 5, 2, 7]), ("worklist", [0]),
-    ("worklist", [7, 7, 0, 3, 3, 1]), ("worklist", list(range(8)) * 4)],
+    ("worklist", [7, 7, 0, 3, 3, 1]), ("worklist", list(range(8)) * 4),
+    ("worklist", _LIST64), ("worklist", _LIST64, {"stages": 3}),
+    ("worklist", [1, 5, 2, 7], {"stages": 1}),
+    ("worklist", [1, 6, 2, 7, 0, 3, 5, 4, 1, 1], {"block": (4, 3072)}),
+    ("worklist", [1, 0, 7, 1], {"block": (4, 6400)}),
+    ("worklist", [0, 0, 0], {"negative_zero": 0})],
     ids=str)
 def test_dma_probes_match_plain_bitwise(cuda, case):
     """P1-P3 on the probe's x and on a (96, 36) array in blocks of 4 rows
-    (576 bytes) against their plain versions, bit for bit: P3 reuses its
-    buffer and barrier once per index, so a wrong parity shows as a stale
-    block or a timeout."""
+    (576 bytes) against their plain versions, bit for bit. P3 keeps a
+    stage a block in flight, so a wrong parity or a stage refilled before
+    it is read shows as a stale block or a timeout: a list of 64 (the
+    probe's block: 56 stages, the ring wraps; at ``stages`` 3 it wraps
+    21 times), one stage, blocks of 48 KB (4 rows of 3072: 4 stages fit)
+    and of 100 KB (4 rows of 6400: two slices of 64 KB and 36 KB a block,
+    3 stages), and a first block of -0.0, whose sum from zeros is +0.0."""
     from rayaccel_tpu_torch.tools import probe_dma as pd
-    kind, arg = case
+    kind, arg, *opt = case
+    opt = opt[0] if opt else {}
     other = torch.tensor(np.random.default_rng(7).normal(size=(96, 36)),
                          dtype=torch.float32, device=cuda)
-    for x, rows in ((pd.probe_input(cuda), 8), (other, 4)):
+    arrays = [(pd.probe_input(cuda), 8), (other, 4)]
+    if "block" in opt:
+        rows, W = opt["block"]
+        arrays = [(torch.tensor(np.random.default_rng(8).normal(
+            size=(8 * rows, W)), dtype=torch.float32, device=cuda), rows)]
+    if "negative_zero" in opt:
+        for x, rows in arrays:
+            x[opt["negative_zero"] * rows:][:rows] = -0.0
+    room = pd.smem_optin(cuda)
+    for x, rows in arrays:
         fn = getattr(pd, f"copy_{kind}")
         plain = getattr(pd, f"copy_{kind}_plain")
         args = ((x, arg * rows // 8, rows) if kind == "static" else
                 (x, torch.tensor(arg, dtype=torch.int32, device=cuda), rows))
+        kw = {}
+        if kind == "worklist":
+            block = rows * x.shape[1] * 4
+            kw["smem"] = opt.get("stages", 0) * (block + 16)
+            plan = pd.worklist_plan(len(arg), block, kw["smem"] or room)
+            assert 0 < plan["stages"] <= len(arg)
+            if "stages" in opt:
+                assert plan["stages"] == opt["stages"]
         launches = fn.launches
-        got = fn(*args)
+        got = fn(*args, **kw)
         assert fn.launches == launches + 1
-        assert torch.equal(got, plain(*args))
-        assert torch.equal(got.cpu(), plain(*(a.cpu() if torch.is_tensor(a)
-                                              else a for a in args)))
+        assert torch.equal(_bits(got), _bits(plain(*args)))
+        assert torch.equal(_bits(got).cpu(), _bits(plain(
+            *(a.cpu() if torch.is_tensor(a) else a for a in args))))
+        if "negative_zero" in opt:
+            assert not torch.signbit(got).any()
 
 
 def test_dma_probes_raise_instead_of_copying_wrong(cuda):
@@ -879,7 +915,8 @@ def test_dma_probes_raise_instead_of_copying_wrong(cuda):
     is not 16-byte aligned is refused before the launch; an index read on
     the device out of range, too little shared memory and a launch the
     card refuses (more shared memory than a CTA may have) each raise, and
-    no output is returned."""
+    no output is returned. P3 checks its whole list before any copy: a bad
+    last index of 64 raises naming that index."""
     from rayaccel_tpu_torch.tools import probe_dma as pd
     narrow = torch.zeros((64, 3), device=cuda)
     with pytest.raises(ValueError, match="multiple of 16"):
@@ -899,8 +936,20 @@ def test_dma_probes_raise_instead_of_copying_wrong(cuda):
         pd.copy_static(x, smem=2048)
     with pytest.raises(RuntimeError, match="CUDA error"):
         pd.copy_static(x, smem=400_000)
+    # P3: a bad index last, at once and in a ring of 3 stages; a stage
+    # larger than its shared memory; more than a CTA may have.
+    last = torch.tensor(_LIST64[:-1] + [-1], dtype=torch.int32, device=cuda)
+    for smem in (0, 3 * 4112):
+        with pytest.raises(RuntimeError, match=r"out of range \(step 63\)"):
+            pd.copy_worklist(x, last, smem=smem)
+    assert pd.worklist_plan(4, 4096, 4111)["stages"] == 0
+    with pytest.raises(RuntimeError, match="less dynamic shared memory"):
+        pd.copy_worklist(x, bad[:1], smem=4111)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pd.copy_worklist(x, bad[:1], smem=400_000)
     # The card is still usable, and a good launch still right.
     assert torch.equal(pd.copy_static(x), x[8:16])
+    assert torch.equal(pd.copy_worklist(x, bad[:1]), x[8:16])
 
 
 @pytest.mark.parametrize("stages", [2, 3, 4])

@@ -42,6 +42,8 @@ def frame_inputs():
 
 
 def _port_frame(sd, cs, xya, seed, **kw):
+    """The port's frame on its default engine, "pallas"
+    (``test_torch_engine_default.py``)."""
     x, y, a = (torch.as_tensor(v) for v in xya)
     cam = JaxCamera.look_at(sd.cam_origin, sd.cam_dir, sd.cam_up, sd.cam_fov,
                             SIZE, SIZE)
@@ -51,7 +53,7 @@ def _port_frame(sd, cs, xya, seed, **kw):
         cs, env, racc.Camera(cam.origin, cam.view, cam.right,
                              cam.up).as_arrays("cpu"),
         x.to(torch.int32), y.to(torch.int32), a, rng.PRNGKey(seed), DEPTH,
-        backend="pallas", tile=TILE, bounce_backend="sparse", **kw)
+        tile=TILE, bounce_backend="sparse", **kw)
 
 
 def test_frame_matches_jax(frame_inputs):

@@ -98,6 +98,44 @@ def test_dma_probe_entry_point_on_the_cpu(capsys):
     assert len(lines) == 4 and all('"ok": true' in ln for ln in lines[1:])
 
 
+@pytest.mark.parametrize("block", [(8, 128), (4, 36), (4, 3072)],
+                         ids=["probe", "96x36", "48KB"])
+def test_worklist_plan_stages(block):
+    """P3's stage plan: a stage a block of the list, every one issued
+    before any wait, where an H100's 232,448 bytes of opt-in dynamic
+    shared memory hold them (a stage is the block and 16 bytes of
+    barriers), else a ring of as many stages as fit; in room for one or
+    two stages, or less than one (0 stages, launched with one stage's
+    bytes: the kernel reports it)."""
+    rows, W = block
+    nbytes = rows * W * 4
+    stage = nbytes + 16
+    for n in (1, 4, 32, 64):
+        want = {4112: {1: 1, 4: 4, 32: 32, 64: 56},
+                592: {1: 1, 4: 4, 32: 32, 64: 64},
+                49168: {1: 1, 4: 4, 32: 4, 64: 4}}[stage][n]
+        plan = pd.worklist_plan(n, nbytes, 232_448)
+        assert plan == dict(stages=want, slices=1, piece_bytes=nbytes,
+                            smem_bytes=want * stage)
+        for room in (1, 2):
+            p = pd.worklist_plan(n, nbytes, room * stage + 15)
+            assert p["stages"] == min(n, room)
+            assert p["smem_bytes"] == min(n, room) * stage
+        p = pd.worklist_plan(n, nbytes, stage - 1)
+        assert p["stages"] == 0 and p["smem_bytes"] == stage
+
+
+def test_worklist_plan_slices_blocks_over_64kb():
+    """A block over 64 KB goes through in 64 KB slices (16 float4s for each
+    of 256 consumer threads), the list once a slice: 100 KB is two, the
+    stages 64 KB and 16 bytes each."""
+    plan = pd.worklist_plan(4, 100 * 1024, 232_448)
+    assert plan == dict(stages=3, slices=2, piece_bytes=65536,
+                        smem_bytes=3 * 65552)
+    assert pd.worklist_plan(1, 65536, 232_448)["slices"] == 1
+    assert pd.worklist_plan(1, 65552, 232_448)["slices"] == 2
+
+
 # ---- P4: the run offsets ----
 
 def _probe_starts(items, Bp, n_c):

@@ -48,13 +48,14 @@ def _cams(sd):
 
 
 def _port_wave(sd, cs, perm, x, y, seed, **kw):
+    """The port's wave on its default engine, "pallas"
+    (``test_torch_engine_default.py``)."""
     px = sd.env_pixels
     return pathtracer.pt_trace_wave(
         cs, create_environment(px, px.shape[1], px.shape[0], device="cpu"),
         _cams(sd)[1],
         torch.tensor(x), torch.tensor(y), torch.tensor(perm >= 0),
-        rng.PRNGKey(seed), DEPTH, backend="pallas", tile=TILE,
-        bounce_backend="sparse", **kw)
+        rng.PRNGKey(seed), DEPTH, tile=TILE, bounce_backend="sparse", **kw)
 
 
 @pytest.mark.parametrize("spp", [0, 1, 7, 1000])
