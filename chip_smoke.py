@@ -1066,7 +1066,7 @@ def main() -> int:
             raise AssertionError(f"{name} image is not finite or is black")
         if not deep:
             return
-        kernel_ms = profile_frame(name, renderer, line["frame_ms"])
+        kernel_ms = profile_frame(name, renderer)
         unseen = [k for k in needed if not kernel_ms[k] > 0]
         if unseen:
             raise AssertionError(f"{name}: the profile shows no device time "
@@ -1074,11 +1074,10 @@ def main() -> int:
         slices[name] = (launches, len(keys), kernel_ms,
                         launch_frame(name, renderer))
 
-    def profile_frame(name, renderer, frame_ms):
+    def profile_frame(name, renderer):
         """One more frame under torch.profiler: the device ms of each
-        kernel-table row, of K3's unit pass and of all kernels, and the
-        device's idle share of an unprofiled frame (``frame_ms``). Emits
-        the line and returns the rows' ms."""
+        kernel-table row, of K3's unit pass and of all kernels. Emits the
+        line and returns the rows' ms."""
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             renderer.render_frame(rng.PRNGKey(200))
@@ -1092,8 +1091,7 @@ def main() -> int:
         units_ms = sum(e.device_time_total for e in device
                        if UNIT_PASS_SYMBOL in e.key) / 1e3
         emit(dict(phase="profile", name=name, kernel_ms=kernel_ms,
-                  pair_hit_units_ms=units_ms, all_kernels_ms=all_ms,
-                  device_idle_share=1 - all_ms / frame_ms))
+                  pair_hit_units_ms=units_ms, all_kernels_ms=all_ms))
         return kernel_ms
 
     def launch_frame(name, renderer):
@@ -1473,9 +1471,8 @@ def main() -> int:
             and line["png_signature"] and line["png_size"] == [1280, 720]
             and len(stats.stages or ()) == 5):
         raise AssertionError(f"cli failed: {line}")
-    # One more frame under the profiler: the kernels' device ms and the
-    # idle share of the CLI's frames.
-    cli_kernel_ms = profile_frame("cli", r, line["frame_ms"])
+    # One more frame under the profiler: the kernels' device ms.
+    cli_kernel_ms = profile_frame("cli", r)
     unseen = [k for k in ("dense_closest_hit", "select_nearest", "pair_hit")
               if not cli_kernel_ms[k] > 0]
     if unseen:

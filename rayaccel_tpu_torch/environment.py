@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from rayaccel_tpu_torch.device import resolve_device
+from rayaccel_tpu_torch.utils.spans import span
 
 
 class Environment(NamedTuple):
@@ -79,16 +80,17 @@ def _angular_uv(env: Environment, d: torch.Tensor):
 
 def sample_environment(env: Environment, d: torch.Tensor) -> torch.Tensor:
     """Bilinear, clamp-to-edge probe lookup for directions ``d`` (R, 3):
-    one row gather from the quad table."""
-    w, h = env.width, env.height
-    fx, fy = _angular_uv(env, d)
-    x0 = torch.floor(fx)
-    y0 = torch.floor(fy)
-    tx = (fx - x0)[:, None]
-    ty = (fy - y0)[:, None]
-    x0i = torch.clamp(x0.to(torch.int32), 0, w - 1)
-    y0i = torch.clamp(y0.to(torch.int32), 0, h - 1)
-    q = env.quad[(y0i * w + x0i).long()]                   # (R, 12)
-    top = q[:, 0:3] * (1 - tx) + q[:, 3:6] * tx
-    bot = q[:, 6:9] * (1 - tx) + q[:, 9:12] * tx
-    return top * (1 - ty) + bot * ty
+    one row gather from the quad table (the span ``racc.shade.env``)."""
+    with span("racc.shade.env"):
+        w, h = env.width, env.height
+        fx, fy = _angular_uv(env, d)
+        x0 = torch.floor(fx)
+        y0 = torch.floor(fy)
+        tx = (fx - x0)[:, None]
+        ty = (fy - y0)[:, None]
+        x0i = torch.clamp(x0.to(torch.int32), 0, w - 1)
+        y0i = torch.clamp(y0.to(torch.int32), 0, h - 1)
+        q = env.quad[(y0i * w + x0i).long()]                   # (R, 12)
+        top = q[:, 0:3] * (1 - tx) + q[:, 3:6] * tx
+        bot = q[:, 6:9] * (1 - tx) + q[:, 9:12] * tx
+        return top * (1 - ty) + bot * ty

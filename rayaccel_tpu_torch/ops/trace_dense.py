@@ -53,6 +53,7 @@ from rayaccel_tpu_torch.ops.trace_mxu import INF, MxuHits, _ray_features
 from rayaccel_tpu_torch.scene.clusters import (ATTR_GEOM_COL, ATTR_TRI_ID_COL,
                                                ClusterScene)
 from rayaccel_tpu_torch.types import Hits, INVALID_TRIANGLE, Rays
+from rayaccel_tpu_torch.utils.spans import span
 
 K_PER_STEP = 4
 DEFAULT_TILE_CAP = 256
@@ -349,8 +350,10 @@ def _dense_inputs(cs: ClusterScene, rays: Rays, active, tile: int,
     tmax_eff = (rays.tmax if active is None
                 else torch.where(active, rays.tmax,
                                  torch.full_like(rays.tmax, -1.0)))
-    q_cluster, q_entry, q_count, overflow = cull_and_queue(
-        cs, rays.o, inv_d, rays.tmin, tmax_eff, T, tile, k_step, tile_cap)
+    with span("racc.dense.cull"):
+        q_cluster, q_entry, q_count, overflow = cull_and_queue(
+            cs, rays.o, inv_d, rays.tmin, tmax_eff, T, tile, k_step,
+            tile_cap)
     F = _ray_features(rays.o, rays.d)
     F[:, 10] = rays.tmin
     F[:, 11] = tmax_eff
@@ -365,14 +368,17 @@ def trace_dense(cs: ClusterScene, rays: Rays, env=None, active=None,
     counterpart of ``trace_mxu_pallas``), with the environment's radiance
     folded into ``miss_rgb`` when ``env`` is given. Returns (MxuHits,
     overflow)."""
-    F, q_cluster, q_entry, q_count, overflow = _dense_inputs(
-        cs, rays, active, tile, k_step, tile_cap)
-    out = dense_closest_hit(F, cs.G3, q_cluster, q_entry, q_count, tile,
-                            k_step, precision=precision, G3b=cs.G3b)
-    slot = out[1]
-    hit = slot >= 0
-    attr, tri, t, u, v = reconstruct(cs, rays, torch.where(hit, slot, 0))
-    hits = make_hits(rays, hit, tri, t, u, v, env, active)
+    with span("racc.dense"):
+        F, q_cluster, q_entry, q_count, overflow = _dense_inputs(
+            cs, rays, active, tile, k_step, tile_cap)
+        with span("racc.dense.kernel"):
+            out = dense_closest_hit(F, cs.G3, q_cluster, q_entry, q_count,
+                                    tile, k_step, precision=precision,
+                                    G3b=cs.G3b)
+        slot = out[1]
+        hit = slot >= 0
+        attr, tri, t, u, v = reconstruct(cs, rays, torch.where(hit, slot, 0))
+        hits = make_hits(rays, hit, tri, t, u, v, env, active)
     return MxuHits(hits=hits, attrs=attr), overflow
 
 
@@ -451,8 +457,10 @@ def trace_occlusion_dense(cs: ClusterScene, rays: Rays, active=None,
     blocks the ray within [tmin, tmax]. Returns (occluded (R,) bool,
     overflow): ``overflow`` counts the clusters the queue clamp dropped,
     which the JAX wrapper discards."""
-    F, q_cluster, q_entry, q_count, overflow = _dense_inputs(
-        cs, rays, active, tile, k_step, tile_cap)
-    occ = dense_occluded(F, cs.G3, q_cluster, q_entry, q_count, tile,
-                         k_step, precision=precision, G3b=cs.G3b)
+    with span("racc.dense"):
+        F, q_cluster, q_entry, q_count, overflow = _dense_inputs(
+            cs, rays, active, tile, k_step, tile_cap)
+        with span("racc.dense.kernel"):
+            occ = dense_occluded(F, cs.G3, q_cluster, q_entry, q_count, tile,
+                                 k_step, precision=precision, G3b=cs.G3b)
     return occ, overflow

@@ -51,6 +51,7 @@ from rayaccel_tpu_torch.ops.trace_dense import (fragment_copy, make_hits,
 from rayaccel_tpu_torch.ops.trace_mxu import MxuHits
 from rayaccel_tpu_torch.scene.clusters import ClusterScene
 from rayaccel_tpu_torch.types import Rays
+from rayaccel_tpu_torch.utils.spans import span
 
 _RANK_SHIFT = 20          # rank rides above the cluster id in lane words
 _CL_MASK = (1 << _RANK_SHIFT) - 1
@@ -376,8 +377,9 @@ def _lattice_pairs(lat_valid, lat_id, cap: int):
     rank_bits = (K - 1).bit_length()
     ray = torch.arange(R, dtype=torch.int64, device=lat_id.device)
     rank = torch.arange(K, dtype=torch.int64, device=lat_id.device)
-    word = ((lat_id.to(torch.int64) << (ray_bits + rank_bits))
-            | (ray[None, :] << rank_bits) | rank[:, None])[lat_valid]
+    with span("racc.sparse.read.lattice"):
+        word = ((lat_id.to(torch.int64) << (ray_bits + rank_bits))
+                | (ray[None, :] << rank_bits) | rank[:, None])[lat_valid]
     total = word.numel()
     word = torch.sort(word).values[:cap]
     return (word >> (ray_bits + rank_bits), (word >> rank_bits) & ((1 << ray_bits) - 1),
@@ -401,8 +403,9 @@ def _pair_inputs(o, d, tlo, tmax_p, cl, ray, rank, SP: int):
     pos = torch.arange(P, device=cl.device)
     boundary = (pos % SP == 0)
     boundary[1:] |= cl[1:] != cl[:-1]
-    starts = boundary.nonzero().squeeze(1)
-    ends = torch.cat([starts[1:], starts.new_tensor([P])])
+    with span("racc.sparse.read.runs"):
+        starts = boundary.nonzero().squeeze(1)
+        ends = torch.cat([starts[1:], starts.new_tensor([P])])
     items = torch.stack([starts, ends, cl[starts]], dim=1).to(torch.int32)
     return Fp, items.contiguous()
 
@@ -416,32 +419,34 @@ def _sparse_pass(cs: ClusterScene, o, d, inv_d, tlo, tmax_p, K: int, SP: int,
     The pair and item counts are read on the host (one sync each) and size
     the pair arrays and K3's grid; the pair cap is the JAX package's top
     bucket, so truncation is counted as there."""
-    R = tlo.shape[0]
-    C = cs.cluster_size
-    n_c = cs.n_clusters
-    col_bits = max((C - 1).bit_length(), 1)
-    K = min(K, n_c)
-    kr_pad = -(-K * R // SP) * SP
-    cap = min(max(SP, -(-pair_budget * R // SP) * SP), kr_pad)
+    with span("racc.sparse.pass"):
+        R = tlo.shape[0]
+        C = cs.cluster_size
+        n_c = cs.n_clusters
+        col_bits = max((C - 1).bit_length(), 1)
+        K = min(K, n_c)
+        kr_pad = -(-K * R // SP) * SP
+        cap = min(max(SP, -(-pair_budget * R // SP) * SP), kr_pad)
 
-    lat_valid, lat_id, spill, _cnt = _select(cs, o, inv_d, tlo, tmax_p, K,
-                                             prev_packed)
-    cl, ray, rank, total = _lattice_pairs(lat_valid, lat_id, cap)
-    # Dead lattice entries never enter the pair arrays, so the merge needs
-    # no dump slot for them.
-    best_p = torch.full((R,), _MISS_BITS, dtype=torch.int32, device=o.device)
-    if cl.numel():
-        Fp, items = _pair_inputs(o, d, tlo, tmax_p, cl, ray, rank, SP)
-        packed = pair_hit(Fp, cs.G3, items, col_bits, guard_tmax,
-                          precision=precision, G3b=cs.G3b)
-        best_p.scatter_reduce_(0, ray, packed, "amin")
+        lat_valid, lat_id, spill, _cnt = _select(cs, o, inv_d, tlo, tmax_p,
+                                                 K, prev_packed)
+        cl, ray, rank, total = _lattice_pairs(lat_valid, lat_id, cap)
+        # Dead lattice entries never enter the pair arrays, so the merge
+        # needs no dump slot for them.
+        best_p = torch.full((R,), _MISS_BITS, dtype=torch.int32,
+                            device=o.device)
+        if cl.numel():
+            Fp, items = _pair_inputs(o, d, tlo, tmax_p, cl, ray, rank, SP)
+            packed = pair_hit(Fp, cs.G3, items, col_bits, guard_tmax,
+                              precision=precision, G3b=cs.G3b)
+            best_p.scatter_reduce_(0, ray, packed, "amin")
 
-    rank_w = (best_p >> col_bits) & 7
-    col_w = best_p & ((1 << col_bits) - 1)
-    ksel = torch.arange(K, device=o.device)[:, None] == rank_w[None, :]
-    cluster_w = torch.where(ksel, lat_id, 0).sum(dim=0)
-    slot_p = (cluster_w * C + col_w).to(torch.int32)
-    return best_p, slot_p, spill, max(total - cap, 0)
+        rank_w = (best_p >> col_bits) & 7
+        col_w = best_p & ((1 << col_bits) - 1)
+        ksel = torch.arange(K, device=o.device)[:, None] == rank_w[None, :]
+        cluster_w = torch.where(ksel, lat_id, 0).sum(dim=0)
+        slot_p = (cluster_w * C + col_w).to(torch.int32)
+        return best_p, slot_p, spill, max(total - cap, 0)
 
 
 def _restart_widths(R: int, SP: int, divisors):
@@ -458,15 +463,16 @@ def _compact(unresolved, widths):
     next pass). Returns (uidx, idx, valid): their indices, the same padded
     with 0 to the width, and the mask of real rows; None when no ray is
     unresolved. Reads the count on the host."""
-    n_un = int(unresolved.sum())
-    if n_un == 0:
-        return None
-    Rs = next((w for w in widths if n_un <= w), widths[-1])
-    uidx = unresolved.nonzero().squeeze(1)[:Rs]
-    idx = torch.zeros(Rs, dtype=torch.int64, device=unresolved.device)
-    idx[:uidx.numel()] = uidx
-    valid = torch.arange(Rs, device=unresolved.device) < uidx.numel()
-    return uidx, idx, valid
+    with span("racc.sparse.read.restart"):
+        n_un = int(unresolved.sum())
+        if n_un == 0:
+            return None
+        Rs = next((w for w in widths if n_un <= w), widths[-1])
+        uidx = unresolved.nonzero().squeeze(1)[:Rs]
+        idx = torch.zeros(Rs, dtype=torch.int64, device=unresolved.device)
+        idx[:uidx.numel()] = uidx
+        valid = torch.arange(Rs, device=unresolved.device) < uidx.numel()
+        return uidx, idx, valid
 
 
 def trace_sparse(cs: ClusterScene, rays: Rays, env=None, active=None,
@@ -478,89 +484,91 @@ def trace_sparse(cs: ClusterScene, rays: Rays, env=None, active=None,
     unresolved after ``max_passes`` (knobs as in the JAX function). With
     ``env``, the environment's radiance along each active miss is folded
     into ``miss_rgb`` after the exact tmax post-filter."""
-    if not 1 <= k_pairs <= 8:
-        raise ValueError("k_pairs must be in [1, 8]: rank rides in 3 bits")
-    k_first = k_pairs if k_first is None else k_first
-    k_restart = k_pairs if k_restart is None else k_restart
-    if not (1 <= k_first <= 8 and 1 <= k_restart <= 8):
-        raise ValueError("k_first and k_restart must be in [1, 8]")
-    R = rays.o.shape[0]
-    C = cs.cluster_size
-    n_c = cs.n_clusters
-    low_mask = (1 << (max((C - 1).bit_length(), 1) + 3)) - 1
-    K_r = min(k_restart, n_c)
-    SP = sp_tile
-    id_bits = max((cs.bb.shape[0] - 1).bit_length(), 1)
-    spill_clear = ~((1 << id_bits) - 1)
+    with span("racc.sparse"):
+        if not 1 <= k_pairs <= 8:
+            raise ValueError("k_pairs must be in [1, 8]: rank rides in 3 bits")
+        k_first = k_pairs if k_first is None else k_first
+        k_restart = k_pairs if k_restart is None else k_restart
+        if not (1 <= k_first <= 8 and 1 <= k_restart <= 8):
+            raise ValueError("k_first and k_restart must be in [1, 8]")
+        R = rays.o.shape[0]
+        C = cs.cluster_size
+        n_c = cs.n_clusters
+        low_mask = (1 << (max((C - 1).bit_length(), 1) + 3)) - 1
+        K_r = min(k_restart, n_c)
+        SP = sp_tile
+        id_bits = max((cs.bb.shape[0] - 1).bit_length(), 1)
+        spill_clear = ~((1 << id_bits) - 1)
 
-    inv_d = safe_inv_dir(rays.d)
-    tmin = rays.tmin
-    tmax0 = (rays.tmax if active is None
-             else torch.where(active, rays.tmax,
-                              torch.full_like(rays.tmax, -1.0)))
+        inv_d = safe_inv_dir(rays.d)
+        tmin = rays.tmin
+        tmax0 = (rays.tmax if active is None
+                 else torch.where(active, rays.tmax,
+                                  torch.full_like(rays.tmax, -1.0)))
 
-    def decode_t(b):
-        """Packed best -> conservative upper bound of the winner's t: the
-        cleared low bits and the score's reciprocal rounding put the
-        packed value at most ~2^-12 below the true t; the 2^-11 inflation
-        keeps the bound one-sided."""
-        return (b & ~low_mask).view(torch.float32) * (1.0 + 2.0 ** -11)
+        def decode_t(b):
+            """Packed best -> conservative upper bound of the winner's t: the
+            cleared low bits and the score's reciprocal rounding put the
+            packed value at most ~2^-12 below the true t; the 2^-11 inflation
+            keeps the bound one-sided."""
+            return (b & ~low_mask).view(torch.float32) * (1.0 + 2.0 ** -11)
 
-    def decode_spill(s):
-        return (s & spill_clear).view(torch.float32)
+        def decode_spill(s):
+            return (s & spill_clear).view(torch.float32)
 
-    # ---- pass 1: full width, k_first nearest ----
-    best, slot, spill, overflow = _sparse_pass(
-        cs, rays.o, rays.d, inv_d, tmin, tmax0, min(k_first, n_c), SP,
-        pair_budget, guard_tmax=False, precision=precision)
-    spill_e = decode_spill(spill)
-    unresolved = ((tmax0 > 0) & (spill < _INF_PACK)
-                  & (spill_e < torch.minimum(decode_t(best), tmax0)))
-    tlo = torch.where(unresolved, spill_e, tmin)
-    prev = spill
+        # ---- pass 1: full width, k_first nearest ----
+        best, slot, spill, overflow = _sparse_pass(
+            cs, rays.o, rays.d, inv_d, tmin, tmax0, min(k_first, n_c), SP,
+            pair_budget, guard_tmax=False, precision=precision)
+        spill_e = decode_spill(spill)
+        unresolved = ((tmax0 > 0) & (spill < _INF_PACK)
+                      & (spill_e < torch.minimum(decode_t(best), tmax0)))
+        tlo = torch.where(unresolved, spill_e, tmin)
+        prev = spill
 
-    # ---- restart passes: compacted unresolved set, width-bucketed ----
-    widths = _restart_widths(R, SP, (64, 16, 4) if k_first < k_pairs
-                             else (64, 16))
-    n_pass = 1
-    while n_pass < max_passes:
-        pending = _compact(unresolved, widths)
-        if pending is None:
-            break
-        uidx, idx, valid = pending
-        nv = uidx.numel()
-        d_s = rays.d[idx]
-        best_s = best[idx]
-        tmax_r = tmax0[idx]
-        tmax_s = torch.where(valid, torch.minimum(decode_t(best_s), tmax_r),
-                             torch.full_like(tmax_r, -1.0))
-        bp, sp_p, spill_s, trunc_s = _sparse_pass(
-            cs, rays.o[idx], d_s, safe_inv_dir(d_s), tlo[idx], tmax_s, K_r,
-            SP, K_r, prev_packed=prev[idx], guard_tmax=False,
-            precision=precision)
-        merged = torch.minimum(bp, best_s)
-        slot_m = torch.where(bp < best_s, sp_p, slot[idx])
-        spill_es = decode_spill(spill_s)
-        unres_s = (valid & (spill_s < _INF_PACK)
-                   & (spill_es < torch.minimum(decode_t(merged), tmax_r)))
-        tlo_m = torch.where(unres_s, spill_es, tlo[idx])
-        best[uidx] = merged[:nv]
-        slot[uidx] = slot_m[:nv]
-        tlo[uidx] = tlo_m[:nv]
-        prev[uidx] = spill_s[:nv]
-        unresolved[uidx] = unres_s[:nv]
-        n_pass += 1
-        overflow += trunc_s
+        # ---- restart passes: compacted unresolved set, width-bucketed ----
+        widths = _restart_widths(R, SP, (64, 16, 4) if k_first < k_pairs
+                                 else (64, 16))
+        n_pass = 1
+        while n_pass < max_passes:
+            pending = _compact(unresolved, widths)
+            if pending is None:
+                break
+            uidx, idx, valid = pending
+            nv = uidx.numel()
+            d_s = rays.d[idx]
+            best_s = best[idx]
+            tmax_r = tmax0[idx]
+            tmax_s = torch.where(valid,
+                                 torch.minimum(decode_t(best_s), tmax_r),
+                                 torch.full_like(tmax_r, -1.0))
+            bp, sp_p, spill_s, trunc_s = _sparse_pass(
+                cs, rays.o[idx], d_s, safe_inv_dir(d_s), tlo[idx], tmax_s, K_r,
+                SP, K_r, prev_packed=prev[idx], guard_tmax=False,
+                precision=precision)
+            merged = torch.minimum(bp, best_s)
+            slot_m = torch.where(bp < best_s, sp_p, slot[idx])
+            spill_es = decode_spill(spill_s)
+            unres_s = (valid & (spill_s < _INF_PACK)
+                       & (spill_es < torch.minimum(decode_t(merged), tmax_r)))
+            tlo_m = torch.where(unres_s, spill_es, tlo[idx])
+            best[uidx] = merged[:nv]
+            slot[uidx] = slot_m[:nv]
+            tlo[uidx] = tlo_m[:nv]
+            prev[uidx] = spill_s[:nv]
+            unresolved[uidx] = unres_s[:nv]
+            n_pass += 1
+            overflow += trunc_s
 
-    hit = best < _MISS_BITS
-    attr, tri, t, u, v = reconstruct(cs, rays, torch.where(hit, slot, 0))
-    # The kernel ran without the tmax guard: enforce the window exactly on
-    # the refined t (the packed min picked the nearest valid hit, so
-    # "nearest > tmax" means no in-window hit exists).
-    hit = hit & (t < rays.tmax)
-    overflow = unresolved.sum() + overflow
-    return MxuHits(hits=make_hits(rays, hit, tri, t, u, v, env, active),
-                   attrs=attr), overflow
+        hit = best < _MISS_BITS
+        attr, tri, t, u, v = reconstruct(cs, rays, torch.where(hit, slot, 0))
+        # The kernel ran without the tmax guard: enforce the window exactly on
+        # the refined t (the packed min picked the nearest valid hit, so
+        # "nearest > tmax" means no in-window hit exists).
+        hit = hit & (t < rays.tmax)
+        overflow = unresolved.sum() + overflow
+        return MxuHits(hits=make_hits(rays, hit, tri, t, u, v, env, active),
+                       attrs=attr), overflow
 
 
 def trace_occlusion_sparse(cs: ClusterScene, rays: Rays, active=None,
@@ -578,61 +586,62 @@ def trace_occlusion_sparse(cs: ClusterScene, rays: Rays, active=None,
     Returns (occluded (R,) bool, under_resolved): rays still unresolved at
     the pass cap are reported unoccluded and counted, with truncated
     pairs, in ``under_resolved``."""
-    if not 1 <= k_pairs <= 8:
-        raise ValueError("k_pairs must be in [1, 8]: rank rides in 3 bits")
-    k_restart = k_pairs if k_restart is None else k_restart
-    if not 1 <= k_restart <= 8:
-        raise ValueError("k_restart must be in [1, 8]")
-    R = rays.o.shape[0]
-    n_c = cs.n_clusters
-    K_r = min(k_restart, n_c)
-    SP = sp_tile
-    id_bits = max((cs.bb.shape[0] - 1).bit_length(), 1)
-    spill_clear = ~((1 << id_bits) - 1)
+    with span("racc.sparse"):
+        if not 1 <= k_pairs <= 8:
+            raise ValueError("k_pairs must be in [1, 8]: rank rides in 3 bits")
+        k_restart = k_pairs if k_restart is None else k_restart
+        if not 1 <= k_restart <= 8:
+            raise ValueError("k_restart must be in [1, 8]")
+        R = rays.o.shape[0]
+        n_c = cs.n_clusters
+        K_r = min(k_restart, n_c)
+        SP = sp_tile
+        id_bits = max((cs.bb.shape[0] - 1).bit_length(), 1)
+        spill_clear = ~((1 << id_bits) - 1)
 
-    def decode_spill(s):
-        return (s & spill_clear).view(torch.float32)
+        def decode_spill(s):
+            return (s & spill_clear).view(torch.float32)
 
-    inv_d = safe_inv_dir(rays.d)
-    tmin = rays.tmin
-    tmax0 = (rays.tmax if active is None
-             else torch.where(active, rays.tmax,
-                              torch.full_like(rays.tmax, -1.0)))
+        inv_d = safe_inv_dir(rays.d)
+        tmin = rays.tmin
+        tmax0 = (rays.tmax if active is None
+                 else torch.where(active, rays.tmax,
+                                  torch.full_like(rays.tmax, -1.0)))
 
-    best, _, spill, under = _sparse_pass(
-        cs, rays.o, rays.d, inv_d, tmin, tmax0, min(k_pairs, n_c), SP,
-        pair_budget, guard_tmax=True, precision=precision)
-    occluded = best < _MISS_BITS
-    spill_e = decode_spill(spill)
-    unresolved = ((tmax0 > 0) & ~occluded & (spill < _INF_PACK)
-                  & (spill_e < tmax0))
-    tlo = torch.where(unresolved, spill_e, tmin)
-    prev = spill
+        best, _, spill, under = _sparse_pass(
+            cs, rays.o, rays.d, inv_d, tmin, tmax0, min(k_pairs, n_c), SP,
+            pair_budget, guard_tmax=True, precision=precision)
+        occluded = best < _MISS_BITS
+        spill_e = decode_spill(spill)
+        unresolved = ((tmax0 > 0) & ~occluded & (spill < _INF_PACK)
+                      & (spill_e < tmax0))
+        tlo = torch.where(unresolved, spill_e, tmin)
+        prev = spill
 
-    # Restart passes: the ladder tops out at R/8 (shadow rays can leave a
-    # longer unresolved tail than closest-hit, having no tmax shrink).
-    widths = _restart_widths(R, SP, (64, 8))
-    n_pass = 1
-    while n_pass < max_passes:
-        pending = _compact(unresolved, widths)
-        if pending is None:
-            break
-        uidx, idx, valid = pending
-        nv = uidx.numel()
-        d_s = rays.d[idx]
-        tmax_s = torch.where(valid, tmax0[idx], -1.0)
-        bp, _, spill_s, trunc_s = _sparse_pass(
-            cs, rays.o[idx], d_s, safe_inv_dir(d_s), tlo[idx], tmax_s, K_r,
-            SP, K_r, prev_packed=prev[idx], guard_tmax=True,
-            precision=precision)
-        occ_s = (bp < _MISS_BITS) | occluded[idx]
-        spill_es = decode_spill(spill_s)
-        unres_s = (valid & ~occ_s & (spill_s < _INF_PACK)
-                   & (spill_es < tmax_s))
-        occluded[uidx] = occ_s[:nv]
-        tlo[uidx] = torch.where(unres_s, spill_es, tlo[idx])[:nv]
-        prev[uidx] = spill_s[:nv]
-        unresolved[uidx] = unres_s[:nv]
-        n_pass += 1
-        under += trunc_s
-    return occluded, unresolved.sum() + under
+        # Restart passes: the ladder tops out at R/8 (shadow rays can leave a
+        # longer unresolved tail than closest-hit, having no tmax shrink).
+        widths = _restart_widths(R, SP, (64, 8))
+        n_pass = 1
+        while n_pass < max_passes:
+            pending = _compact(unresolved, widths)
+            if pending is None:
+                break
+            uidx, idx, valid = pending
+            nv = uidx.numel()
+            d_s = rays.d[idx]
+            tmax_s = torch.where(valid, tmax0[idx], -1.0)
+            bp, _, spill_s, trunc_s = _sparse_pass(
+                cs, rays.o[idx], d_s, safe_inv_dir(d_s), tlo[idx], tmax_s, K_r,
+                SP, K_r, prev_packed=prev[idx], guard_tmax=True,
+                precision=precision)
+            occ_s = (bp < _MISS_BITS) | occluded[idx]
+            spill_es = decode_spill(spill_s)
+            unres_s = (valid & ~occ_s & (spill_s < _INF_PACK)
+                       & (spill_es < tmax_s))
+            occluded[uidx] = occ_s[:nv]
+            tlo[uidx] = torch.where(unres_s, spill_es, tlo[idx])[:nv]
+            prev[uidx] = spill_s[:nv]
+            unresolved[uidx] = unres_s[:nv]
+            n_pass += 1
+            under += trunc_s
+        return occluded, unresolved.sum() + under

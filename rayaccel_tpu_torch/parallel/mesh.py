@@ -27,6 +27,8 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from rayaccel_tpu_torch.utils.spans import span
+
 # How long a collective waits for the other ranks before it raises.
 GROUP_TIMEOUT = datetime.timedelta(minutes=10)
 
@@ -133,7 +135,8 @@ def reshard_balance_cols(S: torch.Tensor, lane: torch.Tensor,
     assert N % D == 0, f"per-rank pool {N} not divisible by mesh {D}"
     Ns = N // D
     n_live = alive.sum().to(torch.int64).reshape(1).to(mesh.device)
-    counts = mesh.all_gather(n_live).flatten().tolist()
+    with span("racc.render.read.rank_counts"):
+        counts = mesh.all_gather(n_live).flatten().tolist()
     total = sum(counts)
     need = max(counts) * D > total + total // 4 + D * slack
     if not need:

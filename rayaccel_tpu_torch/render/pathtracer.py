@@ -51,6 +51,7 @@ from rayaccel_tpu_torch.scene.clusters import ClusterScene, compile_clusters
 from rayaccel_tpu_torch.scene.compile import compile_scene
 from rayaccel_tpu_torch.scene.data import SceneData
 from rayaccel_tpu_torch.types import INVALID_TRIANGLE, Hits, Rays
+from rayaccel_tpu_torch.utils.spans import span
 
 CLUSTER_BACKENDS = ("mxu", "pallas", "sparse")
 SAMPLER_SEED = 0x5EED      # the stratified sampler's per-pixel rotation key
@@ -70,8 +71,9 @@ def pt_shade(surf, rays, weight, key, lane=None):
     else:
         rnd = rng.uniform(key, (rays.o.shape[0], 3), device=rays.o.device)
     wo = -rays.d
-    wi, color, transmitted = sample_reflective_diffuse(
-        surf.mat_params, rnd, surf.ns, wo)
+    with span("racc.shade.bsdf"):
+        wi, color, transmitted = sample_reflective_diffuse(
+            surf.mat_params, rnd, surf.ns, wo)
     new_weight = weight * color
     new_rays, ok = spawn_secondary(surf, wi, new_weight, transmitted,
                                    surf.d_dot_ng)
@@ -89,8 +91,9 @@ def _trace_and_surface(scene, rays, alive, bk, tile, opts=EngineOpts(),
     if bk == "xla":
         hits = trace_bvh(scene, rays, env=env, active=alive,
                          stack_depth=stack_depth)
-        surf = interpolate_surface(scene, rays, hits,
-                                   alive & (hits.tri >= 0))
+        with span("racc.shade.surface"):
+            surf = interpolate_surface(scene, rays, hits,
+                                       alive & (hits.tri >= 0))
         return hits, surf, 0
     if bk == "pallas":
         res, overflow = trace_dense(scene, rays, env=env, active=alive,
@@ -108,8 +111,22 @@ def _trace_and_surface(scene, rays, alive, bk, tile, opts=EngineOpts(),
                                   tile=tile), 0
     else:
         raise ValueError(f"no renderer runs on engine {bk!r}")
-    surf = surface_from_attrs(res.attrs, scene.mat_params, rays, res.hits)
+    with span("racc.shade.surface"):
+        surf = surface_from_attrs(res.attrs, scene.mat_params, rays,
+                                  res.hits)
     return res.hits, surf, overflow
+
+
+def read_count(mask: torch.Tensor, site: str) -> int:
+    """``int(mask.sum())``, a host wait, inside the span ``site``."""
+    with span(site):
+        return int(mask.sum())
+
+
+def read_any(mask: torch.Tensor, site: str) -> bool:
+    """``bool(mask.any())``, a host wait, inside the span ``site``."""
+    with span(site):
+        return bool(mask.any())
 
 
 def _live_prefix_sizes(R: int, tile: int):
@@ -125,7 +142,7 @@ def _trace_prefix(trace_fn, rays: Rays, alive, sizes):
     ``sizes``, its hits and frame padded back to full width with misses
     and zeros."""
     R = alive.shape[0]
-    n_live = int(alive.sum())
+    n_live = read_count(alive, "racc.render.read.prefix_count")
     size = next(s for s in sizes if n_live <= s)
     if size == R:
         return trace_fn(rays, alive)
@@ -145,16 +162,17 @@ def _shade_advance(hits, surf, rays, weight, depth, alive, miss_d, miss_w,
     """Post-trace lane-state advance: terminal-miss capture, depth
     budgeting, BSDF sample + continuation spawn. Returns (rays, weight,
     depth, alive, miss_d, miss_w)."""
-    miss = alive & (hits.tri == INVALID_TRIANGLE)
-    miss_d = torch.where(miss[:, None], rays.d, miss_d)
-    miss_w = torch.where(miss[:, None], weight, miss_w)
+    with span("racc.shade"):
+        miss = alive & (hits.tri == INVALID_TRIANGLE)
+        miss_d = torch.where(miss[:, None], rays.d, miss_d)
+        miss_w = torch.where(miss[:, None], weight, miss_w)
 
-    active = alive & (hits.tri >= 0) & (depth < max_depth)
-    new_rays, new_weight, ok = pt_shade(surf, rays, weight, skey, lane)
-    alive2 = active & ok
-    rays2 = merge_rays(alive2, new_rays, rays)
-    weight2 = torch.where(alive2[:, None], new_weight, weight)
-    depth2 = depth + active.to(torch.int32)
+        active = alive & (hits.tri >= 0) & (depth < max_depth)
+        new_rays, new_weight, ok = pt_shade(surf, rays, weight, skey, lane)
+        alive2 = active & ok
+        rays2 = merge_rays(alive2, new_rays, rays)
+        weight2 = torch.where(alive2[:, None], new_weight, weight)
+        depth2 = depth + active.to(torch.int32)
     return rays2, weight2, depth2, alive2, miss_d, miss_w
 
 
@@ -165,7 +183,8 @@ def _stratified_jitter(x, y, spp_index, sampler_key):
     pixel, not the lane: waves reuse lane offsets). Returns (rot (R, 2),
     jx, jy)."""
     pix = (y.to(torch.int64) << 16) | x.to(torch.int64)
-    rot = rng.uniform_pair_each(*rng.fold_in_each(sampler_key, pix))
+    with span("racc.shade.rng"):
+        rot = rng.uniform_pair_each(*rng.fold_in_each(sampler_key, pix))
     s_f = np.float32(int(spp_index))
     # The products are rounded to float32 on the host, as the device would
     # round them.
@@ -235,33 +254,37 @@ def pt_trace_wave(scene, env: Environment, cam_arrays, x: torch.Tensor,
                                                stack_depth=stack_depth)
 
     bounce = 0
-    while bool(st["alive"].any()):
-        bk = backend if bounce == 0 else bounce_backend
-        if do_regroup and bounce > 0:
-            hits, surf, ov = _trace_prefix(trace_fn(bk), st["rays"],
-                                           st["alive"], sizes)
-        else:
-            hits, surf, ov = trace_fn(bk)(st["rays"], st["alive"])
-        traced = traced + st["alive"].sum()
-        dropped = dropped + ov
-        rays, weight, depth, alive, miss_d, miss_w = _shade_advance(
-            hits, surf, st["rays"], st["weight"], st["depth"], st["alive"],
-            st["miss_d"], st["miss_w"], rng.fold_in(key, bounce + 1),
-            max_depth, lane=st["lane"])
-        lane = st["lane"]
-        if do_regroup:
-            k = coherence_key(rays, alive, bmin, binv)
-            rays, (weight, depth, alive, lane, miss_d, miss_w) = \
-                regroup_state(k, rays, [weight, depth, alive, lane, miss_d,
-                                        miss_w])
-        st = dict(rays=rays, weight=weight, depth=depth, alive=alive,
-                  lane=lane, miss_d=miss_d, miss_w=miss_w)
-        bounce += 1
+    while read_any(st["alive"], "racc.render.read.wave_alive"):
+        with span("racc.render.loop"):
+            bk = backend if bounce == 0 else bounce_backend
+            if do_regroup and bounce > 0:
+                hits, surf, ov = _trace_prefix(trace_fn(bk), st["rays"],
+                                               st["alive"], sizes)
+            else:
+                hits, surf, ov = trace_fn(bk)(st["rays"], st["alive"])
+            traced = traced + st["alive"].sum()
+            dropped = dropped + ov
+            rays, weight, depth, alive, miss_d, miss_w = _shade_advance(
+                hits, surf, st["rays"], st["weight"], st["depth"],
+                st["alive"], st["miss_d"], st["miss_w"],
+                rng.fold_in(key, bounce + 1), max_depth, lane=st["lane"])
+            lane = st["lane"]
+            if do_regroup:
+                with span("racc.render.regroup"):
+                    k = coherence_key(rays, alive, bmin, binv)
+                    rays, (weight, depth, alive, lane, miss_d, miss_w) = \
+                        regroup_state(k, rays, [weight, depth, alive, lane,
+                                                miss_d, miss_w])
+            st = dict(rays=rays, weight=weight, depth=depth, alive=alive,
+                      lane=lane, miss_d=miss_d, miss_w=miss_w)
+            bounce += 1
 
-    radiance = st["miss_w"] * sample_environment(env, st["miss_d"])
-    if do_regroup:
-        # Unsort back to the original lane order for the framebuffer.
-        _, (radiance,) = regroup_state(st["lane"], st["rays"], [radiance])
+    with span("racc.render.assemble"):
+        radiance = st["miss_w"] * sample_environment(env, st["miss_d"])
+        if do_regroup:
+            # Unsort back to the original lane order for the framebuffer.
+            _, (radiance,) = regroup_state(st["lane"], st["rays"],
+                                           [radiance])
     return radiance, traced, dropped
 
 
@@ -271,25 +294,27 @@ def _stage1(scene, cam_arrays, xs, ys, alives, key, max_depth, backend,
     lane state. Returns (state dict, overflow)."""
     W, R = xs.shape
     device = xs.device
-    live_waves = alives.any(dim=1).tolist()
+    with span("racc.render.read.live_waves"):
+        live_waves = alives.any(dim=1).tolist()
     cols = []
     overflow = torch.zeros((), dtype=torch.int64, device=device)
     for w in range(W):
-        wkey = rng.fold_in(key, w)
-        rays = _primary_rays(cam_arrays, xs[w], ys[w], wkey, *sampler)
-        alive0 = alives[w]
-        zero3 = torch.zeros((R, 3), dtype=torch.float32, device=device)
-        ones3 = torch.ones((R, 3), dtype=torch.float32, device=device)
-        depth0 = torch.zeros((R,), dtype=torch.int32, device=device)
-        if live_waves[w]:
-            hits, surf, ov = _trace_and_surface(scene, rays, alive0, backend,
-                                                tile, opts)
-            cols.append(_shade_advance(hits, surf, rays, ones3, depth0,
-                                       alive0, rays.d, zero3,
-                                       rng.fold_in(wkey, 1), max_depth))
-            overflow = overflow + ov
-        else:
-            cols.append((rays, ones3, depth0, alive0, rays.d, zero3))
+        with span("racc.render.wave"):
+            wkey = rng.fold_in(key, w)
+            rays = _primary_rays(cam_arrays, xs[w], ys[w], wkey, *sampler)
+            alive0 = alives[w]
+            zero3 = torch.zeros((R, 3), dtype=torch.float32, device=device)
+            ones3 = torch.ones((R, 3), dtype=torch.float32, device=device)
+            depth0 = torch.zeros((R,), dtype=torch.int32, device=device)
+            if live_waves[w]:
+                hits, surf, ov = _trace_and_surface(scene, rays, alive0,
+                                                    backend, tile, opts)
+                cols.append(_shade_advance(hits, surf, rays, ones3, depth0,
+                                           alive0, rays.d, zero3,
+                                           rng.fold_in(wkey, 1), max_depth))
+                overflow = overflow + ov
+            else:
+                cols.append((rays, ones3, depth0, alive0, rays.d, zero3))
     rays_c = [c[0] for c in cols]
     state = dict(
         rays=Rays(*(torch.cat([getattr(r, f) for r in rays_c])
@@ -337,7 +362,8 @@ def _by_lane(lane_f, rows, N: int, lane0: int = 0):
     real = lane_f < _LANE_INVALID
     out = torch.zeros((N, rows.shape[1]), dtype=rows.dtype,
                       device=rows.device)
-    out[lane_f[real].to(torch.int64) - lane0] = rows[real]
+    with span("racc.render.read.by_lane"):
+        out[lane_f[real].to(torch.int64) - lane0] = rows[real]
     return out
 
 
@@ -350,9 +376,11 @@ def _route_home(lane_f, rows, mesh: Mesh | None, resharded: bool):
     ``parallel/mesh.py:route_rows_home``'s. Returns (lane_f, rows)."""
     if not resharded:
         return lane_f, rows
-    valid = lane_f < _LANE_INVALID
-    routed = route_rows_home(torch.cat([lane_f[valid, None], rows[valid]],
-                                       dim=1), mesh, True)
+    with span("racc.render.exchange"):
+        valid = lane_f < _LANE_INVALID
+        with span("racc.render.read.route_home"):
+            out = torch.cat([lane_f[valid, None], rows[valid]], dim=1)
+        routed = route_rows_home(out, mesh, True)
     return routed[:, 0], routed[:, 1:]
 
 
@@ -434,15 +462,17 @@ def pt_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
         lane0 = mesh.rank * N
         wave_key = rng.fold_in(key, mesh.rank)
 
-    state, dropped = _stage1(scene, cam_arrays, xs, ys, alives, wave_key,
-                             max_depth, backend, tile, opts,
-                             (sampler, spp_index, sampler_key))
+    with span("racc.render.stage1"):
+        state, dropped = _stage1(scene, cam_arrays, xs, ys, alives,
+                                 wave_key, max_depth, backend, tile, opts,
+                                 (sampler, spp_index, sampler_key))
     traced = alives.sum()
     state["lane"] = torch.arange(lane0, lane0 + N, dtype=torch.int32,
                                  device=device)
     resharded = False
     if mesh is not None and n_shards > 1 and reshard:
-        state, resharded = _reshard_balance(state, mesh, n_shards)
+        with span("racc.render.exchange"):
+            state, resharded = _reshard_balance(state, mesh, n_shards)
     if info is not None:
         info["resharded"] = resharded
     state["n_fresh"] = N
@@ -467,43 +497,49 @@ def pt_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
     st = state
     for nxt in [*stage_widths[1:], None]:
         while True:
-            n_live = int(st["alive"].sum())
+            n_live = read_count(st["alive"], "racc.render.read.pool_count")
             if n_live == 0 or (nxt is not None and n_live <= nxt):
                 break
-            st = bounce_body(st)
+            with span("racc.render.loop"):
+                st = bounce_body(st)
         if nxt is None:
             break
-        perm, piece = _shrink(st["alive"], st["lane"], st["n_fresh"], nxt,
-                              (st["miss_d"], st["miss_w"]))
-        pieces.append(piece)
-        r = st["rays"]
-        d_h = r.d[perm]
-        st = dict(
-            rays=Rays(r.o[perm], d_h,
-                      torch.full((nxt,), SECONDARY_TMIN, dtype=torch.float32,
-                                 device=device),
-                      torch.full((nxt,), SECONDARY_TMAX, dtype=torch.float32,
-                                 device=device)),
-            weight=st["weight"][perm], miss_d=d_h,
-            miss_w=torch.zeros((nxt, 3), dtype=torch.float32, device=device),
-            depth=st["depth"][perm],
-            alive=torch.arange(nxt, device=device) < n_live,
-            lane=st["lane"][perm], n_fresh=n_live)
-    pieces.append(_final_piece(st["lane"], st["n_fresh"],
-                               len(stage_widths) > 1,
-                               (st["miss_d"], st["miss_w"])))
+        with span("racc.render.shrink"):
+            perm, piece = _shrink(st["alive"], st["lane"], st["n_fresh"],
+                                  nxt, (st["miss_d"], st["miss_w"]))
+            pieces.append(piece)
+            r = st["rays"]
+            d_h = r.d[perm]
+            st = dict(
+                rays=Rays(r.o[perm], d_h,
+                          torch.full((nxt,), SECONDARY_TMIN,
+                                     dtype=torch.float32, device=device),
+                          torch.full((nxt,), SECONDARY_TMAX,
+                                     dtype=torch.float32, device=device)),
+                weight=st["weight"][perm], miss_d=d_h,
+                miss_w=torch.zeros((nxt, 3), dtype=torch.float32,
+                                   device=device),
+                depth=st["depth"][perm],
+                alive=torch.arange(nxt, device=device) < n_live,
+                lane=st["lane"][perm], n_fresh=n_live)
 
     # ---- stage 3: deferred env lookup + reassembly by lane id ----
-    allp = torch.cat(pieces) if len(pieces) > 1 else pieces[0]
-    miss_w = allp[:, 4:7]
-    # Rows with miss_w == 0 multiply the sample by zero: look them all up
-    # in one direction.
-    is_miss = (miss_w[:, 0] + miss_w[:, 1] + miss_w[:, 2]) > 0
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=device)
-    miss_dir = torch.where(is_miss[:, None], allp[:, 1:4], up)
-    radiance = miss_w * sample_environment(env, miss_dir)
-    lane_f, radiance = _route_home(allp[:, 0], radiance, mesh, resharded)
-    rad = _by_lane(lane_f, radiance, N, lane0)
+    with span("racc.render.assemble"):
+        pieces.append(_final_piece(st["lane"], st["n_fresh"],
+                                   len(stage_widths) > 1,
+                                   (st["miss_d"], st["miss_w"])))
+        allp = torch.cat(pieces) if len(pieces) > 1 else pieces[0]
+        miss_w = allp[:, 4:7]
+        # Rows with miss_w == 0 multiply the sample by zero: look them all
+        # up in one direction.
+        is_miss = (miss_w[:, 0] + miss_w[:, 1] + miss_w[:, 2]) > 0
+        with span("racc.render.read.up"):
+            up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
+                              device=device)
+        miss_dir = torch.where(is_miss[:, None], allp[:, 1:4], up)
+        radiance = miss_w * sample_environment(env, miss_dir)
+        lane_f, radiance = _route_home(allp[:, 0], radiance, mesh, resharded)
+        rad = _by_lane(lane_f, radiance, N, lane0)
     return rad.reshape(W, R, 3), traced, dropped
 
 
@@ -577,7 +613,7 @@ class PathTracingRenderer(TiledRenderer):
         if not self.pooled:
             return super()._render(key)
         return pt_trace_frame(
-            self.scene, self.environment, self.camera.as_arrays(self.device),
+            self.scene, self.environment, self._camera_arrays(),
             self._wave_x, self._wave_y, self._wave_alive, key, self.max_depth,
             backend=self.backend, tile=self.tile,
             bounce_backend=self.bounce_backend,
@@ -587,7 +623,7 @@ class PathTracingRenderer(TiledRenderer):
 
     def _trace_wave(self, x, y, alive, wave_key):
         return pt_trace_wave(
-            self.scene, self.environment, self.camera.as_arrays(self.device),
+            self.scene, self.environment, self._camera_arrays(),
             x, y, alive, wave_key, self.max_depth, backend=self.backend,
             tile=self.tile, stack_depth=self.stack_depth,
             regroup=self.context.configuration.regroup, sampler=self.sampler,

@@ -29,6 +29,7 @@ from rayaccel_tpu_torch.context import Context
 from rayaccel_tpu_torch.device import to_device
 from rayaccel_tpu_torch.parallel.mesh import replicate_scene
 from rayaccel_tpu_torch.types import Stats
+from rayaccel_tpu_torch.utils.spans import span
 
 BLOCK_W = 32
 BLOCK_H = 16
@@ -159,6 +160,12 @@ class TiledRenderer:
         self.camera = camera
         self.clear()
 
+    def _camera_arrays(self):
+        """The camera as tensors on the renderer's device: four uploads,
+        each a host wait."""
+        with span("racc.render.read.camera"):
+            return self.camera.as_arrays(self.device)
+
     @property
     def dropped(self) -> int:
         """Overflow/drop counter (reading syncs)."""
@@ -181,18 +188,21 @@ class TiledRenderer:
     def render_frame(self, key) -> Stats:
         """Render one progressive sample over the full viewport with the
         :mod:`rng` key ``key``. With a mesh every rank calls it with the
-        same key; ``rays_traced`` is the sum over the ranks."""
-        rad, traced, dropped = self._render(key)
-        self._fb3 += rad
-        if self.mesh is not None:
-            counts = torch.stack([torch.as_tensor(c, dtype=torch.int64)
-                                  .to(self.device)
-                                  for c in (traced, dropped)])
-            traced, dropped = self.mesh.all_reduce(counts)
-        self._rays += traced
-        self._dropped += dropped
-        self.spp += 1
-        self.end_frame()
+        same key; ``rays_traced`` is the sum over the ranks. The frame,
+        accumulation included, is the span ``racc.render.frame``."""
+        with span("racc.render.frame"):
+            rad, traced, dropped = self._render(key)
+            self._fb3 += rad
+            if self.mesh is not None:
+                with span("racc.render.exchange"):
+                    counts = torch.stack([torch.as_tensor(c, dtype=torch.int64)
+                                          .to(self.device)
+                                          for c in (traced, dropped)])
+                    traced, dropped = self.mesh.all_reduce(counts)
+            self._rays += traced
+            self._dropped += dropped
+            self.spp += 1
+            self.end_frame()
         return Stats(rays_traced=traced)
 
     def end_frame(self):
@@ -208,9 +218,10 @@ class TiledRenderer:
             key = rng.fold_in(key, self.mesh.rank)
         rads, traced, dropped = [], 0, 0
         for w in range(self.n_waves):
-            rad, n, d = self._trace_wave(
-                self._wave_x[w], self._wave_y[w], self._wave_alive[w],
-                rng.fold_in(key, w))
+            with span("racc.render.wave"):
+                rad, n, d = self._trace_wave(
+                    self._wave_x[w], self._wave_y[w], self._wave_alive[w],
+                    rng.fold_in(key, w))
             rads.append(rad)
             traced = traced + n
             dropped = dropped + d

@@ -48,7 +48,8 @@ from rayaccel_tpu_torch.render.pathtracer import (CLUSTER_BACKENDS, _by_lane,
                                                   _live_prefix_sizes,
                                                   _route_home, _shrink,
                                                   _trace_and_surface,
-                                                  _trace_prefix, bind_scene)
+                                                  _trace_prefix, bind_scene,
+                                                  read_any, read_count)
 from rayaccel_tpu_torch.render.regroup import coherence_key, regroup_state
 from rayaccel_tpu_torch.render.shading import (ORIGIN_EPSILON, SECONDARY_TMAX,
                                                SECONDARY_TMIN, WEIGHT_CUTOFF,
@@ -57,6 +58,7 @@ from rayaccel_tpu_torch.render.tiled import TiledRenderer
 from rayaccel_tpu_torch.scene.clusters import ClusterScene
 from rayaccel_tpu_torch.scene.data import SceneData
 from rayaccel_tpu_torch.types import INVALID_TRIANGLE, Hits, Rays
+from rayaccel_tpu_torch.utils.spans import span
 
 MATERIAL_GRAY = 0.3                      # WhittedRenderer.cpp:343-345
 LIGHT_DIR = (0.57, 0.57, 0.57)           # WhittedRenderer.cpp:357-359
@@ -132,7 +134,8 @@ def shadow_rays(surf) -> Rays:
     sgn = torch.where(_dot_const(surf.ng, _LIGHT_UNIT) >= 0, ORIGIN_EPSILON,
                       -ORIGIN_EPSILON)
     spos = surf.pos + surf.ng * sgn[:, None]
-    d = torch.tensor(_LIGHT_UNIT, dtype=torch.float32).to(spos.device)
+    with span("racc.shade.read.light"):
+        d = torch.tensor(_LIGHT_UNIT, dtype=torch.float32).to(spos.device)
     return _secondary(spos, d.expand_as(spos).contiguous())
 
 
@@ -196,8 +199,9 @@ def _whitted_step(scene, s, hits, surf, bk: str, tile: int, max_depth: int,
 
     # Hits at depth == max_depth terminate without contribution.
     active = alive & (hits.tri >= 0) & (depth < max_depth)
-    direct, new_w, refl, refl_ok, refr, refr_ok = whitted_shade(
-        surf, rays, weight)
+    with span("racc.shade.bsdf"):
+        direct, new_w, refl, refl_ok, refr, refr_ok = whitted_shade(
+            surf, rays, weight)
     if primary_only:
         # Primary + shadow rays only: no reflection or refraction trees.
         refl_ok = torch.zeros_like(refl_ok)
@@ -287,8 +291,10 @@ def _trace_step(scene, env, st, bk, tile, max_depth, stack_size, shadows,
     else:
         hits, surf, ov = trace_fn(st["rays"], st["alive"])
     st = dict(st, dropped=st["dropped"] + ov)
-    return _whitted_step(scene, st, hits, surf, bk, tile, max_depth,
-                         stack_size, shadows, primary_only, opts, stack_depth)
+    with span("racc.shade"):
+        return _whitted_step(scene, st, hits, surf, bk, tile, max_depth,
+                             stack_size, shadows, primary_only, opts,
+                             stack_depth)
 
 
 def _regroup_trees(st, bmin, binv):
@@ -350,16 +356,21 @@ def whitted_trace_wave(scene, env: Environment, cam_arrays,
                                      1e-20)
         st["lane"] = torch.arange(R, dtype=torch.int32, device=x.device)
     bk = backend
-    while bool(st["alive"].any()):
-        st = _trace_step(scene, env, st, bk, tile, max_depth, stack_size,
-                         shadows, primary_only, opts, stack_depth, sizes)
-        if do_regroup:
-            st = _regroup_trees(st, bmin, binv)
-            sizes = _live_prefix_sizes(R, tile)
-        bk = bounce_backend
+    while read_any(st["alive"], "racc.render.read.wave_alive"):
+        with span("racc.render.loop"):
+            st = _trace_step(scene, env, st, bk, tile, max_depth,
+                             stack_size, shadows, primary_only, opts,
+                             stack_depth, sizes)
+            if do_regroup:
+                with span("racc.render.regroup"):
+                    st = _regroup_trees(st, bmin, binv)
+                sizes = _live_prefix_sizes(R, tile)
+            bk = bounce_backend
     radiance = st["radiance"]
     if do_regroup:
-        _, (radiance,) = regroup_state(st["lane"], st["rays"], [radiance])
+        with span("racc.render.assemble"):
+            _, (radiance,) = regroup_state(st["lane"], st["rays"],
+                                           [radiance])
     return radiance, st["traced"], st["dropped"]
 
 
@@ -468,38 +479,42 @@ def whitted_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
     # One step from sp = 0 pushes at most once and pops nothing, so only
     # stack level 0 can be occupied: the waves carry a one-level stack
     # (the same parks: 0 < stack_size) and the pool adds the rest.
-    live_waves = alives.any(dim=1).tolist()
-    waves = []
-    for w in range(W):
-        rays = generate_pixel_rays(cam_arrays, xs[w], ys[w],
-                                   key=rng.fold_in(key, w))
-        st = _initial_state(rays, alives[w], 1)
-        if live_waves[w]:
-            st = _trace_step(scene, env, st, backend, tile, max_depth, S,
-                             shadows, False, opts)
-        waves.append(st)
+    with span("racc.render.stage1"):
+        with span("racc.render.read.live_waves"):
+            live_waves = alives.any(dim=1).tolist()
+        waves = []
+        for w in range(W):
+            with span("racc.render.wave"):
+                rays = generate_pixel_rays(cam_arrays, xs[w], ys[w],
+                                           key=rng.fold_in(key, w))
+                st = _initial_state(rays, alives[w], 1)
+                if live_waves[w]:
+                    st = _trace_step(scene, env, st, backend, tile,
+                                     max_depth, S, shadows, False, opts)
+                waves.append(st)
 
-    def pooled(name):
-        return torch.cat([wst[name] for wst in waves])
+        def pooled(name):
+            return torch.cat([wst[name] for wst in waves])
 
-    stk = torch.zeros((S, 7, N), **f32)
-    stk_w = torch.zeros((S, 3, N), **f32)
-    stk[0] = torch.cat([wst["stk"][0] for wst in waves], dim=1)
-    stk_w[0] = torch.cat([wst["stk_w"][0] for wst in waves], dim=1)
-    st = dict(
-        rays=_secondary(torch.cat([wst["rays"].o for wst in waves]),
-                        torch.cat([wst["rays"].d for wst in waves])),
-        weight=pooled("weight"), depth=pooled("depth"),
-        alive=pooled("alive"), sp=pooled("sp"), stk=stk, stk_w=stk_w,
-        radiance=pooled("radiance"),
-        lane=torch.arange(lane0, lane0 + N, dtype=torch.int32,
-                          device=device),
-        traced=sum(wst["traced"] for wst in waves),
-        dropped=sum(wst["dropped"] for wst in waves))
-    del waves
+        stk = torch.zeros((S, 7, N), **f32)
+        stk_w = torch.zeros((S, 3, N), **f32)
+        stk[0] = torch.cat([wst["stk"][0] for wst in waves], dim=1)
+        stk_w[0] = torch.cat([wst["stk_w"][0] for wst in waves], dim=1)
+        st = dict(
+            rays=_secondary(torch.cat([wst["rays"].o for wst in waves]),
+                            torch.cat([wst["rays"].d for wst in waves])),
+            weight=pooled("weight"), depth=pooled("depth"),
+            alive=pooled("alive"), sp=pooled("sp"), stk=stk, stk_w=stk_w,
+            radiance=pooled("radiance"),
+            lane=torch.arange(lane0, lane0 + N, dtype=torch.int32,
+                              device=device),
+            traced=sum(wst["traced"] for wst in waves),
+            dropped=sum(wst["dropped"] for wst in waves))
+        del waves
     resharded = False
     if mesh is not None and n_shards > 1 and reshard:
-        st, resharded = _reshard_trees(st, mesh, n_shards)
+        with span("racc.render.exchange"):
+            st, resharded = _reshard_trees(st, mesh, n_shards)
 
     # ---- stage 2: one bounce loop over the pooled trees ----
     stage_widths = _stage_widths(N, stage_ratio, min_stage_width)
@@ -509,46 +524,52 @@ def whitted_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
     iterations = deep_hauls = 0
     for nxt in [*stage_widths[1:], None]:
         while True:
-            n_live = int(st["alive"].sum())
+            n_live = read_count(st["alive"], "racc.render.read.pool_count")
             if n_live == 0 or (nxt is not None and n_live <= nxt):
                 break
-            st = _trace_step(scene, env, st, bounce_backend, tile, max_depth,
-                             S, shadows, False, opts, scan=bounce_scan)
+            with span("racc.render.loop"):
+                st = _trace_step(scene, env, st, bounce_backend, tile,
+                                 max_depth, S, shadows, False, opts,
+                                 scan=bounce_scan)
             iterations += 1
         if nxt is None:
             break
-        # Live lanes keep their radiance in the head (partial sums never
-        # split between pieces).
-        perm, piece = _shrink(st["alive"], st["lane"], n_fresh, nxt,
-                              (st["radiance"],))
-        pieces.append(piece)
-        # Occupied levels are 0..sp-1: the deep tier moves only when some
-        # lane has parked past the hot levels.
-        L = S if H < S and bool((st["sp"] > H).any()) else H
-        deep_hauls += L > H
-        stk = torch.zeros((S, 7, nxt), **f32)
-        stk_w = torch.zeros((S, 3, nxt), **f32)
-        stk[:L] = st["stk"][:L, :, perm]
-        stk_w[:L] = st["stk_w"][:L, :, perm]
-        r = st["rays"]
-        st = dict(
-            rays=_secondary(r.o[perm], r.d[perm]), weight=st["weight"][perm],
-            radiance=st["radiance"][perm], depth=st["depth"][perm],
-            sp=st["sp"][perm],
-            alive=torch.arange(nxt, device=device) < n_live,
-            stk=stk, stk_w=stk_w, lane=st["lane"][perm],
-            traced=st["traced"], dropped=st["dropped"])
+        with span("racc.render.shrink"):
+            # Live lanes keep their radiance in the head (partial sums
+            # never split between pieces).
+            perm, piece = _shrink(st["alive"], st["lane"], n_fresh, nxt,
+                                  (st["radiance"],))
+            pieces.append(piece)
+            # Occupied levels are 0..sp-1: the deep tier moves only when
+            # some lane has parked past the hot levels.
+            L = S if H < S and read_any(st["sp"] > H,
+                                        "racc.render.read.deep_stack") else H
+            deep_hauls += L > H
+            stk = torch.zeros((S, 7, nxt), **f32)
+            stk_w = torch.zeros((S, 3, nxt), **f32)
+            stk[:L] = st["stk"][:L, :, perm]
+            stk_w[:L] = st["stk_w"][:L, :, perm]
+            r = st["rays"]
+            st = dict(
+                rays=_secondary(r.o[perm], r.d[perm]),
+                weight=st["weight"][perm], radiance=st["radiance"][perm],
+                depth=st["depth"][perm], sp=st["sp"][perm],
+                alive=torch.arange(nxt, device=device) < n_live,
+                stk=stk, stk_w=stk_w, lane=st["lane"][perm],
+                traced=st["traced"], dropped=st["dropped"])
         n_fresh = n_live
-    pieces.append(_final_piece(st["lane"], n_fresh, len(stage_widths) > 1,
-                               (st["radiance"],)))
     if info is not None:
         info.update(iterations=iterations, shrinks=len(stage_widths) - 1,
                     deep_hauls=deep_hauls, resharded=resharded)
 
     # ---- stage 3: reassembly by lane id ----
-    allp = torch.cat(pieces)
-    lane_f, radiance = _route_home(allp[:, 0], allp[:, 1:4], mesh, resharded)
-    rad = _by_lane(lane_f, radiance, N, lane0)
+    with span("racc.render.assemble"):
+        pieces.append(_final_piece(st["lane"], n_fresh,
+                                   len(stage_widths) > 1, (st["radiance"],)))
+        allp = torch.cat(pieces)
+        lane_f, radiance = _route_home(allp[:, 0], allp[:, 1:4], mesh,
+                                       resharded)
+        rad = _by_lane(lane_f, radiance, N, lane0)
     return rad.reshape(W, R, 3), st["traced"], st["dropped"]
 
 
@@ -612,7 +633,7 @@ class WhittedRenderer(TiledRenderer):
         if not self.pooled:
             return super()._render(key)
         return whitted_trace_frame(
-            self.scene, self.environment, self.camera.as_arrays(self.device),
+            self.scene, self.environment, self._camera_arrays(),
             self._wave_x, self._wave_y, self._wave_alive, key, self.max_depth,
             min_stage_width=self.min_stage_width,
             stage_ratio=self.stage_ratio, hot_levels=self.hot_levels,
@@ -621,7 +642,7 @@ class WhittedRenderer(TiledRenderer):
 
     def _trace_wave(self, x, y, alive, wave_key):
         return whitted_trace_wave(
-            self.scene, self.environment, self.camera.as_arrays(self.device),
+            self.scene, self.environment, self._camera_arrays(),
             x, y, alive, wave_key, self.max_depth,
             stack_depth=self.stack_depth, primary_only=self.primary_only,
             regroup=self.context.configuration.regroup,

@@ -6,7 +6,9 @@ oracle's scattered rays and the dry run's per-rank keys) and of
 ``rayaccel_tpu/render/pathtracer.py:_lane_uniform``. A key is a tuple of
 two Python ints (the two uint32 words of a raw jax key), so folding a
 scalar into a key is host arithmetic; the per-element streams run as int64
-tensor arithmetic on the device of the tensor they are given.
+tensor arithmetic on the device of the tensor they are given; the tensor
+draws (``uniform``, ``lane_uniform``) run inside the span
+``racc.shade.rng`` (``utils/spans.py``).
 
 Matching jax (0.9, ``jax_threefry_partitionable=True``):
 
@@ -33,6 +35,7 @@ from typing import Tuple
 import torch
 
 from rayaccel_tpu_torch.device import resolve_device
+from rayaccel_tpu_torch.utils.spans import span
 
 Key = Tuple[int, int]
 
@@ -110,9 +113,10 @@ def uniform(key: Key, shape, device=None) -> torch.Tensor:
     n = 1
     for s in shape:
         n *= int(s)
-    lo = torch.arange(n, dtype=torch.int64, device=device)
-    b0, b1 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
-    return _bits_to_unit_float(b0 ^ b1).reshape(tuple(shape))
+    with span("racc.shade.rng"):
+        lo = torch.arange(n, dtype=torch.int64, device=device)
+        b0, b1 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+        return _bits_to_unit_float(b0 ^ b1).reshape(tuple(shape))
 
 
 def lane_uniform(key: Key, lane: torch.Tensor) -> torch.Tensor:
@@ -122,11 +126,12 @@ def lane_uniform(key: Key, lane: torch.Tensor) -> torch.Tensor:
     with ``threefry_2x32``, which pairs (l, l+2^31) and (l+2^30,
     l+3*2^30) into one cipher block each; its three draws are the first
     word of each block and the second word of the first block."""
-    l = lane.to(torch.int64)
-    a0, a1 = threefry2x32(key[0], key[1], l, (l + (2 << 30)) & _M32)
-    b0, _ = threefry2x32(key[0], key[1], (l + (1 << 30)) & _M32,
-                         (l + (3 << 30)) & _M32)
-    return _bits_to_unit_float(torch.stack([a0, b0, a1], dim=1))
+    with span("racc.shade.rng"):
+        l = lane.to(torch.int64)
+        a0, a1 = threefry2x32(key[0], key[1], l, (l + (2 << 30)) & _M32)
+        b0, _ = threefry2x32(key[0], key[1], (l + (1 << 30)) & _M32,
+                             (l + (3 << 30)) & _M32)
+        return _bits_to_unit_float(torch.stack([a0, b0, a1], dim=1))
 
 
 # XLA's erf_inv for float32 (``ErfInv32``): a degree-8 polynomial in
