@@ -18,16 +18,21 @@ is missing. Phases, one JSON line each:
    the headline shapes (battlefield-like scene, 827 clusters of 128):
    K1 on one 65,536-ray primary wave, K2 on the 983,040-lane bounce pool
    (k = 4, then k = 8 with the first call's spill words) which must be
-   bitwise equal, K3 on pass 1 of the first bounce; then K2 and K3 again
-   at a narrow shape, the first restart pass of that bounce (the compacted
-   unresolved rays at their ladder width, with their spill words and the
-   dead padding lanes), K2 bitwise again; K1 and K3 must meet
-   the oracle bar of ``tools/oracle_lib.py:run_oracle`` (hit agreement and
-   t within 1e-3 relative on >= 99.95%); K4 on the shadow rays of K1's
-   wave (built from its hits as the Whitted step builds them), whose
-   occluded flags must agree on >= 99.95% of rays. Each kernel line
-   carries its bound: ``flop`` (the fp32 operations these inputs need),
-   ``bytes`` (each input read once, each output written once),
+   bitwise equal, the dense cull and queue of K1's wave (``cull_and_queue``,
+   ``csrc/dense_cull.cu``: 65,536 rays in tiles of 1,024 against 827
+   boxes), which must equal ``cull_and_queue_plain`` word for word (an
+   entry of -0.0 may read +0.0), its line with both ms, its bound (24
+   operations a (ray, box) pair, as K2's) and ``k2_rate_ms`` (its pairs at
+   K2's pair rate in the same run), K3 on pass 1 of the first bounce; then
+   K2 and K3 again at a narrow shape, the first restart pass of that
+   bounce (the compacted unresolved rays at their ladder width, with their
+   spill words and the dead padding lanes), K2 bitwise again; K1 and K3
+   must meet the oracle bar of ``tools/oracle_lib.py:run_oracle`` (hit
+   agreement and t within 1e-3 relative on >= 99.95%); K4 on the shadow
+   rays of K1's wave (built from its hits as the Whitted step builds
+   them), whose occluded flags must agree on >= 99.95% of rays. Each
+   kernel line carries its bound: ``flop`` (the fp32 operations these
+   inputs need), ``bytes`` (each input read once, each output written once),
    ``bound_ms`` (the larger of the two over the H100's published peaks),
    ``bound_by``, ``share_of_bound`` (bound_ms / ms) and ``library_ms``
    (null: no single PyTorch call computes any of the four). K1 and K4 add
@@ -386,6 +391,15 @@ def kernel_work(dense, name, args, out, n_c, precision="highest"):
             nbytes(Fp, items, out) + cluster_bytes(G3, items[:, 2]))
 
 
+def queue_words_differing(got, want):
+    """Words of a queue (q_cluster, q_entry, q_count, overflow) that differ
+    from another's, an entry of -0.0 read as +0.0."""
+    plain_entry = want[1].masked_fill(want[1] == -0x80000000, 0)
+    return (int((got[0] != want[0]).sum())
+            + int((got[1] != plain_entry).sum())
+            + int((got[2] != want[2]).sum()) + int(got[3] != want[3]))
+
+
 def kernel_row(s):
     """A kernel phase's times and bound, as the kernel table carries them."""
     return {k: s[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -659,10 +673,34 @@ def main() -> int:
             spill4 = sel_k[k].contiguous()
             lat = sel_k[:k]
             k2.update(max_abs_err=max_diff, **kernel_row(s2))
+            k2_pairs_per_ms = N * cs.n_clusters / ms
     kernels.append(dict(name="select_nearest", route="cuda",
                         source="rayaccel_tpu_torch/csrc/select_nearest.cu",
                         replaces="rayaccel_tpu/ops/trace_sparse.py:209",
                         **k2))
+
+    # The dense cull and queue of K1's wave: the kernel against its plain
+    # version, and its time beside the bound and beside K2's pair rate.
+    a0 = (cs, rays.o, safe_inv_dir(rays.d), rays.tmin,
+          torch.where(active, rays.tmax, torch.full_like(rays.tmax, -1.0)),
+          T, tile, opts.k_step, opts.tile_cap)
+    q_k = dense.cull_and_queue(*a0)
+    q_p = dense.cull_and_queue_plain(*a0)
+    torch.cuda.synchronize()
+    pairs = R * cs.n_clusters
+    s0 = dict(rays=R, tiles=T, tile=tile, clusters=cs.n_clusters,
+              pairs=pairs, words_differing=queue_words_differing(q_k, q_p),
+              queue_max=int(q_k[2].max()), queue_overflow=int(q_k[3]),
+              ms=cuda_ms(lambda: dense.cull_and_queue(*a0), 20),
+              plain_ms=cuda_ms(lambda: dense.cull_and_queue_plain(*a0), 3),
+              k2_rate_ms=pairs / k2_pairs_per_ms)
+    s0.update(roofline(pairs * FLOP_PER_SLAB, nbytes(*a0[1:5], cs.cl_bbmin,
+                                                     cs.cl_bbmax, *q_k),
+                       s0["ms"]))
+    emit(dict(phase="kernel", name="cull_and_queue", **s0))
+    if s0["words_differing"]:
+        raise AssertionError(f"the cull and queue differ from their plain "
+                             f"version: {s0}")
 
     # K3: pass 1 of the first bounce (the pool's k = 4 lattice).
     K = opts.k_pairs

@@ -56,6 +56,8 @@ _SIGNATURES = {
     "racc_pair_hit_mb_resident": [_I, _I],
     "racc_pair_hit_mb": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _P],
+    "racc_cull_queue": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                        _I, _I, _I, _P],
 }
 
 

@@ -2,10 +2,11 @@
 (the primaries' shadow rays).
 
 Counterpart of ``rayaccel_tpu/ops/trace_pallas.py``: the dense cull and
-per-tile front-to-back cluster queue (``_cull_and_queue``, ``:186-262``)
-in plain torch; the closest-hit kernel K1 (``_kernel``, ``:77-183``) as
-the hand-written CUDA kernel ``csrc/dense_hit.cu`` and the any-hit kernel
-K4 (``_occl_kernel``, ``:265-324``) as ``csrc/dense_occl.cu``, each beside
+per-tile front-to-back cluster queue (``_cull_and_queue``, ``:186-262``,
+which the JAX package left to XLA) as the hand-written CUDA kernels of
+``csrc/dense_cull.cu``, the closest-hit kernel K1 (``_kernel``,
+``:77-183``) as ``csrc/dense_hit.cu`` and the any-hit kernel K4
+(``_occl_kernel``, ``:265-324``) as ``csrc/dense_occl.cu``, each beside
 its plain torch version; the winner reconstruction and the environment
 fold of ``trace_mxu_pallas`` (``:492-528``); and ``trace_occlusion_pallas``
 (``:363-409``) as :func:`trace_occlusion_dense`.
@@ -71,6 +72,9 @@ WARP_RAYS = 8
 # The bf16 variants' warp (common.cuh: kFragRays), chosen on the card: 16
 # rays, one tensor-core A fragment; a CTA takes CTA_RAYS rays as well.
 BF16_WARP_RAYS = 16
+# The queue kernel's largest tile_cap (csrc/dense_cull.cu: kMaxCap): a
+# row's kept keys, 8 bytes each, sit in one CTA's shared memory.
+QUEUE_MAX_CAP = 16384
 
 
 def use_bf16(precision: str) -> bool:
@@ -128,6 +132,12 @@ def _slab_entries(o, inv_d, tmin, tmax, bbmin, bbmax):
                        torch.full_like(t0, INF))
 
 
+def _check_queue(k_step: int, tile_cap: int) -> None:
+    if tile_cap % k_step != 0 or tile_cap < k_step:
+        raise ValueError(f"tile_cap {tile_cap} must be a positive multiple "
+                         f"of k_step {k_step}")
+
+
 def cull_and_queue(cs: ClusterScene, o, inv_d, tmin, tmax_eff, T: int,
                    tile: int, k_step: int = K_PER_STEP,
                    tile_cap: int = DEFAULT_TILE_CAP):
@@ -136,13 +146,64 @@ def cull_and_queue(cs: ClusterScene, o, inv_d, tmin, tmax_eff, T: int,
     Returns (q_cluster (T, tile_cap) int32, q_entry (T, tile_cap) int32
     entry-distance bits, q_count (T,) int32, overflow () int64). Row t
     lists the clusters any ray of tile t overlaps, nearest tile entry
-    first; cluster 0 is forced into every tile so every row is non-empty;
-    counts are padded to a multiple of ``k_step`` by repeating the farthest
-    cluster and clamped to ``tile_cap``, and the clusters a clamp drops are
-    counted in ``overflow``."""
-    if tile_cap % k_step != 0 or tile_cap < k_step:
-        raise ValueError(f"tile_cap {tile_cap} must be a positive multiple "
-                         f"of k_step {k_step}")
+    first (ties by cluster id); cluster 0 is forced into every tile so
+    every row is non-empty; counts are padded to a multiple of ``k_step``
+    by repeating the farthest cluster and clamped to ``tile_cap``, and the
+    clusters a clamp drops are counted in ``overflow``. A lane with
+    tmax_eff below tmin (an inactive lane: -1) enters nothing.
+
+    On a CUDA tensor this launches ``csrc/dense_cull.cu`` (the tile
+    minima, then the rows; no (R, n_c) tensor is written), which takes a
+    ``tile_cap`` up to :data:`QUEUE_MAX_CAP` and gives an entry of -0.0 as
+    +0.0; ``cull_and_queue.launches`` counts its engagements. On a CPU
+    tensor it runs :func:`cull_and_queue_plain`."""
+    if o.device.type == "cpu":
+        return cull_and_queue_plain(cs, o, inv_d, tmin, tmax_eff, T, tile,
+                                    k_step, tile_cap)
+    _check_queue(k_step, tile_cap)
+    if tile_cap > QUEUE_MAX_CAP:
+        raise ValueError(f"the queue kernel takes a tile_cap up to "
+                         f"{QUEUE_MAX_CAP}, got {tile_cap}")
+    if T < 0 or tile < 1:
+        raise ValueError(f"T {T} and tile {tile} must be >= 0 and >= 1")
+    R = T * tile
+    n_c = cs.cl_bbmin.shape[0]
+    if n_c < 1:
+        raise ValueError("the scene has no clusters")
+    o, inv_d, tmin, tmax_eff = (x.contiguous()
+                                for x in (o, inv_d, tmin, tmax_eff))
+    _kernels.require(o, "o", torch.float32, (R, 3))
+    _kernels.require(inv_d, "inv_d", torch.float32, (R, 3))
+    _kernels.require(tmin, "tmin", torch.float32, (R,))
+    _kernels.require(tmax_eff, "tmax_eff", torch.float32, (R,))
+    _kernels.require(cs.cl_bbmin, "cl_bbmin", torch.float32, (n_c, 3))
+    _kernels.require(cs.cl_bbmax, "cl_bbmax", torch.float32, (n_c, 3))
+    dev = o.device
+    tile_bits = torch.empty((T, n_c), dtype=torch.int32, device=dev)
+    q_cluster = torch.empty((T, tile_cap), dtype=torch.int32, device=dev)
+    q_entry = torch.empty((T, tile_cap), dtype=torch.int32, device=dev)
+    q_count = torch.empty((T,), dtype=torch.int32, device=dev)
+    overflow = torch.empty((), dtype=torch.int64, device=dev)
+    _kernels.check(_kernels.library().racc_cull_queue(
+        _kernels.ptr(o), _kernels.ptr(inv_d), _kernels.ptr(tmin),
+        _kernels.ptr(tmax_eff), _kernels.ptr(cs.cl_bbmin),
+        _kernels.ptr(cs.cl_bbmax), _kernels.ptr(tile_bits),
+        _kernels.ptr(q_cluster), _kernels.ptr(q_entry), _kernels.ptr(q_count),
+        _kernels.ptr(overflow), T, tile, n_c, k_step, tile_cap,
+        _kernels.stream()), "racc_cull_queue")
+    cull_and_queue.launches += 1
+    return q_cluster, q_entry, q_count, overflow
+
+
+cull_and_queue.launches = 0
+
+
+def cull_and_queue_plain(cs: ClusterScene, o, inv_d, tmin, tmax_eff, T: int,
+                         tile: int, k_step: int = K_PER_STEP,
+                         tile_cap: int = DEFAULT_TILE_CAP):
+    """Plain torch version of :func:`cull_and_queue`: the (R, n_c) entry
+    tensor, its per-tile minimum and a stable sort of each row."""
+    _check_queue(k_step, tile_cap)
     entry = _slab_entries(o, inv_d, tmin, tmax_eff, cs.cl_bbmin, cs.cl_bbmax)
     tile_entry = entry.reshape(T, tile, -1).amin(dim=1)          # (T, n_c)
     tile_entry[:, 0] = torch.clamp_max(tile_entry[:, 0], 0.0)

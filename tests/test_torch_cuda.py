@@ -78,6 +78,135 @@ def test_dense_kernel_matches_plain(cuda, scenes):
     _same_hits(got.hits, want.hits)
 
 
+@pytest.fixture(scope="module")
+def queue_scenes(scene_data, scenes, cuda):
+    """The test scene on the card in clusters of 128 (one box chunk of the
+    cull kernel) and of 4 (436 clusters: four chunks, and more clusters
+    than a tile_cap of 256)."""
+    small = cluster_scene_from_numpy(
+        **compile_clusters_np(scene_data, cluster_size=4), device=cuda)
+    assert small.n_clusters > 256
+    return {128: scenes[1], 4: small}
+
+
+def _queue_inputs(rays, active):
+    """The cull's inputs as ``_dense_inputs`` builds them."""
+    tmax_eff = torch.where(active, rays.tmax, torch.full_like(rays.tmax, -1))
+    return rays.o, dense.safe_inv_dir(rays.d), rays.tmin, tmax_eff
+
+
+def _queue_case(kind, sd, cs, cuda):
+    """(o, inv_d, tmin, tmax_eff, tiles of 64 that miss every box) of a ray
+    set: coherent camera primaries, all active; the Whitted shadow rays of
+    their hits; the primaries with one lane in five inactive, every third
+    tile of 64 inactive and every fifth pointed away from the scene; or
+    rays at random inside the scene's bounds, which enter most boxes."""
+    if kind == "random":
+        rays = _rays(cs, 16384, 21, cuda)
+        return (*_queue_inputs(rays, torch.ones_like(rays.tmin, dtype=bool)),
+                None)
+    rays, active = _primaries(sd, 128, cuda)
+    if kind == "camera":
+        return (*_queue_inputs(rays, torch.ones_like(active)), None)
+    if kind == "shadow":
+        res, _ = dense.trace_dense(cs, rays, active=active, tile=1024)
+        surf = surface_from_attrs(res.attrs, cs.mat_params, rays, res.hits)
+        return (*_queue_inputs(shadow_rays(surf),
+                               active & (res.hits.tri >= 0)), None)
+    tiles = torch.arange(rays.o.shape[0], device=cuda) // 64
+    active &= tiles % 3 != 0
+    away = (tiles % 5 == 1) & (tiles % 3 != 0)
+    # Below the scene's lowest corner, heading further down every axis.
+    lo = cs.cl_bbmin.amin(0)
+    d = torch.where(away[:, None], torch.full_like(rays.d, -1.0),
+                    rays.d)
+    rays = make_rays(torch.where(away[:, None], lo - 1.0, rays.o),
+                     d / d.norm(dim=1, keepdim=True), tmin=0.0, tmax=1e6)
+    return (*_queue_inputs(rays, active), away.reshape(-1, 64).all(1))
+
+
+def _same_queue(got, want):
+    """The kernel's queue equals the plain version's word for word, an
+    entry of -0.0 aside (the kernel gives +0.0)."""
+    want_entry = want[1].masked_fill(want[1] == -0x80000000, 0)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want_entry)
+    assert torch.equal(got[2], want[2])
+    assert got[3].dtype == torch.int64 and int(got[3]) == int(want[3])
+
+
+@pytest.mark.parametrize("cluster_size", [128, 4])
+@pytest.mark.parametrize("tile", [64, 512, 1024])
+@pytest.mark.parametrize("kind", ["camera", "shadow", "inactive", "random"])
+def test_queue_kernel_matches_plain(cuda, scene_data, queue_scenes, kind,
+                                    tile, cluster_size):
+    """The cull and queue kernel against ``cull_and_queue_plain`` on the
+    same inputs, in each (k_step, tile_cap) of the JAX comparison
+    (test_torch_dense.py::test_queue_matches_pallas_queue): the clamp
+    binds at the small caps, and at 256 on the random rays of the scene
+    in clusters of 4 in tiles of 1,024."""
+    cs = queue_scenes[cluster_size]
+    o, inv, tmin, tmax_eff, away = _queue_case(kind, scene_data, cs, cuda)
+    T = o.shape[0] // tile
+    for K, cap in ((4, 4), (4, 256), (1, 2)):
+        launches = dense.cull_and_queue.launches
+        got = dense.cull_and_queue(cs, o, inv, tmin, tmax_eff, T, tile, K,
+                                   cap)
+        want = dense.cull_and_queue_plain(cs, o, inv, tmin, tmax_eff, T,
+                                          tile, K, cap)
+        assert dense.cull_and_queue.launches == launches + 1
+        _same_queue(got, want)
+        if away is not None and tile == 64:
+            # Tiles that miss every box, or hold no active lane, queue
+            # cluster 0 alone.
+            empty = away | (torch.arange(T, device=cuda) % 3 == 0)
+            assert (got[0][empty] == 0).all()
+            assert (got[2][empty] == min(K, cap)).all()
+        if kind == "random" and cluster_size == 4 and tile == 1024:
+            assert int(got[3]) > 0
+
+
+def test_queue_kernel_takes_tile_caps_up_to_its_limit(cuda, scene_data,
+                                                      scenes):
+    _, cs = scenes
+    rays, active = _primaries(scene_data, 32, cuda)
+    a = (cs, *_queue_inputs(rays, active), 1, 1024)
+    _same_queue(dense.cull_and_queue(*a, 4, dense.QUEUE_MAX_CAP),
+                dense.cull_and_queue_plain(*a, 4, dense.QUEUE_MAX_CAP))
+    with pytest.raises(ValueError, match="tile_cap"):
+        dense.cull_and_queue(*a, 4, dense.QUEUE_MAX_CAP + 4)
+
+
+@pytest.mark.parametrize("tile", [64, 1024])
+def test_dense_kernels_on_the_queue_kernel(cuda, scenes, scene_data, tile):
+    """K1 and K4 give the same words on the kernel's queue as on the plain
+    version's."""
+    _, cs = scenes
+    rays, active = _primaries(scene_data, 128, cuda)
+    F, q_k, q_k_entry, q_k_count, _ = dense._dense_inputs(
+        cs, rays, active, tile, dense.K_PER_STEP, dense.DEFAULT_TILE_CAP)
+    T = F.shape[0] // tile
+    q_p = dense.cull_and_queue_plain(cs, *_queue_inputs(rays, active), T,
+                                     tile)[:3]
+    out = dense.dense_closest_hit(F, cs.G3, q_k, q_k_entry, q_k_count, tile)
+    assert torch.equal(out,
+                       dense.dense_closest_hit(F, cs.G3, *q_p, tile))
+    hit = out[1] >= 0
+    attr, tri, t, u, v = dense.reconstruct(cs, rays,
+                                           torch.where(hit, out[1], 0))
+    surf = surface_from_attrs(attr, cs.mat_params, rays,
+                              dense.make_hits(rays, hit, tri, t, u, v))
+    srays, sactive = shadow_rays(surf), active & hit
+    F4, *q4_k, _ = dense._dense_inputs(cs, srays, sactive, tile,
+                                       dense.K_PER_STEP,
+                                       dense.DEFAULT_TILE_CAP)
+    q4_p = dense.cull_and_queue_plain(cs, *_queue_inputs(srays, sactive), T,
+                                      tile)[:3]
+    occ = dense.dense_occluded(F4, cs.G3, *q4_k, tile)
+    assert occ.any() and not occ.all()
+    assert torch.equal(occ, dense.dense_occluded(F4, cs.G3, *q4_p, tile))
+
+
 @pytest.mark.parametrize("k", [1, 4, 8])
 def test_select_kernel_bitwise(cuda, scenes, k):
     cpu_cs, gpu_cs = scenes

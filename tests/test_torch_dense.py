@@ -2,6 +2,8 @@
 winner reconstruction) against the JAX package's ``trace_mxu_pallas``
 (Pallas interpret mode) and the brute-force oracle."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,7 @@ from rayaccel_tpu.scene.clusters import compile_clusters
 from rayaccel_tpu.scene.compile import compile_scene
 from rayaccel_tpu.scene.loader import make_test_scene
 
+from rayaccel_tpu_torch.ops import trace_dense as dense
 from rayaccel_tpu_torch.ops.intersect import safe_inv_dir
 from rayaccel_tpu_torch.ops.trace_dense import cull_and_queue, trace_dense
 
@@ -120,3 +123,48 @@ def test_inactive_lanes_miss(scenes):
     assert (res.hits.tri[~active] == -1).all()
     np.testing.assert_array_equal(res.hits.tri[active].numpy(),
                                   full.hits.tri[active].numpy())
+
+
+@pytest.mark.parametrize("k_step,tile_cap", [(4, 4), (4, 256), (1, 2)])
+def test_queue_on_cpu_tensors_runs_the_plain_version(scenes, k_step,
+                                                     tile_cap):
+    sd, _, _, cs = scenes
+    r = port_rays(camera_rays(sd))
+    a = (cs, r.o, safe_inv_dir(r.d), r.tmin, r.tmax, r.o.shape[0] // 512,
+         512, k_step, tile_cap)
+    launches = dense.cull_and_queue.launches
+    got = cull_and_queue(*a)
+    want = dense.cull_and_queue_plain(*a)
+    assert dense.cull_and_queue.launches == launches
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _meta_queue_args(R=1024, n_c=8):
+    """Arguments of a cull of R rays in tiles of 512 on the meta device,
+    which goes to the kernel's checks and can never launch."""
+    cs = SimpleNamespace(cl_bbmin=torch.empty((n_c, 3), device="meta"),
+                         cl_bbmax=torch.empty((n_c, 3), device="meta"))
+    return dict(cs=cs, o=torch.empty((R, 3), device="meta"),
+                inv_d=torch.empty((R, 3), device="meta"),
+                tmin=torch.empty(R, device="meta"),
+                tmax_eff=torch.empty(R, device="meta"), T=R // 512, tile=512)
+
+
+@pytest.mark.parametrize("change,match", [
+    ({}, "CUDA"),
+    (dict(k_step=4, tile_cap=6), "multiple"),
+    (dict(tile_cap=dense.QUEUE_MAX_CAP + 4), "up to"),
+    (dict(tile=0), "tile"),
+    (dict(cs=SimpleNamespace(cl_bbmin=torch.empty((0, 3), device="meta"),
+                             cl_bbmax=torch.empty((0, 3), device="meta"))),
+     "no clusters"),
+], ids=["not_cuda", "cap_not_multiple", "cap_above_limit", "tile",
+        "no_clusters"])
+def test_queue_kernel_checks_raise_before_any_launch(change, match):
+    """Tensors off the CPU go to the kernel's checks, never to the plain
+    version, and each check raises before the kernel library is built."""
+    launches = dense.cull_and_queue.launches
+    with pytest.raises(ValueError, match=match):
+        cull_and_queue(**{**_meta_queue_args(), **change})
+    assert dense.cull_and_queue.launches == launches
