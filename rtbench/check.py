@@ -58,13 +58,18 @@ def sample_frames(seed: int, n_frames: int, n: int) -> list:
 
 
 def reference_samples(sc: render.Scene, integrator: str, params: dict,
-                      keys, lanes: np.ndarray, device):
+                      frames, keys, lanes: np.ndarray, device):
     """The reference's radiance (F, P, 3) and rays (F, P) for each
-    (frame key, lane)."""
+    (window frame, lane): ``keys`` are the frames' keys, and a frame's
+    index in the window is its sample index since the accumulation was
+    cleared, which a ``sampler`` in ``params`` takes."""
     F, P = len(keys), len(lanes)
     k = torch.tensor(np.repeat(np.asarray(keys, np.int64), P, axis=0),
                      device=device)
     ln = torch.tensor(np.tile(lanes, F), dtype=torch.int64, device=device)
+    if "sampler" in params:
+        params = {**params, "spp": torch.tensor(
+            np.repeat(np.asarray(frames, np.int64), P), device=device)}
     rad, rays = getattr(render, integrator)(sc, k, ln, **params)
     return (rad.reshape(F, P, 3).cpu().numpy(),
             rays.reshape(F, P).cpu().numpy())

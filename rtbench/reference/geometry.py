@@ -23,9 +23,11 @@ import torch
 CLUSTER = 128
 INF = float("inf")
 DIR_EPSILON = 1e-10
-# Rays a trace call works on at once: the slab entries of a chunk take
-# chunk x clusters floats.
+# Rays a trace call works on at once: at most CHUNK, and so few that a
+# chunk's (rays, clusters) float32 slab entries stay within ENTRY_BYTES (the
+# sort, the mask and the counts beside them take a few times that).
 CHUNK = 65536
+ENTRY_BYTES = 1 << 29
 
 
 class Geometry(NamedTuple):
@@ -143,8 +145,18 @@ class TraceResult(NamedTuple):
     touched: torch.Tensor  # (n_c,) bool: clusters some ray entered by t
 
 
-def trace(geo: Geometry, o, d, tmin, tmax, chunk: int = CHUNK) -> TraceResult:
-    """Closest hit of every ray in [tmin, tmax]."""
+def chunk_rays(n_clusters: int) -> int:
+    """Rays a chunk: ``CHUNK``, or fewer where their entries would pass
+    ``ENTRY_BYTES``."""
+    return max(1, min(CHUNK, ENTRY_BYTES // (4 * max(1, n_clusters))))
+
+
+def trace(geo: Geometry, o, d, tmin, tmax,
+          chunk: int | None = None) -> TraceResult:
+    """Closest hit of every ray in [tmin, tmax], in chunks of ``chunk``
+    rays (default: ``chunk_rays`` of the cluster count). A ray's result
+    does not depend on its chunk."""
+    chunk = chunk or chunk_rays(geo.bbmin.shape[0])
     parts = [_trace_chunk(geo, o[s:s + chunk], d[s:s + chunk],
                           tmin[s:s + chunk], tmax[s:s + chunk])
              for s in range(0, o.shape[0], chunk)]

@@ -10,11 +10,13 @@ and the reference demo's ``PathTracingRenderer.cpp`` /
 ``WhittedRenderer.cpp`` they port):
 
 - Path tracer: camera jitter from ``fold_in(fold_in(key, w), 0)`` at the
-  lane's place in wave w, the first BSDF draw from ``fold_in(fold_in(key,
-  w), 1)`` at that place, bounce b (0 for the first bounce) from the lane's
-  own stream ``fold_in(key, 4096 + b)``. A miss adds weight x probe; a path
-  ends at ``max_depth`` hits, below the weight cut-off, or on a sample
-  that leaves on the wrong side.
+  lane's place in wave w, or with the stratified sampler the R2 sequence
+  at the frame's sample index, rotated per pixel by draws keyed from
+  ``fold_in(PRNGKey(0x5EED), (y << 16) | x)``; the first BSDF draw from
+  ``fold_in(fold_in(key, w), 1)`` at that place, bounce b (0 for the
+  first bounce) from the lane's own stream ``fold_in(key, 4096 + b)``. A
+  miss adds weight x probe; a path ends at ``max_depth`` hits, below the
+  weight cut-off, or on a sample that leaves on the wrong side.
 - Whitted: jitter from ``fold_in(key, w)``; each hit adds the grey
   material's direct light from the fixed light (zero where a shadow ray is
   blocked, with ``shadows``) and spawns a mirror and a refraction ray (none
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from rtbench.reference import geometry as geom
-from rtbench.reference.rng import lane_uniform, threefry2x32, uniform_at
+from rtbench.reference.rng import M32, lane_uniform, threefry2x32, uniform_at
 
 WEIGHT_CUTOFF = 0.01
 ORIGIN_EPSILON = 1e-4
@@ -47,6 +49,10 @@ LIGHT_UNIT = LIGHT / np.sqrt(np.float32(LIGHT[0] * LIGHT[0] + LIGHT[1] * LIGHT[1
 ETA_GLASS = 1.1
 BLOCK_W, BLOCK_H = 32, 16
 BOUNCE_KEY_BASE = 4096
+# The stratified sampler: jax.random.PRNGKey(0x5EED), the words (0, seed),
+# and the plastic constant's R2 steps.
+SAMPLER_KEY = (0, 0x5EED)
+R2 = (0.7548776662466927, 0.5698402909980532)
 
 
 class Scene(NamedTuple):
@@ -164,13 +170,37 @@ def _lane_uniform_rows(keys, lane):
     return lane_uniform((keys[:, 0], keys[:, 1]), lane)
 
 
-def primary_rays(sc: Scene, jitter_keys, lanes):
+def stratified_jitter(sc: Scene, lanes, spp):
+    """The stratified sampler's sub-pixel offsets of ``lanes`` at sample
+    indices ``spp`` (one a lane): a rotation drawn per pixel as
+    ``uniform(fold_in(SAMPLER_KEY, (y << 16) | x), (2,))``, plus
+    f32(spp) x f32(R2), modulo 1."""
+    pix = (sc.lane_y[lanes] << 16) | sc.lane_x[lanes]
+    k0, k1 = threefry2x32(*SAMPLER_KEY, torch.zeros_like(pix), pix & M32)
+    s = spp.to(torch.float32)
+    return tuple(
+        torch.remainder(uniform_at((k0, k1), torch.full_like(pix, c))
+                        + s * torch.tensor(R2[c], dtype=torch.float32,
+                                           device=s.device), 1.0)
+        for c in (0, 1))
+
+
+def primary_rays(sc: Scene, jitter_keys, lanes, sampler: str = "uniform",
+                 spp=None):
     """Camera rays of ``lanes`` with the jitter drawn from
-    ``uniform(jitter_key, (2, wave))`` at the lane's place in its wave."""
-    local = lanes % sc.wave
-    px = sc.lane_x[lanes].to(torch.float32) + _uniform_rows(jitter_keys, local)
-    py = (sc.lane_y[lanes].to(torch.float32)
-          + _uniform_rows(jitter_keys, sc.wave + local))
+    ``uniform(jitter_key, (2, wave))`` at the lane's place in its wave, or
+    with ``sampler="stratified"`` the stratified sampler's at sample
+    indices ``spp``."""
+    if sampler == "stratified":
+        jx, jy = stratified_jitter(sc, lanes, spp)
+    elif sampler == "uniform":
+        local = lanes % sc.wave
+        jx = _uniform_rows(jitter_keys, local)
+        jy = _uniform_rows(jitter_keys, sc.wave + local)
+    else:
+        raise ValueError(f"unknown sampler {sampler!r}")
+    px = sc.lane_x[lanes].to(torch.float32) + jx
+    py = sc.lane_y[lanes].to(torch.float32) + jy
     origin, view, right, up = sc.camera
     d = view[None, :] + right[None, :] * px[:, None] + up[None, :] * py[:, None]
     d = d * torch.rsqrt(geom.dot(d, d))[:, None]
@@ -257,13 +287,16 @@ def _finite(*vs):
     return ok
 
 
-def path_trace(sc: Scene, keys, lanes, max_depth: int):
+def path_trace(sc: Scene, keys, lanes, max_depth: int,
+               sampler: str = "uniform", spp=None):
     """Radiance (n, 3) and rays traced (n,) of one path per (frame key,
-    lane)."""
+    lane), the primaries jittered by ``sampler`` (``spp``: each row's
+    sample index, for the stratified sampler)."""
     n = lanes.shape[0]
     dev = lanes.device
     wkeys = keys_of(keys, lanes // sc.wave)
-    o, d, tmin, tmax = primary_rays(sc, keys_of(wkeys, 0), lanes)
+    o, d, tmin, tmax = primary_rays(sc, keys_of(wkeys, 0), lanes, sampler,
+                                    spp)
     local = lanes % sc.wave
     rnd0 = torch.stack([_uniform_rows(keys_of(wkeys, 1), 3 * local + c)
                         for c in range(3)], dim=1)

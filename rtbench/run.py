@@ -4,7 +4,8 @@
         --trace <0|1>
 
 Everything is found by name: the cell in ``BENCHMARK.json``, its
-configuration in ``rtbench/configs/<config>.json``, its traffic in
+configuration in ``rtbench/configs/<config>.json``, its scene generator
+built in or in ``rtbench/scenes/<generator>.py``, its traffic in
 ``rtbench/traffic/<traffic>.json``, the layers in ``rtbench/layers/*.json``
 and each metric's reader in ``rtbench/metrics/<metric>.py``.
 
@@ -231,13 +232,13 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
 
     # ---- set-up ----
     sc_cfg = config["scene"]
-    arrays = scene.GENERATORS[sc_cfg["generator"]](
+    arrays = scene.find(sc_cfg["generator"], here)(
         sc_cfg.get("layout_seed", seed), max_depth=traffic["max_depth"],
         **sc_cfg["args"])
     sd = SceneData(**arrays)
     marks.append(("scene", time.perf_counter()))
-    cfg = racc.Configuration(**{**config["configuration"],
-                                **traffic.get("configuration", {})})
+    conf = {**config["configuration"], **traffic.get("configuration", {})}
+    cfg = racc.Configuration(**conf)
     ctx = racc.create_context(cfg, device=device)
     cam = racc.Camera.look_at(sd.cam_origin, sd.cam_dir, sd.cam_up,
                               sd.cam_fov, sd.viewport_width,
@@ -392,6 +393,8 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
     ref = render.build(arrays, wave, device)
     params = {"max_depth": traffic["max_depth"],
               **traffic.get("renderer_args", {})}
+    if conf.get("sampler", "uniform") != "uniform":
+        params["sampler"] = conf["sampler"]
     frames = [f for f in check.sample_frames(seed, attempted,
                                              traffic["check_frames"])
               if snaps[f] is not None and (f == 0 or snaps[f - 1] is not None)]
@@ -400,8 +403,8 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
     port = np.stack([(snaps[f] - (snaps[f - 1] if f else zero)).cpu().numpy()
                      for f in frames])
     ref_rad, ref_rays = check.reference_samples(
-        ref, config["reference"], params, [keys[f] for f in frames], lanes,
-        device)
+        ref, config["reference"], params, frames, [keys[f] for f in frames],
+        lanes, device)
     last = snaps[-1].cpu().numpy() if snaps[-1] is not None else np.nan
     pixels = lane_pixel[lanes]
     image_gap = float(np.max(np.abs(image.reshape(-1, 3)[pixels]

@@ -6,10 +6,14 @@ cannot change the inputs it is measured on.
 
 The arrays are plain NumPy. The harness hands them to the program as its
 ``SceneData``; the reference reads them as they are. Nothing here imports
-the program.
+the program. A configuration may bring a generator of its own as a file
+under ``rtbench/scenes/`` (``find``).
 """
 
 from __future__ import annotations
+
+import importlib.util
+import os
 
 import numpy as np
 
@@ -126,3 +130,26 @@ def battlefield_like(seed: int, n_objects: int = 600, grid: int = 181,
 
 
 GENERATORS = {"battlefield_like": battlefield_like}
+
+
+def find(name: str, here: str):
+    """The scene generator named ``name``: a built-in one of
+    ``GENERATORS``, else the ``generate`` function of
+    ``<here>/scenes/<name>.py``, loaded by path (``rtbench/scenes/README.md``
+    states its contract). An unknown name raises ``KeyError``, naming the
+    built-in generators and the files found."""
+    if name in GENERATORS:
+        return GENERATORS[name]
+    folder = os.path.join(here, "scenes")
+    path = os.path.join(folder, name + ".py")
+    if not os.path.isfile(path):
+        files = sorted(f[:-3] for f in os.listdir(folder)
+                       if f.endswith(".py")) if os.path.isdir(folder) else []
+        raise KeyError(f"unknown scene generator {name!r}; built in: "
+                       f"{', '.join(sorted(GENERATORS))}; files in "
+                       f"{folder}: {', '.join(files) or 'none'}")
+    spec = importlib.util.spec_from_file_location(
+        "rtbench_scene_" + name.replace(".", "_").replace("-", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.generate

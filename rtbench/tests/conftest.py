@@ -19,7 +19,7 @@ TINY = {"config": {"scene": {"args": {"n_objects": 20, "grid": 21,
                    "configuration": {"wave_size": 1024, "trace_block": 512}},
         "traffic": {"check_pixels": 1 << 20, "check_frames": 1 << 20,
                     "max_frames": 6, "trace_frames": 2}}
-CELLS = ["pt.d2", "whitted.shadow", "whitted.d8", "pt.d8"]
+CELLS = ["pt.d2", "whitted.shadow", "whitted.d8", "pt.d8", "pt.d2.stratified"]
 
 
 def tiny_run(cell, seed=20261017, trace=False, overrides=None, fault=None,

@@ -12,7 +12,7 @@ from contextlib import redirect_stderr, redirect_stdout
 
 import pytest
 
-from rtbench import run
+from rtbench import run, scene
 from rtbench.tests.conftest import CELLS, tiny_run
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -146,3 +146,69 @@ def test_result_line_has_the_contracts_keys(cell):
     traced, _ = tiny_run(cell, trace=True)
     assert {"busy_s", "window_s"} <= set(traced["device"])
     assert set(traced["breakdown"]) == {"device_ops", "idle_gaps"}
+
+
+# A scene of a few boxes on a ground slab, made up for the test: what a
+# configuration that brings its own scene puts under rtbench/scenes/.
+BOXES = '''
+import numpy as np
+
+from rtbench import scene
+
+
+def generate(layout_seed, *, max_depth, n_boxes=6, viewport=(64, 48)):
+    rng = np.random.default_rng(layout_seed)
+    parts = [scene._box((0.0, -0.5, 0.0), (120.0, 1.0, 120.0))]
+    for p, s in zip(rng.uniform(-20, 20, (n_boxes, 2)),
+                    rng.uniform(1, 6, (n_boxes, 3))):
+        parts.append(scene._box((p[0], s[1] * 0.5, p[1]), s))
+    vertices = np.concatenate([v for v, _ in parts])
+    indices = np.concatenate([t + 8 * i for i, (_, t) in enumerate(parts)])
+    origin, target, up, fov = scene.CAMERA
+    return dict(
+        vertices=vertices, indices=indices,
+        triangle_materials=rng.integers(0, 4, len(indices)).astype(np.uint16),
+        triangle_normals=scene._face_normals(vertices, indices),
+        normals=scene._vertex_normals(vertices, indices),
+        texcoords=np.zeros((len(vertices), 2), np.float32),
+        materials=scene.MATERIALS.copy(), max_depth=int(max_depth),
+        viewport_width=int(viewport[0]), viewport_height=int(viewport[1]),
+        cam_origin=np.asarray(origin, np.float32),
+        cam_dir=np.asarray(target, np.float32),
+        cam_up=np.asarray(up, np.float32), cam_fov=float(fov),
+        env_pixels=scene.gradient_environment())
+'''
+
+
+def test_a_scene_added_as_a_file_runs_without_an_edit(tmp_path):
+    here = tmp_path / "rtbench"
+    shutil.copytree(run.HERE, here,
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    (here / "scenes" / "boxes.py").write_text(BOXES)
+    sc = {"generator": "boxes", "layout_seed": 11,
+          "args": {"n_boxes": 6, "viewport": [64, 48]}}
+    config = json.loads((here / "configs" / "battlefield_pt.json").read_text())
+    config.update(name="boxes_pt", scene=sc)
+    (here / "configs" / "boxes_pt.json").write_text(json.dumps(config))
+    bench = run.load_bench()
+    bench["configs"].append({"name": "boxes_pt", "source": "a test",
+                             "file": "rtbench/configs/boxes_pt.json",
+                             "reduced": [], "why": "a scene as a file"})
+    bench["workloads"].append({"name": "boxes.pt.d2", "config": "boxes_pt",
+                               "traffic": "pt.d2", "chips": 1,
+                               "why": "a scene as a file"})
+    # The scene's own args in place of the small battlefield's.
+    result, numbers = tiny_run("boxes.pt.d2", bench=bench, here=str(here),
+                               overrides={"config": {"scene": sc}})
+    assert result["correct"], numbers
+    assert numbers["differ_pct"]["value"] == 0
+
+
+def test_an_unknown_scene_generator_is_refused(tmp_path):
+    assert scene.find("battlefield_like", run.HERE) is scene.battlefield_like
+    (tmp_path / "scenes").mkdir()
+    (tmp_path / "scenes" / "boxes.py").write_text(BOXES)
+    assert callable(scene.find("boxes", str(tmp_path)))
+    with pytest.raises(KeyError) as e:
+        scene.find("no_such_scene", str(tmp_path))
+    assert "battlefield_like" in str(e.value) and "boxes" in str(e.value)

@@ -37,6 +37,7 @@ def test_no_jax_anywhere():
 
 def test_the_yardstick_takes_nothing_of_the_program():
     paths = [*_sources(os.path.join(run.HERE, "reference")),
+             *_sources(os.path.join(run.HERE, "scenes")),
              os.path.join(run.HERE, "work.py"),
              os.path.join(run.HERE, "scene.py"),
              os.path.join(run.HERE, "stats.py")]
