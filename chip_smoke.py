@@ -4,10 +4,11 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels     # phases 1-3 only, a kernel's quick check
 
-Run from the root of a checkout. The script imports ``torch`` and
-``rayaccel_tpu_torch`` only (never JAX), needs one CUDA device, and exits
-non-zero without printing a result when there is none or when the package
-is missing. Phases, one JSON line each:
+Run from the root of a checkout. The script imports ``torch``,
+``rayaccel_tpu_torch`` and the benchmark's NumPy scene generator
+``rtbench/scenes/spd_tetra.py`` only (never JAX), needs one CUDA device,
+and exits non-zero without printing a result when there is none or when
+the package is missing. Phases, one JSON line each:
 
 1. device: the card's name, and ``nvidia-smi``'s name and power limit
    (also printed raw on a line of their own);
@@ -67,7 +68,15 @@ is missing. Phases, one JSON line each:
    equal to the host's plan and, on K3's grid, its bytes K3's clusters
    staged x 48 bytes a row, K3's oracle bar against ``pair_hit_plain``,
    its ms at each depth beside K3's (timed first and last), and K3's
-   bound; P4 again at K3's narrow shape (after K3's narrow lines);
+   bound; P4 again at K3's narrow shape (after K3's narrow lines); last,
+   K2 past one CTA's boxes (``select_chunks_kernel``) on the bounce pool of
+   a frame of SPD tetra at size factor 10 (32,768 boxes, 983,040 lanes)
+   under ``rtbench/configs/spd_tetra_pt.json``, at k = 4 and then k = 8
+   on its spill words, with and without the count: word for word the
+   plain version's, its chunks tested (with the count) those
+   ``select_chunks_needed`` counts, its ms beside a bound over the chunks
+   it tested and beside the bound over every box, and its profiler name
+   matched by ``KERNEL_SYMBOLS``;
 4. slice: ``PathTracingRenderer`` at 1280x720, depth 2, the default
    configuration: one warm-up frame and three timed frames, with every
    kernel's launch count over the timed frames (each must be > 0),
@@ -196,6 +205,7 @@ of each slice from those lines), and last ``{"ok": true, "device":
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -225,12 +235,13 @@ BENCH_ONLY = "2,5"
 BENCH_HEADLINE = "pt_battlefield_mrays_per_s_per_chip"
 BENCH_METRICS = (BENCH_HEADLINE, "multichip_mesh1_gpu_mrays_per_s",
                  "multichip_cpu_mesh_smoke")
-# Each kernel's name in a profiler trace; "_bf16" names the bf16
+# Each kernel's name in a profiler trace, a pattern (K2 has a kernel for
+# the boxes one CTA holds and one that streams more); "_bf16" names the bf16
 # tensor-core variant (precision "default") of K1, K3 and K4. K3's unit
 # pass, which both of its forms run, is reported beside them.
 KERNEL_SYMBOLS = {"dense_closest_hit": "dense_hit_kernel",
                   "dense_occluded": "dense_occl_kernel",
-                  "select_nearest": "select_kernel",
+                  "select_nearest": r"\bselect_(chunks_)?kernel<",
                   "pair_hit": "pair_hit_kernel",
                   "dense_closest_hit_bf16": "dense_hit_bf16_kernel",
                   "dense_occluded_bf16": "dense_occl_bf16_kernel",
@@ -487,8 +498,11 @@ def main() -> int:
                                                   trace_occlusion_mxu)
     from rayaccel_tpu_torch.render import pathtracer, whitted
     from rayaccel_tpu_torch.render.shading import surface_from_attrs
-    from rayaccel_tpu_torch.scene.clusters import (cluster_scene_from_numpy,
+    from rayaccel_tpu_torch.scene.clusters import (SELECT_CHUNK,
+                                                   cluster_scene_from_numpy,
+                                                   compile_clusters,
                                                    compile_clusters_np)
+    from rayaccel_tpu_torch.scene.data import SceneData
     from rayaccel_tpu_torch.scene.compile import compile_scene
     from rayaccel_tpu_torch.scene.loader import (load_scene,
                                                  make_battlefield_like,
@@ -500,6 +514,7 @@ def main() -> int:
     from rayaccel_tpu_torch.utils import image, profiling
     from rayaccel_tpu_torch.utils.profiling import cuda_ms
     from rayaccel_tpu_torch.utils.viewer import Viewer
+    from rtbench.scenes import spd_tetra
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1033,6 +1048,106 @@ def main() -> int:
                           **kernel_row(s4b)))
 
     del surf, F4, a4, q4c, q4e, q4n, occ_k, occ_p, occ_b, occ_bp
+
+    # K2 past one CTA's boxes, at the shapes the main path gives it there:
+    # the bounce pool of a frame of SPD tetra at size factor 10 (32,768
+    # boxes, rtbench/scenes/spd_tetra.py) under its benchmark
+    # configuration, the first pass at k = 4 and the restart pass at k = 8
+    # on its spill words, each with the count and without it (as the
+    # sparse engine launches it), word for word against the plain version.
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "rtbench/configs/spd_tetra_pt.json")) as f:
+        cfg_t = json.load(f)
+    sd_t = SceneData(**spd_tetra.generate(
+        0, max_depth=2, **cfg_t["scene"]["args"]))
+    cs_t = compile_clusters(sd_t, cluster_size=cfg_t["cluster_size"],
+                            device=dev)
+    ctx_t = racc.create_context(racc.Configuration(**cfg_t["configuration"]),
+                                device=dev)
+    cam_t = racc.Camera.look_at(sd_t.cam_origin, sd_t.cam_dir, sd_t.cam_up,
+                                sd_t.cam_fov, sd_t.viewport_width,
+                                sd_t.viewport_height)
+    r_t = racc.PathTracingRenderer(ctx_t, cam_t, sd_t, tpu_scene=cs_t)
+    opts_t = ctx_t.configuration.engine_opts()
+    state_t, _ = pathtracer._stage1(cs_t, cam_t.as_arrays(dev), r_t._wave_x,
+                                    r_t._wave_y, r_t._wave_alive, key, 2,
+                                    "pallas", r_t.tile, opts_t)
+    pool_t = state_t["rays"]
+    n_box = cs_t.bb.shape[0]
+    F8, first, live, id_bits = sparse._select_args(
+        cs_t, pool_t.o, safe_inv_dir(pool_t.d), pool_t.tmin,
+        torch.where(state_t["alive"], pool_t.tmax,
+                    torch.full_like(pool_t.tmax, -1)))
+    N = F8.shape[0]
+    ub = cs_t.bb_chunks
+    pv = first
+    k2_args = []
+    for k in (opts_t.k_pairs, opts_t.k_restart):
+        a = (F8, pv, live, cs_t.bb, k, id_bits)
+        sel_p = sparse.select_nearest_plain(*a, chunk=8192)
+        s2 = dict(k=k, lanes=N, live_lanes=int(state_t["alive"].sum()),
+                  boxes=n_box, chunks=int(ub.shape[0]),
+                  split=sparse.select_split(N),
+                  prev_words=int((pv > -0x80000000).sum()),
+                  chunks_needed=sparse.select_chunks_needed(F8, pv, live, ub,
+                                                            id_bits),
+                  plain_ms=cuda_ms(lambda: sparse.select_nearest_plain(
+                      *a, chunk=8192), 1))
+        for count in (True, False):
+            kw = dict(chunk_boxes=ub, count=count)
+            got = sparse.select_nearest(*a, **kw)
+            want = sel_p if count else sel_p[:k + 1]
+            tag = "" if count else "_no_count"
+            tested = counted(sparse.select_nearest, a, "tested", 1, **kw)[0]
+            ms = cuda_ms(lambda: sparse.select_nearest(*a, **kw), 10)
+            # The slab tests of the chunks the lanes tested (the kernel's
+            # counter), 2,048 boxes a chunk; the rays, the boxes and the
+            # output read or written once.
+            bound = roofline(tested * SELECT_CHUNK * FLOP_PER_SLAB,
+                             nbytes(F8, pv, live, cs_t.bb, ub, got), ms)
+            s2.update({"words_differing" + tag: int((got != want).sum()),
+                       "chunks_tested" + tag: tested, "ms" + tag: ms,
+                       "bound_ms" + tag: bound["bound_ms"],
+                       "bound_by" + tag: bound["bound_by"],
+                       "share_of_bound" + tag: bound["share_of_bound"]})
+        s2["bound_ms_every_box"] = roofline(*kernel_work(
+            dense, "select_nearest", a, sel_p, n_box), s2["ms"])["bound_ms"]
+        emit(dict(phase="kernel", name="K2 select_nearest past one CTA",
+                  **s2))
+        if (s2["words_differing"] or s2["words_differing_no_count"]
+                or s2["chunks_tested"] != s2["chunks_needed"]
+                or not 0 < s2["chunks_tested_no_count"]
+                <= s2["chunks_tested"]):
+            raise AssertionError(f"K2 past one CTA (k={k}): {s2}")
+        k2_args.append(a)
+        if pv is first:
+            next(row for row in kernels if row["name"] == "select_nearest")[
+                "past_one_cta"] = {key_: s2[key_] for key_ in (
+                    "boxes", "lanes", "ms_no_count", "bound_ms_no_count",
+                    "share_of_bound_no_count", "plain_ms")}
+        pv = sel_p[k].contiguous()
+    # The profiler's names of those launches, which KERNEL_SYMBOLS must
+    # match: each launch three times under one profile (the profiler may
+    # lose the last records of a short profile).
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for a in k2_args:
+            for _ in range(3):
+                sparse.select_nearest(*a, chunk_boxes=ub, count=False)
+        torch.cuda.synchronize()
+    named = {e.key: e.device_time_total / 1e3 / e.count
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and re.search(KERNEL_SYMBOLS["select_nearest"], e.key)}
+    emit(dict(phase="profile", name="K2 select_nearest past one CTA",
+              kernel_ms=named))
+    if not any("select_chunks_kernel" in key_ for key_ in named):
+        raise AssertionError(f"the profile names no select_chunks_kernel "
+                             f"launch: {named}")
+    del sd_t, cs_t, r_t, ctx_t, state_t, pool_t, F8, first, live, sel_p, got
+    del k2_args
+    torch.cuda.empty_cache()
+
     if sys.argv[1:] == ["--kernels"]:
         emit(dict(kernels_ok=True, kernels=kernels + bf16_rows + probe_rows))
         return 0
@@ -1123,7 +1238,7 @@ def main() -> int:
         device = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         kernel_ms = {k: sum(e.device_time_total for e in device
-                            if symbol in e.key) / 1e3
+                            if re.search(symbol, e.key)) / 1e3
                      for k, symbol in KERNEL_SYMBOLS.items()}
         all_ms = sum(e.device_time_total for e in device) / 1e3
         units_ms = sum(e.device_time_total for e in device

@@ -66,6 +66,33 @@
 //   merge runs. One ray a thread: with the planes read by address a box
 //   read no longer serves two rays, and two rays a thread measured slower
 //   (PERF.md).
+//
+// Past one CTA's shared memory (more than kMaxBoxes boxes) a second kernel,
+// select_chunks_kernel, streams the boxes through it in chunks of kChunk
+// boxes (the scene's ClusterScene.bb_chunks gives each chunk's union box),
+// keeping each lane's sorted list and count across chunks. Scenes of
+// kMaxBoxes boxes or fewer take select_kernel, the single-chunk path. A
+// chunk is 2,048 boxes, 48 KB of planes, so that two to four CTAs share an
+// SM. A lane skips a chunk when no box of it can change its answer,
+// decided from the union box alone:
+//
+// - Every box of the chunk lies inside the union box, so for each box the
+//   slab test's entry is at least the union's and its exit at most the
+//   union's: rounding is monotone, and with o and inv finite and inv
+//   nonzero no term is a NaN that one box drops and the union keeps. So a
+//   ray that misses the union misses every box, and a box it enters packs
+//   a word between (union entry bits & ~low) and (union exit bits | low).
+// - The chunk is skipped when the ray misses the union, or when every word
+//   it could pack lies below prev (such boxes are neither counted nor
+//   kept), or, where the caller does not ask for the count, when the least
+//   word it could pack lies above the lane's current (k+1)-th word (such
+//   boxes cannot enter the k + 1 words that are output). The first two
+//   leave the count exact; the third does not, so the count is then not
+//   written. The missed boxes that fill a short list are read from global
+//   memory in id order, so a skipped chunk takes none of them away.
+// - The decision is one per lane (an OR over its S threads), and a CTA
+//   stages a chunk only when some lane of it needs the chunk. The answer is
+//   the single-chunk path's bit for bit whatever is skipped.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -75,8 +102,17 @@ namespace {
 
 constexpr int kInfBits = 0x7F800000;
 constexpr int kSelThreads = 256;
-// Boxes whose six planes fit the 227 KB a CTA can have beside the list.
+// Boxes whose six planes fit the 227 KB a CTA can have beside the list: the
+// single-chunk path's limit.
 constexpr int kMaxBoxes = 9216;
+// The most boxes either path takes: the sparse engine's lane word carries
+// the cluster in 20 bits (ops/trace_sparse.py: _RANK_SHIFT).
+constexpr int kMaxAllBoxes = 1 << 20;
+// Boxes a chunk of the multi-chunk path; scene/clusters.py: SELECT_CHUNK
+// computes the union boxes for it, and the launch checks their number.
+constexpr int kChunk = 2048;
+static_assert(kChunk % 32 == 0 && kChunk <= kMaxBoxes, "a chunk's planes");
+constexpr float kFloatMax = 3.40282347e38f;
 
 // One ray of the box loop: its record, the offsets of its near and far
 // plane arrays in the staged boxes, its sorted list and its count.
@@ -101,6 +137,50 @@ __device__ __forceinline__ bool slab(const float* sb, const Lane<KM>& l, int c,
   for (int a = 0; a < 3; ++a) {
     t0 = fmaxf(t0, (sb[l.near[a] + c] - l.o[a]) * l.inv[a]);
     t1 = fminf(t1, (sb[l.far[a] + c] - l.o[a]) * l.inv[a]);
+  }
+  return t0 <= t1;
+}
+
+// One axis of the slab test on the box planes lo <= hi, by slab's
+// arithmetic: the near plane by the sign of inv.
+__device__ __forceinline__ void axis_window(float lo, float hi, float o,
+                                            float inv, float& t0, float& t1) {
+  const bool neg = __float_as_int(inv) < 0;
+  t0 = fmaxf(t0, ((neg ? hi : lo) - o) * inv);
+  t1 = fminf(t1, ((neg ? lo : hi) - o) * inv);
+}
+
+// The slab test's window of box `box` (six floats [min | max], planes in
+// order) read from global memory.
+template <int KM>
+__device__ __forceinline__ void box_window(const float* __restrict__ box,
+                                           const Lane<KM>& l, float& t0,
+                                           float& t1) {
+  t0 = l.tmin;
+  t1 = l.tmax;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    axis_window(__ldg(box + a), __ldg(box + 3 + a), l.o[a], l.inv[a], t0, t1);
+}
+
+// The slab test of box c read from global memory, its planes put in order
+// as the staging puts them: slab's answer bit for bit.
+template <int KM>
+__device__ __forceinline__ bool slab_global(const float* __restrict__ bb,
+                                            const Lane<KM>& l, int c,
+                                            float& t0) {
+  float t1 = l.tmax;
+  t0 = l.tmin;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float lo = __ldg(bb + static_cast<size_t>(c) * 6 + a);
+    float hi = __ldg(bb + static_cast<size_t>(c) * 6 + 3 + a);
+    if (lo > hi) {
+      const float t = lo;
+      lo = hi;
+      hi = t;
+    }
+    axis_window(lo, hi, l.o[a], l.inv[a], t0, t1);
   }
   return t0 <= t1;
 }
@@ -145,8 +225,158 @@ __host__ __device__ constexpr int plane_at(int j, int n_pad) {
 
 __host__ __device__ constexpr int pad32(int n) { return (n + 31) & ~31; }
 
+// Every thread of the CTA: answers the lanes of dead tiles (the masked
+// words) and the dead lanes of live tiles (dead_lane_word) of the CTA's
+// kLanes lanes from `base` on, and appends every other lane to `list`.
+template <int kLanes>
+__device__ __forceinline__ void classify(
+    const float* __restrict__ F8, const int* __restrict__ prev,
+    const unsigned char* __restrict__ live, int* __restrict__ out, int R,
+    int n_cp, int k, int base, int* list, int* n_list) {
+  const int lane_id = threadIdx.x & 31;
+  const int r = base + threadIdx.x;
+  bool loop = false;
+  if (threadIdx.x < kLanes && r < R) {
+    if (!live[r]) {
+      for (int i = 0; i <= k; ++i)
+        out[static_cast<size_t>(i) * R + r] = kIntMax;
+      out[static_cast<size_t>(k + 1) * R + r] = 0;
+    } else {
+      const float2 win =
+          *reinterpret_cast<const float2*>(F8 + static_cast<size_t>(r) * 8 + 6);
+      if (win.y < win.x) {
+        const int pv = prev[r];
+        for (int i = 0; i <= k; ++i)
+          out[static_cast<size_t>(i) * R + r] = dead_lane_word(pv, n_cp, i);
+        out[static_cast<size_t>(k + 1) * R + r] = 0;
+      } else {
+        loop = true;
+      }
+    }
+  }
+  const unsigned m = __ballot_sync(0xffffffffu, loop);
+  int at = 0;
+  if (lane_id == 0 && m != 0) at = atomicAdd(n_list, __popc(m));
+  at = __shfl_sync(0xffffffffu, at, 0);
+  if (loop) list[at + __popc(m & ((1u << lane_id) - 1))] = r;
+}
+
+// Lane r's record, its plane offsets for n_pad staged boxes, an empty list.
+template <int KM>
+__device__ __forceinline__ void load_lane(Lane<KM>& l,
+                                          const float* __restrict__ F8,
+                                          const int* __restrict__ prev, int r,
+                                          int n_pad) {
+  {
+    const float4* fr =
+        reinterpret_cast<const float4*>(F8 + static_cast<size_t>(r) * 8);
+    const float4 a = fr[0], b = fr[1];
+    l.o[0] = a.x, l.o[1] = a.y, l.o[2] = a.z;
+    l.inv[0] = a.w, l.inv[1] = b.x, l.inv[2] = b.y;
+    l.tmin = b.z, l.tmax = b.w;
+    l.pv = prev[r];
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const bool neg = __float_as_int(l.inv[a]) < 0;
+    l.near[a] = plane_at(neg ? a + 3 : a, n_pad);
+    l.far[a] = plane_at(neg ? a : a + 3, n_pad);
+  }
+  l.lim_cnt = l.pv < kInfBits
+                  ? static_cast<unsigned>(kInfBits) - static_cast<unsigned>(l.pv)
+                  : 0u;
+  l.lim_top = l.lim_cnt;
+  l.cnt = 0;
+#pragma unroll
+  for (int j = 0; j <= KM; ++j) l.top[j] = kIntMax;
+}
+
+// The box loop over the staged boxes c0, c0 + S, ... below n (staged box c
+// is box id_base + c).
+template <int KM, int S>
+__device__ __forceinline__ void test_boxes(Lane<KM>& l, const float* sb,
+                                           int c0, int n, int id_base,
+                                           int low) {
+#pragma unroll 4
+  for (int c = c0; c < n; c += S) {
+    float t0;
+    if (slab(sb, l, c, t0)) {
+      const int w = entry_word(t0, low, id_base + c);
+      const unsigned d = static_cast<unsigned>(w) - static_cast<unsigned>(l.pv);
+      l.cnt += d < l.lim_cnt;
+      if (d < l.lim_top) {
+        insert(l, w);
+        l.lim_top = static_cast<unsigned>(min(l.top[KM], kInfBits)) -
+                    static_cast<unsigned>(l.pv);
+      }
+    }
+  }
+}
+
+// A thread that kept fewer than k + 1 overlapped boxes fills its list
+// with the first of its boxes (ids s, s + S, ...) that the ray missed (or
+// entered at infinity) and whose word is not below prev: those words rise
+// with the id and follow every kept word. The boxes are the staged ones
+// (all of them), or with kGlobal those of bb in global memory.
+template <int KM, int S, bool kGlobal>
+__device__ __forceinline__ void fill_missed(Lane<KM>& l, int k, int n_cp,
+                                            int s, int low,
+                                            const float* boxes) {
+  int have = min(l.cnt, KM + 1);
+  if (have <= k) {
+    int c = l.pv <= kInfBits ? 0 : l.pv - kInfBits;  // first id not below prev
+    c += (s - c % S + S) % S;                       // this thread's next box
+    for (; c < n_cp && have <= k; c += S) {
+      float t0;
+      bool hit;
+      if constexpr (kGlobal)
+        hit = slab_global(boxes, l, c, t0);
+      else
+        hit = slab(boxes, l, c, t0);
+      if (hit && entry_word(t0, low, c) < kInfBits) continue;
+#pragma unroll
+      for (int j = 0; j <= KM; ++j)
+        if (j == have) l.top[j] = kInfBits | c;
+      ++have;
+    }
+  }
+}
+
+// Merges the S sorted lists of a lane's group (each round takes the least
+// head of the group, and the thread that held it pops it) and stores the
+// k + 1 words, and the count where `count`.
+template <int KM, int S>
+__device__ __forceinline__ void store_lane(Lane<KM>& l, int* __restrict__ out,
+                                           int R, int r, int k, int s,
+                                           bool count) {
+  if (S > 1) {
+    const int lane_id = threadIdx.x & 31;
+    const unsigned mask =
+        S == 32 ? 0xffffffffu : ((1u << (S & 31)) - 1u) << (lane_id & ~(S - 1));
+    int res[KM + 1];
+#pragma unroll
+    for (int j = 0; j <= KM; ++j) {
+      res[j] = __reduce_min_sync(mask, l.top[0]);
+      if (l.top[0] == res[j]) {
+#pragma unroll
+        for (int q = 0; q < KM; ++q) l.top[q] = l.top[q + 1];
+        l.top[KM] = kIntMax;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j <= KM; ++j) l.top[j] = res[j];
+    l.cnt = __reduce_add_sync(mask, l.cnt);
+    if (s != 0) return;
+  }
+#pragma unroll
+  for (int j = 0; j <= KM; ++j)
+    if (j <= k) out[static_cast<size_t>(j) * R + r] = l.top[j];
+  if (count) out[static_cast<size_t>(k + 1) * R + r] = l.cnt;
+}
+
 // KM: the sorted list holds KM + 1 words (k <= KM); S threads share a
-// lane's boxes. A CTA takes kSelThreads / S lanes.
+// lane's boxes. A CTA takes kSelThreads / S lanes. The single-chunk path:
+// every box staged once.
 template <int KM, int S>
 __global__ void __launch_bounds__(kSelThreads)
 select_kernel(const float* __restrict__ F8, const int* __restrict__ prev,
@@ -168,35 +398,8 @@ select_kernel(const float* __restrict__ F8, const int* __restrict__ prev,
   __syncthreads();
 
   // Classify the CTA's lanes while the boxes land.
-  const int lane_id = threadIdx.x & 31;
-  const int base = blockIdx.x * kLanes;
-  {
-    const int r = base + threadIdx.x;
-    bool loop = false;
-    if (threadIdx.x < kLanes && r < R) {
-      if (!live[r]) {
-        for (int i = 0; i <= k; ++i)
-          out[static_cast<size_t>(i) * R + r] = kIntMax;
-        out[static_cast<size_t>(k + 1) * R + r] = 0;
-      } else {
-        const float2 win =
-            *reinterpret_cast<const float2*>(F8 + static_cast<size_t>(r) * 8 + 6);
-        if (win.y < win.x) {
-          const int pv = prev[r];
-          for (int i = 0; i <= k; ++i)
-            out[static_cast<size_t>(i) * R + r] = dead_lane_word(pv, n_cp, i);
-          out[static_cast<size_t>(k + 1) * R + r] = 0;
-        } else {
-          loop = true;
-        }
-      }
-    }
-    const unsigned m = __ballot_sync(0xffffffffu, loop);
-    int at = 0;
-    if (lane_id == 0 && m != 0) at = atomicAdd(&n_list, __popc(m));
-    at = __shfl_sync(0xffffffffu, at, 0);
-    if (loop) list[at + __popc(m & ((1u << lane_id) - 1))] = r;
-  }
+  classify<kLanes>(F8, prev, live, out, R, n_cp, k, blockIdx.x * kLanes, list,
+                   &n_list);
   cp_async_wait<0>();
   __syncthreads();  // the list and every thread's box copies are visible
   const int n = n_list;
@@ -220,84 +423,105 @@ select_kernel(const float* __restrict__ F8, const int* __restrict__ prev,
   if (g >= n) return;
   const int r = list[g];
   Lane<KM> l;
-  {
-    const float4* fr =
-        reinterpret_cast<const float4*>(F8 + static_cast<size_t>(r) * 8);
-    const float4 a = fr[0], b = fr[1];
-    l.o[0] = a.x, l.o[1] = a.y, l.o[2] = a.z;
-    l.inv[0] = a.w, l.inv[1] = b.x, l.inv[2] = b.y;
-    l.tmin = b.z, l.tmax = b.w;
-    l.pv = prev[r];
-  }
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const bool neg = __float_as_int(l.inv[a]) < 0;
-    l.near[a] = plane_at(neg ? a + 3 : a, n_pad);
-    l.far[a] = plane_at(neg ? a : a + 3, n_pad);
-  }
-  l.lim_cnt = l.pv < kInfBits
-                  ? static_cast<unsigned>(kInfBits) - static_cast<unsigned>(l.pv)
-                  : 0u;
-  l.lim_top = l.lim_cnt;
-  l.cnt = 0;
-#pragma unroll
-  for (int j = 0; j <= KM; ++j) l.top[j] = kIntMax;
+  load_lane(l, F8, prev, r, n_pad);
   const int low = (1 << id_bits) - 1;
-#pragma unroll 4
-  for (int c = s; c < n_cp; c += S) {
-    float t0;
-    if (slab(sb, l, c, t0)) {
-      const int w = entry_word(t0, low, c);
-      const unsigned d = static_cast<unsigned>(w) - static_cast<unsigned>(l.pv);
-      l.cnt += d < l.lim_cnt;
-      if (d < l.lim_top) {
-        insert(l, w);
-        l.lim_top = static_cast<unsigned>(min(l.top[KM], kInfBits)) -
-                    static_cast<unsigned>(l.pv);
+  test_boxes<KM, S>(l, sb, s, n_cp, 0, low);
+  fill_missed<KM, S, false>(l, k, n_cp, s, low, sb);
+  store_lane<KM, S>(l, out, R, r, k, s, true);
+}
+
+// The multi-chunk path (more than kMaxBoxes boxes): the boxes pass through
+// shared memory kChunk at a time, ub (n_chunks, 6) holding each chunk's
+// union box (planes in order). tested gains one for each (lane, chunk) the
+// lane tested; `count` 0 lets a lane skip a chunk past its (k+1)-th word
+// and leaves the count row unwritten.
+template <int KM, int S>
+__global__ void __launch_bounds__(kSelThreads)
+select_chunks_kernel(const float* __restrict__ F8,
+                     const int* __restrict__ prev,
+                     const unsigned char* __restrict__ live,
+                     const float* __restrict__ bb,
+                     const float* __restrict__ ub, int* __restrict__ out,
+                     unsigned long long* __restrict__ tested, int R, int n_cp,
+                     int id_bits, int k, int count) {
+  constexpr int kLanes = kSelThreads / S;
+  extern __shared__ __align__(16) float sb[];  // six plane arrays, a chunk
+  __shared__ int list[kLanes];
+  __shared__ int n_list;
+  constexpr int n_pad = pad32(kChunk);
+  if (threadIdx.x == 0) n_list = 0;
+  __syncthreads();
+  classify<kLanes>(F8, prev, live, out, R, n_cp, k, blockIdx.x * kLanes, list,
+                   &n_list);
+  __syncthreads();
+  const int n = n_list;
+  if (n == 0) return;
+
+  // Every thread stays to the end of the chunk loop, which has barriers;
+  // a thread past the list holds a copy of the first lane and tests
+  // nothing.
+  const int g = threadIdx.x / S, s = threadIdx.x % S;
+  const bool mine = g < n;
+  const int r = list[mine ? g : 0];
+  Lane<KM> l;
+  load_lane(l, F8, prev, r, n_pad);
+  const int low = (1 << id_bits) - 1;
+  bool sure = true;  // no slab term can be a NaN that one box drops
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    sure = sure && fabsf(l.o[a]) <= kFloatMax && fabsf(l.inv[a]) <= kFloatMax &&
+           l.inv[a] != 0.0f;
+  const int lane_id = threadIdx.x & 31;
+  const unsigned seg =
+      S == 32 ? 0xffffffffu : ((1u << (S & 31)) - 1u) << (lane_id & ~(S - 1));
+  unsigned long long lane_chunks = 0;
+  const int n_chunks = (n_cp + kChunk - 1) / kChunk;
+  for (int q = 0; q < n_chunks; ++q) {
+    bool need = mine;
+    if (mine && sure) {
+      float t0, t1;
+      box_window(ub + 6 * q, l, t0, t1);
+      if (t0 == t0 && t1 == t1) {
+        const int first = __float_as_int(fmaxf(t0, 0.0f) + 0.0f) & ~low;
+        const int last = (__float_as_int(fmaxf(t1, 0.0f) + 0.0f) & ~low) | low;
+        int kth = l.top[0];
+#pragma unroll
+        for (int j = 1; j <= KM; ++j)
+          if (j == k) kth = l.top[j];
+        need = !(t0 > t1 || last < l.pv || (!count && first > kth));
       }
     }
-  }
-  // A thread that kept fewer than k + 1 overlapped boxes fills its list
-  // with the first of its boxes that the ray missed (or entered at
-  // infinity) and whose word is not below prev: those words rise with the
-  // id and follow every kept word.
-  int have = min(l.cnt, KM + 1);
-  if (have <= k) {
-    int c = l.pv <= kInfBits ? 0 : l.pv - kInfBits;  // first id not below prev
-    c += (s - c % S + S) % S;                       // this thread's next box
-    for (; c < n_cp && have <= k; c += S) {
-      float t0;
-      if (slab(sb, l, c, t0) && entry_word(t0, low, c) < kInfBits) continue;
-#pragma unroll
-      for (int j = 0; j <= KM; ++j)
-        if (j == have) l.top[j] = kInfBits | c;
-      ++have;
+    if (S > 1) need = __reduce_or_sync(seg, need ? 1u : 0u) != 0u;
+    const int lanes = __syncthreads_count(need && s == 0);
+    if (lanes == 0) continue;
+    lane_chunks += lanes;
+    const int c_lo = q * kChunk, nb = min(kChunk, n_cp - c_lo);
+    const float* src = bb + static_cast<size_t>(c_lo) * 6;
+    for (int i = threadIdx.x; i < nb * 6; i += kSelThreads) {
+      const int c = i / 6;
+      cp_async4(sb + plane_at(i - c * 6, n_pad) + c, src + i);
     }
-  }
-  if (S > 1) {
-    // Merge the S sorted lists of the group: each round takes the least
-    // head of the group, and the thread that held it pops it.
-    const unsigned mask =
-        S == 32 ? 0xffffffffu : ((1u << (S & 31)) - 1u) << (lane_id & ~(S - 1));
-    int res[KM + 1];
-#pragma unroll
-    for (int j = 0; j <= KM; ++j) {
-      res[j] = __reduce_min_sync(mask, l.top[0]);
-      if (l.top[0] == res[j]) {
-#pragma unroll
-        for (int q = 0; q < KM; ++q) l.top[q] = l.top[q + 1];
-        l.top[KM] = kIntMax;
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int i = threadIdx.x; i < nb * 3; i += kSelThreads) {
+      const int a = i / nb, c = i - a * nb;
+      float& lo = sb[plane_at(a, n_pad) + c];
+      float& hi = sb[plane_at(a + 3, n_pad) + c];
+      if (lo > hi) {
+        const float t = lo;
+        lo = hi;
+        hi = t;
       }
     }
-#pragma unroll
-    for (int j = 0; j <= KM; ++j) l.top[j] = res[j];
-    l.cnt = __reduce_add_sync(mask, l.cnt);
-    if (s != 0) return;
+    __syncthreads();
+    if (need) test_boxes<KM, S>(l, sb, s, nb, c_lo, low);
   }
-#pragma unroll
-  for (int j = 0; j <= KM; ++j)
-    if (j <= k) out[static_cast<size_t>(j) * R + r] = l.top[j];
-  out[static_cast<size_t>(k + 1) * R + r] = l.cnt;
+  if (tested != nullptr && threadIdx.x == 0 && lane_chunks != 0)
+    atomicAdd(tested, lane_chunks);
+  if (!mine) return;  // whole groups: g is the same on a group's threads
+  fill_missed<KM, S, true>(l, k, n_cp, s, low, bb);
+  store_lane<KM, S>(l, out, R, r, k, s, count != 0);
 }
 
 int sm_count() {
@@ -322,35 +546,58 @@ int pick_split(int R) {
   return S;
 }
 
+// A launch's arguments (racc_select_nearest's).
+struct Args {
+  const float* F8;
+  const int* prev;
+  const unsigned char* live;
+  const float* bb;
+  const float* ub;
+  int* out;
+  unsigned long long* tested;
+  int R, n_cp, id_bits, k, count;
+};
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
 template <int KM, int S>
-int launch(const float* F8, const int* prev, const unsigned char* live,
-           const float* bb, int* out, unsigned long long* tested, int R,
-           int n_cp, int id_bits, int k, cudaStream_t stream) {
+int launch(const Args& a, cudaStream_t stream) {
   constexpr int kLanes = kSelThreads / S;
-  const int smem = (6 * pad32(n_cp) + 16) * static_cast<int>(sizeof(float));
-  auto kernel = select_kernel<KM, S>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const bool one = a.n_cp <= kMaxBoxes;
+  const int smem =
+      (6 * pad32(one ? a.n_cp : kChunk) + 16) * static_cast<int>(sizeof(float));
+  const int grid = (a.R + kLanes - 1) / kLanes;
+  cudaError_t e;
+  if (one) {
+    auto kernel = select_kernel<KM, S>;
+    if ((e = allow_smem(kernel, smem)) != cudaSuccess) return static_cast<int>(e);
+    kernel<<<grid, kSelThreads, smem, stream>>>(
+        a.F8, a.prev, a.live, a.bb, a.out, a.tested, a.R, a.n_cp, a.id_bits,
+        a.k);
+  } else {
+    auto kernel = select_chunks_kernel<KM, S>;
+    if ((e = allow_smem(kernel, smem)) != cudaSuccess) return static_cast<int>(e);
+    kernel<<<grid, kSelThreads, smem, stream>>>(
+        a.F8, a.prev, a.live, a.bb, a.ub, a.out, a.tested, a.R, a.n_cp,
+        a.id_bits, a.k, a.count);
   }
-  kernel<<<(R + kLanes - 1) / kLanes, kSelThreads, smem, stream>>>(
-      F8, prev, live, bb, out, tested, R, n_cp, id_bits, k);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int KM>
-int launch_split(int S, const float* F8, const int* prev,
-                 const unsigned char* live, const float* bb, int* out,
-                 unsigned long long* tested, int R, int n_cp, int id_bits,
-                 int k, cudaStream_t st) {
+int launch_split(int S, const Args& a, cudaStream_t st) {
   switch (S) {
-    case 1: return launch<KM, 1>(F8, prev, live, bb, out, tested, R, n_cp, id_bits, k, st);
-    case 2: return launch<KM, 2>(F8, prev, live, bb, out, tested, R, n_cp, id_bits, k, st);
-    case 4: return launch<KM, 4>(F8, prev, live, bb, out, tested, R, n_cp, id_bits, k, st);
-    case 8: return launch<KM, 8>(F8, prev, live, bb, out, tested, R, n_cp, id_bits, k, st);
-    case 16: return launch<KM, 16>(F8, prev, live, bb, out, tested, R, n_cp, id_bits, k, st);
-    case 32: return launch<KM, 32>(F8, prev, live, bb, out, tested, R, n_cp, id_bits, k, st);
+    case 1: return launch<KM, 1>(a, st);
+    case 2: return launch<KM, 2>(a, st);
+    case 4: return launch<KM, 4>(a, st);
+    case 8: return launch<KM, 8>(a, st);
+    case 16: return launch<KM, 16>(a, st);
+    case 32: return launch<KM, 32>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -358,8 +605,14 @@ int launch_split(int S, const float* F8, const int* prev,
 }  // namespace
 }  // namespace racc
 
-// The most boxes racc_select_nearest takes (their shared-memory limit).
-extern "C" int racc_select_max_boxes() { return racc::kMaxBoxes; }
+// The most boxes racc_select_nearest takes.
+extern "C" int racc_select_max_boxes() { return racc::kMaxAllBoxes; }
+
+// The union boxes (ub) a launch on n_cp boxes reads: none on the
+// single-chunk path (kMaxBoxes boxes or fewer), else one a chunk of kChunk.
+extern "C" int racc_select_chunks(int n_cp) {
+  return n_cp <= racc::kMaxBoxes ? 0 : (n_cp + racc::kChunk - 1) / racc::kChunk;
+}
 
 // The split S the launcher picks for a launch of R lanes.
 extern "C" int racc_select_split(int R) { return racc::pick_split(R); }
@@ -367,26 +620,33 @@ extern "C" int racc_select_split(int R) { return racc::pick_split(R); }
 // F8 (R, 8) rows [o, inv_d, tmin, tmax_eff]; prev (R,) int32 previous
 // spill words; live (R,) uint8 lane-of-a-live-tile flags; bb (n_cp, 6);
 // out (k + 2, R) int32: k nearest packed words, the spill word, the count.
-// tested (nullable) gains the lanes that ran the box loop. split 0 takes
-// the launcher's choice; a power of two up to 32 forces it (the card tests
-// hold every split against the plain version).
+// Past kMaxBoxes boxes, ub (racc_select_chunks(n_cp), 6) holds the union
+// box of each run of kChunk boxes, planes in order, and `count` 0 leaves
+// the count row unwritten (so that a lane may skip boxes past its (k+1)-th
+// word); fewer boxes take neither. tested (nullable) gains, for each lane
+// that ran the box loop, the chunks it tested (one on the single-chunk
+// path). split 0 takes the launcher's choice; a power of two up to 32
+// forces it (the card tests hold every split against the plain version).
 extern "C" int racc_select_nearest(const float* F8, const int* prev,
                                    const unsigned char* live, const float* bb,
-                                   int* out, unsigned long long* tested, int R,
+                                   const float* ub, int* out,
+                                   unsigned long long* tested, int R,
                                    int n_cp, int id_bits, int k, int split,
-                                   void* stream) {
+                                   int count, void* stream) {
   using namespace racc;
-  if (R < 0 || n_cp < 1 || n_cp > kMaxBoxes || k < 1 || k > 8 ||
-      id_bits < 1 || id_bits > 22)
+  if (R < 0 || n_cp < 1 || n_cp > kMaxAllBoxes || k < 1 || k > 8 ||
+      id_bits < 1 || id_bits > 22 || n_cp > (1 << id_bits))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_cp > kMaxBoxes && ub == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int S = split == 0 ? pick_split(R) : split;
+  const Args a{F8, prev, live, bb, ub, out, tested, R, n_cp, id_bits, k,
+               count};
   // The list length is a compile-time size: the least of 1, 4 and 8 that
   // holds k (a longer sorted list starts with the shorter one).
-  if (k == 1)
-    return launch_split<1>(S, F8, prev, live, bb, out, tested, R, n_cp, id_bits, k, st);
-  if (k <= 4)
-    return launch_split<4>(S, F8, prev, live, bb, out, tested, R, n_cp, id_bits, k, st);
-  return launch_split<8>(S, F8, prev, live, bb, out, tested, R, n_cp, id_bits, k, st);
+  if (k == 1) return launch_split<1>(S, a, st);
+  if (k <= 4) return launch_split<4>(S, a, st);
+  return launch_split<8>(S, a, st);
 }

@@ -44,9 +44,11 @@ _SIGNATURES = {
     "racc_dense_hit": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "racc_dense_occluded": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _P],
-    "racc_select_nearest": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "racc_select_nearest": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _P],
     "racc_select_split": [_I],
     "racc_select_max_boxes": [],
+    "racc_select_chunks": [_I],
     "racc_pair_hit": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                       _P],
     "racc_probe_static": [_P, _I, _I, _I, _I, _P, _P, _I, _P],

@@ -64,33 +64,43 @@ _INT_MIN = -0x80000000
 # ---------------------------------------------------------------- K2 ----
 
 def select_nearest(F8, prev, live, bb, k: int, id_bits: int, *,
-                   tested=None) -> torch.Tensor:
+                   tested=None, chunk_boxes=None,
+                   count: bool = True) -> torch.Tensor:
     """K2: fused cull + nearest-k select.
 
     F8 (R, 8) float32 rows [o, inv_d, tmin, tmax_eff]; prev (R,) int32
     previous spill words (candidates whose packed word is below are
     excluded); live (R,) uint8, 0 for lanes of a ray tile with no live ray;
-    bb (n_cp, 6) cluster boxes [bbmin | bbmax]. Returns (k + 2, R) int32:
+    bb (n_cp, 6) cluster boxes [bbmin | bbmax], n_cp at most 2^20 (the
+    lane word's cluster field) and 2^id_bits. Returns (k + 2, R) int32:
     rows 0..k-1 the k smallest packed (entry bits | cluster id) words in
     order, row k the (k+1)-th (the spill word), row k+1 the number of
-    overlapped clusters. Dead lanes get 0x7FFFFFFF words and count 0.
+    overlapped clusters; without ``count`` the first k + 1 rows alone.
+    Dead lanes get 0x7FFFFFFF words and count 0.
 
     On a CUDA tensor this launches ``csrc/select_nearest.cu``, whose
     launcher picks from R how many threads share a lane's boxes
-    (:func:`select_split`); ``tested`` (optional, a (1,) int64 CUDA tensor)
-    gains the lanes that ran the box loop (the rest are lanes of dead
-    tiles, or dead lanes answered by :func:`dead_lane_words`). On a CPU
-    tensor it runs :func:`select_nearest_plain`."""
+    (:func:`select_split`). Past one CTA's shared memory of boxes it
+    streams them in chunks of 2,048 (the kernel's ``kChunk``), skipping
+    for a lane the chunks whose union box (``chunk_boxes``, the scene's
+    ``bb_chunks``, which such a launch needs) cannot change its answer,
+    and more of them without ``count``. ``tested`` (optional, a (1,) int64 CUDA tensor)
+    gains, for each lane that ran the box loop, the chunks it tested: one
+    each on the single-chunk path (the other lanes are lanes of dead tiles,
+    or dead lanes answered by :func:`dead_lane_words`). On a CPU tensor it
+    runs :func:`select_nearest_plain`."""
     if F8.device.type == "cpu":
-        return select_nearest_plain(F8, prev, live, bb, k, id_bits)
-    return _launch_select(F8, prev, live, bb, k, id_bits, 0, tested)
+        return select_nearest_plain(F8, prev, live, bb, k, id_bits,
+                                    count=count)
+    return _launch_select(F8, prev, live, bb, k, id_bits, 0, tested,
+                          chunk_boxes, count)
 
 
 select_nearest.launches = 0
 
 
 def _launch_select(F8, prev, live, bb, k: int, id_bits: int, split: int,
-                   tested) -> torch.Tensor:
+                   tested, chunk_boxes=None, count: bool = True):
     """Validate K2's arguments and launch it. ``split`` 0 leaves the split
     to the launcher, as every caller of the package does; the card tests
     force each power of two up to 32 to hold it against the plain
@@ -111,16 +121,29 @@ def _launch_select(F8, prev, live, bb, k: int, id_bits: int, split: int,
     most = lib.racc_select_max_boxes()
     if not 1 <= n_cp <= most:
         raise ValueError(
-            f"bb holds {n_cp} boxes; the select kernel keeps them all in "
-            f"one CTA's shared memory (24 bytes a box) and takes 1 to {most}")
+            f"bb holds {n_cp} boxes; the select kernel takes 1 to {most} "
+            f"(the lane word carries the cluster in {_RANK_SHIFT} bits)")
+    if not 1 <= id_bits <= 22 or n_cp > 1 << id_bits:
+        raise ValueError(f"id_bits {id_bits} must be in [1, 22] and hold "
+                         f"the {n_cp} box ids")
+    n_chunks = lib.racc_select_chunks(n_cp)
+    if n_chunks:
+        if chunk_boxes is None:
+            raise ValueError(
+                f"{n_cp} boxes take the select kernel's chunked path, which "
+                f"needs each chunk's union box (ClusterScene.bb_chunks)")
+        _kernels.require(chunk_boxes, "chunk_boxes", torch.float32,
+                         (n_chunks, 6))
     out = torch.empty((k + 2, R), dtype=torch.int32, device=F8.device)
     _kernels.check(lib.racc_select_nearest(
         _kernels.ptr(F8), _kernels.ptr(prev), _kernels.ptr(live),
-        _kernels.ptr(bb), _kernels.ptr(out),
+        _kernels.ptr(bb), _kernels.ptr(chunk_boxes) if n_chunks else None,
+        _kernels.ptr(out),
         None if tested is None else _kernels.ptr(tested), R, n_cp, id_bits,
-        k, split, _kernels.stream()), "racc_select_nearest")
+        k, split, int(count), _kernels.stream()),
+        "racc_select_nearest")
     select_nearest.launches += 1
-    return out
+    return out if count else out[:k + 1]
 
 
 def select_split(R: int) -> int:
@@ -159,13 +182,15 @@ def _smallest(words, n: int):
 
 
 def select_nearest_plain(F8, prev, live, bb, k: int, id_bits: int,
-                         chunk: int = 32768, split: int = 1) -> torch.Tensor:
+                         chunk: int = 32768, split: int = 1,
+                         count: bool = True) -> torch.Tensor:
     """Plain torch version of K2, over chunks of rays (an (R, n_cp) entry
     matrix at frame width would be gigabytes). ``split`` is the kernel's
     box split: part s of ``split`` takes boxes s, s + split, ..., keeps its
     own k + 1 smallest words and its count, and the parts are merged. It
     never changes the answer (the words are distinct), which
-    tests/test_torch_split.py holds."""
+    tests/test_torch_split.py holds. Without ``count`` the count row is
+    left out, as the kernel leaves it."""
     R = F8.shape[0]
     out = torch.empty((k + 2, R), dtype=torch.int32, device=F8.device)
     for s in range(0, R, chunk):
@@ -179,7 +204,51 @@ def select_nearest_plain(F8, prev, live, bb, k: int, id_bits: int,
         cnt[dead] = 0
         out[:k + 1, s:s + chunk] = top.T
         out[k + 1, s:s + chunk] = cnt.to(torch.int32)
-    return out
+    return out if count else out[:k + 1]
+
+
+def chunk_skips(F8, prev, chunk_boxes, id_bits: int):
+    """How K2's multi-chunk path may skip chunks, for each (lane, chunk):
+    (skip (R, n_chunks) bool, first (R, n_chunks) int32). ``skip`` where
+    the lane's window misses the chunk's union box (a row of
+    ``chunk_boxes``) or the highest word a box of it could pack lies below
+    the lane's ``prev``: no box of the chunk is then counted or kept.
+    ``first`` is the least word a box of the chunk could pack: without the
+    count, a lane skips the chunk too where ``first`` lies above its
+    (k+1)-th word so far. Neither where a term could be a NaN: a lane
+    whose origin or inverse direction holds a value that is not finite, or
+    a zero, or whose union window is a NaN."""
+    o, inv, tmin, tmax = F8[:, :3], F8[:, 3:6], F8[:, 6], F8[:, 7]
+    low = (1 << id_bits) - 1
+    neg = torch.signbit(inv)
+    lo, hi = chunk_boxes[None, :, :3], chunk_boxes[None, :, 3:]
+    near = torch.where(neg[:, None], hi, lo)
+    far = torch.where(neg[:, None], lo, hi)
+    t0 = tmin[:, None].expand(-1, chunk_boxes.shape[0])
+    t1 = tmax[:, None].expand(-1, chunk_boxes.shape[0])
+    for a in range(3):
+        # fmax and fmin, as the kernel's fmaxf and fminf: a NaN operand
+        # gives the other one.
+        t0 = torch.fmax(t0, (near[..., a] - o[:, None, a]) * inv[:, None, a])
+        t1 = torch.fmin(t1, (far[..., a] - o[:, None, a]) * inv[:, None, a])
+
+    def word(t):
+        return (torch.clamp_min(t, 0.0) + 0.0).view(torch.int32) & ~low
+
+    sure = (torch.isfinite(o) & torch.isfinite(inv) & (inv != 0)).all(dim=1)
+    sure = sure[:, None] & ~t0.isnan() & ~t1.isnan()
+    skip = sure & ((t0 > t1) | ((word(t1) | low) < prev[:, None]))
+    return skip, torch.where(sure, word(t0), _INT_MIN)
+
+
+def select_chunks_needed(F8, prev, live, chunk_boxes, id_bits: int) -> int:
+    """The (lane, chunk) pairs that K2's multi-chunk path tests when asked
+    for the count, which its ``tested`` counter reads: for each lane that
+    runs the box loop (of a live tile, tmax_eff not below tmin), the chunks
+    that :func:`chunk_skips` does not skip."""
+    skip, _ = chunk_skips(F8, prev, chunk_boxes, id_bits)
+    runs = (live == 1) & ~(F8[:, 7] < F8[:, 6])
+    return int((~skip)[runs].sum())
 
 
 def dead_lane_words(prev, n_cp: int, k: int) -> torch.Tensor:
@@ -205,14 +274,12 @@ def _select_tile(R: int, n_cp: int) -> int:
     return sel_tile
 
 
-def _select(cs: ClusterScene, o, inv_d, tmin, tmax_eff, k: int,
-            prev_packed=None):
-    """Run K2 over the rays (the counterpart of ``_select_nearest_pallas``).
-    Returns (lat_valid (k, R) bool, lat_id (k, R) int32 nearest first,
-    spill (R,) int32, cnt (R,) int32)."""
+def _select_args(cs: ClusterScene, o, inv_d, tmin, tmax_eff,
+                 prev_packed=None):
+    """K2's lane arguments for the rays, as the JAX wrapper builds them:
+    (F8, prev, live, id_bits)."""
     R = o.shape[0]
     n_cp = cs.bb.shape[0]
-    id_bits = max((n_cp - 1).bit_length(), 1)
     sel_tile = _select_tile(R, n_cp)
     live = ((tmax_eff > 0).reshape(-1, sel_tile).any(dim=1)
             .repeat_interleave(sel_tile).to(torch.uint8))
@@ -220,11 +287,23 @@ def _select(cs: ClusterScene, o, inv_d, tmin, tmax_eff, k: int,
         prev_packed = torch.full((R,), _INT_MIN, dtype=torch.int32,
                                  device=o.device)
     F8 = torch.cat([o, inv_d, tmin[:, None], tmax_eff[:, None]], dim=1)
-    out = select_nearest(F8, prev_packed.contiguous(), live, cs.bb, k,
-                         id_bits)
+    return (F8, prev_packed.contiguous(), live,
+            max((n_cp - 1).bit_length(), 1))
+
+
+def _select(cs: ClusterScene, o, inv_d, tmin, tmax_eff, k: int,
+            prev_packed=None):
+    """Run K2 over the rays (the counterpart of ``_select_nearest_pallas``),
+    without the count of overlapped clusters, which no caller reads.
+    Returns (lat_valid (k, R) bool, lat_id (k, R) int32 nearest first,
+    spill (R,) int32)."""
+    F8, prev, live, id_bits = _select_args(cs, o, inv_d, tmin, tmax_eff,
+                                           prev_packed)
+    with span("racc.sparse.select"):
+        out = select_nearest(F8, prev, live, cs.bb, k, id_bits,
+                             chunk_boxes=cs.bb_chunks, count=False)
     packed = out[:k]
-    return (packed < _INF_PACK, packed & ((1 << id_bits) - 1), out[k],
-            out[k + 1])
+    return packed < _INF_PACK, packed & ((1 << id_bits) - 1), out[k]
 
 
 # ---------------------------------------------------------------- K3 ----
@@ -428,8 +507,8 @@ def _sparse_pass(cs: ClusterScene, o, d, inv_d, tlo, tmax_p, K: int, SP: int,
         kr_pad = -(-K * R // SP) * SP
         cap = min(max(SP, -(-pair_budget * R // SP) * SP), kr_pad)
 
-        lat_valid, lat_id, spill, _cnt = _select(cs, o, inv_d, tlo, tmax_p,
-                                                 K, prev_packed)
+        lat_valid, lat_id, spill = _select(cs, o, inv_d, tlo, tmax_p, K,
+                                           prev_packed)
         cl, ray, rank, total = _lattice_pairs(lat_valid, lat_id, cap)
         # Dead lattice entries never enter the pair arrays, so the merge
         # needs no dump slot for them.

@@ -29,6 +29,11 @@ ATTR_TRI_ID_COL = 5   # original triangle id as raw int32 bits
 ATTR_GEOM_COL = 6     # [v0, e1, e2] exact geometry in cols 6:15
 ATTR_UV_COL = 15      # uv bf16 pairs [uv0u|uv0v, uv1u|uv1v, uv2u|uv2v]
 SELECT_PAD = 3e37     # padding cluster box: a far point every slab test culls
+# Boxes in a chunk of the select kernel's multi-chunk path, which scenes
+# of more boxes than one CTA's shared memory holds take: the kernel's
+# kChunk (csrc/select_nearest.cu), whose launch checks the number of union
+# boxes (ClusterScene.bb_chunks) computed with this.
+SELECT_CHUNK = 2048
 
 
 def _bf16_bits(x: np.ndarray) -> np.ndarray:
@@ -46,7 +51,9 @@ class ClusterScene(NamedTuple):
     """Device tensors of a compiled cluster scene: ``N_c`` clusters of ``C``
     padded triangles. The first six fields are the JAX package's
     ``ClusterScene``; ``G3``, ``bb`` and ``G3b`` are layouts of them that
-    the kernels read, derived once here instead of once per trace."""
+    the kernels read, derived once here instead of once per trace;
+    ``bb_chunks`` is the select kernel's union box of each chunk of ``bb``
+    (:func:`select_chunk_boxes`)."""
 
     G: torch.Tensor           # (RAY_FEATURES, N_c*C*4) f32 intersection features
     attrs: torch.Tensor       # (N_c*C, ATTR_COLS) f32 attribute rows
@@ -59,6 +66,7 @@ class ClusterScene(NamedTuple):
                               # multiple of 128 clusters with SELECT_PAD
     G3b: torch.Tensor         # (N_c, ceil(C/4), 32, 4) int32: G3 in bf16,
                               # in mma fragment order (mma_fragments)
+    bb_chunks: torch.Tensor   # (ceil(n_cp / SELECT_CHUNK), 6) f32
 
     @property
     def cluster_size(self) -> int:
@@ -270,6 +278,24 @@ def mma_fragments(G3: torch.Tensor) -> torch.Tensor:
     return out.view(torch.int32).reshape(n_c, -1, 32, 4)
 
 
+def select_chunk_boxes(bb: torch.Tensor,
+                       chunk: int = SELECT_CHUNK) -> torch.Tensor:
+    """(ceil(n_cp / chunk), 6) float32: the union box [min | max] of each
+    run of ``chunk`` boxes of ``bb`` (n_cp, 6), each box's planes first put
+    in order on each axis as the select kernel stages them (a pair with a
+    NaN stays as it is, and a NaN plane makes the union's NaN). Every box
+    of a chunk lies inside its union, which lets the kernel skip chunks."""
+    lo, hi = bb[:, :3], bb[:, 3:]
+    swap = lo > hi
+    lo, hi = torch.where(swap, hi, lo), torch.where(swap, lo, hi)
+    n = -(-bb.shape[0] // chunk)
+    # Repeating the last box to whole chunks changes no union.
+    pad = n * chunk - bb.shape[0]
+    lo = torch.cat([lo, lo[-1:].expand(pad, 3)]).reshape(n, chunk, 3)
+    hi = torch.cat([hi, hi[-1:].expand(pad, 3)]).reshape(n, chunk, 3)
+    return torch.cat([lo.amin(dim=1), hi.amax(dim=1)], dim=1).contiguous()
+
+
 def cluster_scene_from_numpy(G, attrs, tri_id, cl_bbmin, cl_bbmax,
                              mat_params, device=None) -> ClusterScene:
     """Move compiled cluster arrays onto ``device`` (``device.py:
@@ -294,7 +320,8 @@ def cluster_scene_from_numpy(G, attrs, tri_id, cl_bbmin, cl_bbmax,
         G=G, attrs=f32(attrs),
         tri_id=torch.tensor(np.asarray(tri_id, np.int32), device=device),
         cl_bbmin=cl_bbmin, cl_bbmax=cl_bbmax, mat_params=f32(mat_params),
-        G3=G3, bb=bb, G3b=mma_fragments(G3))
+        G3=G3, bb=bb, G3b=mma_fragments(G3),
+        bb_chunks=select_chunk_boxes(bb))
 
 
 def compile_clusters(scene: SceneData, cluster_size: int = 128,

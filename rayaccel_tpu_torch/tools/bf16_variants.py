@@ -121,7 +121,7 @@ def measure(name, warp_rays):
     pool = state["rays"]
     tmax = torch.where(state["alive"], pool.tmax,
                        torch.full_like(pool.tmax, -1))
-    lat_valid, lat_id, _, _ = sparse._select(
+    lat_valid, lat_id, _ = sparse._select(
         cs, pool.o, safe_inv_dir(pool.d), pool.tmin, tmax, opts.k_pairs)
     N, SP = tmax.shape[0], opts.sp_tile
     cap = min(max(SP, -(-opts.pair_budget * N // SP) * SP),

@@ -339,9 +339,9 @@ def bounce_pairs(device, width: int = 1280, height: int = 720,
         return Fp, cs.G3, items, col_bits, N
     tmax = torch.where(state["alive"], pool.tmax,
                        torch.full_like(pool.tmax, -1))
-    lat_valid, lat_id, _, _ = sparse._select(cs, pool.o,
-                                             safe_inv_dir(pool.d), pool.tmin,
-                                             tmax, K)
+    lat_valid, lat_id, _ = sparse._select(cs, pool.o,
+                                          safe_inv_dir(pool.d), pool.tmin,
+                                          tmax, K)
     cap = min(max(SP, -(-opts.pair_budget * N // SP) * SP),
               -(-K * N // SP) * SP)
     cl, ray, rank, _ = sparse._lattice_pairs(lat_valid, lat_id, cap)

@@ -18,7 +18,9 @@ from rayaccel_tpu_torch.render.whitted import shadow_rays
 from rayaccel_tpu_torch.render.shading import surface_from_attrs
 from rayaccel_tpu_torch.scene.clusters import (cluster_scene_from_numpy,
                                                compile_clusters_np,
-                                               mma_fragments)
+                                               mma_fragments,
+                                               select_chunk_boxes)
+from rayaccel_tpu_torch.scene.data import SceneData
 from rayaccel_tpu_torch.scene.loader import make_battlefield_like
 from rayaccel_tpu_torch.tools.oracle_lib import two_class_gate
 from rayaccel_tpu_torch.types import make_rays
@@ -290,12 +292,24 @@ def test_launch_validates_arguments(cuda, scenes):
         sparse.pair_hit(Fp, gpu_cs.G3[:, :, :10].contiguous(),
                         torch.zeros((1, 3), dtype=torch.int32, device=cuda),
                         7, False)
+    lanes = (torch.zeros((8, 8), device=cuda),
+             torch.zeros(8, dtype=torch.int32, device=cuda),
+             torch.ones(8, dtype=torch.uint8, device=cuda))
     with pytest.raises(ValueError, match="takes 1 to"):
-        sparse.select_nearest(
-            torch.zeros((8, 8), device=cuda),
-            torch.zeros(8, dtype=torch.int32, device=cuda),
-            torch.ones(8, dtype=torch.uint8, device=cuda),
-            torch.zeros((1 << 14, 6), device=cuda), 4, 14)
+        sparse.select_nearest(*lanes, torch.zeros(((1 << 20) + 1, 6),
+                                                  device=cuda), 4, 21)
+    with pytest.raises(ValueError, match="id_bits"):
+        sparse.select_nearest(*lanes, torch.zeros((1 << 14, 6), device=cuda),
+                              4, 13)
+    many = torch.zeros((1 << 14, 6), device=cuda)
+    with pytest.raises(ValueError, match="union box"):
+        sparse.select_nearest(*lanes, many, 4, 14)
+    with pytest.raises(ValueError, match="chunk_boxes"):
+        sparse.select_nearest(*lanes, many, 4, 14,
+                              chunk_boxes=torch.zeros((4, 6), device=cuda))
+    assert sparse.select_nearest(
+        *lanes, many, 4, 14,
+        chunk_boxes=select_chunk_boxes(many)).shape == (6, 8)
 
 
 def _restart_select_inputs(cs, R, seed):
@@ -362,12 +376,121 @@ def test_select_kernel_bitwise_at_every_split(cuda, scenes, split):
             assert torch.equal(got.cpu(), want)
 
 
+@pytest.fixture(scope="module")
+def tetra_boxes(cuda):
+    """SPD tetra at size factor 8 (262,144 triangles) in clusters of 8: its
+    first 32,768 boxes, in the BVH cut's order, on the CPU."""
+    from rtbench.scenes import spd_tetra
+    sd = SceneData(**spd_tetra.generate(0, max_depth=2, size_factor=8,
+                                        viewport=(64, 32)))
+    bb = cluster_scene_from_numpy(**compile_clusters_np(sd, cluster_size=8),
+                                  device="cpu").bb
+    assert bb.shape[0] >= 32768
+    return sd, bb[:32768].contiguous()
+
+
+def _select_case(sd, kind, R=2048):
+    """(F8, live) of R lanes in select tiles of 256: ``camera``, the
+    scene camera's rays through a 64 x 32 grid of the view (coherent), or
+    ``random``, origins inside the pyramid's cube in every direction; a
+    dead select tile, scattered dead lanes and empty windows in both."""
+    rs = np.random.default_rng(7)
+    if kind == "camera":
+        cam = Camera.look_at(sd.cam_origin, sd.cam_dir, sd.cam_up,
+                             sd.cam_fov, 64, 32)
+        y, x = np.divmod(np.arange(R), 64)
+        d = (cam.view[None] + (x[:, None] + 0.5) * cam.right[None]
+             + (y[:, None] + 0.5) * cam.up[None])
+        o = np.broadcast_to(cam.origin, (R, 3))
+    else:
+        o = rs.uniform(-1, 1, (R, 3))
+        d = rs.normal(size=(R, 3))
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    tmin = torch.zeros(R)
+    tmax = torch.full((R,), 1e6)
+    tmax[256:512] = -1.0
+    tmax[torch.tensor(rs.random(R) < 0.2)] = -1.0
+    tmin[100:110], tmax[100:110] = 5.0, 2.0
+    live = ((tmax > 0).reshape(-1, 256).any(dim=1).repeat_interleave(256)
+            .to(torch.uint8))
+    F8 = torch.cat([torch.tensor(o, dtype=torch.float32),
+                    dense.safe_inv_dir(torch.tensor(d, dtype=torch.float32)),
+                    tmin[:, None], tmax[:, None]], dim=1)
+    return F8, live
+
+
+@pytest.mark.parametrize("n_cp", [128, 9216, 9344, 32768])
+@pytest.mark.parametrize("kind", ["camera", "random"])
+def test_select_kernel_bitwise_past_one_cta(cuda, tetra_boxes, kind, n_cp):
+    """K2 against its plain version, bit for bit, on n_cp boxes at k 1, 4
+    and 8, every split, with and without the count, on a first pass and on
+    a restart pass. With 9,216 boxes or fewer it takes the single-chunk
+    path: ``tested`` counts each lane that ran the box loop once, where
+    chunks of 2,048 would count another number. Past them it streams the boxes in
+    chunks: ``tested`` counts the (lane, chunk) pairs that
+    ``select_chunks_needed`` counts with the count, and no more without
+    it."""
+    sd, boxes = tetra_boxes
+    bb = boxes[:n_cp].contiguous()
+    id_bits = max((n_cp - 1).bit_length(), 1)
+    F8, live = _select_case(sd, kind)
+    need = int(((live == 1) & ~(F8[:, 7] < F8[:, 6])).sum())
+    ub = select_chunk_boxes(bb)
+    first = torch.full((F8.shape[0],), -0x80000000, dtype=torch.int32)
+    spill = sparse.select_nearest_plain(F8, first, live, bb, 4, id_bits)[4]
+    if n_cp == 9216:
+        assert sparse.select_chunks_needed(F8, first, live, ub,
+                                           id_bits) != need
+    for prev in (first, spill.contiguous()):
+        pairs = sparse.select_chunks_needed(F8, prev, live, ub, id_bits)
+        for k in (1, 4, 8):
+            want = sparse.select_nearest_plain(F8, prev, live, bb, k, id_bits)
+            for split in (1, 2, 4, 8, 16, 32):
+                for count in (True, False):
+                    tested = torch.zeros(1, dtype=torch.int64, device=cuda)
+                    got = sparse._launch_select(
+                        *_on(cuda, F8, prev, live, bb), k, id_bits, split,
+                        tested, ub.to(cuda), count)
+                    assert torch.equal(got.cpu(),
+                                       want if count else want[:k + 1])
+                    if n_cp <= 9216:
+                        assert int(tested) == need
+                    else:
+                        assert (int(tested) == pairs if count
+                                else int(tested) <= pairs)
+
+
+def test_select_kernel_skips_chunks_on_coherent_rays(cuda, tetra_boxes):
+    """On the camera's rays the chunked path skips most (lane, chunk)
+    pairs, and more without the count; on random rays inside the pyramid
+    it skips fewer. Either way the words are the plain version's (the test
+    above), so no chunk was skipped wrongly."""
+    sd, bb = tetra_boxes
+    n_chunks = -(-bb.shape[0] // 2048)
+    share = {}
+    for kind in ("camera", "random"):
+        F8, live = _select_case(sd, kind)
+        need = int(((live == 1) & ~(F8[:, 7] < F8[:, 6])).sum())
+        args = (*_on(cuda, F8, torch.full((F8.shape[0],), -0x80000000,
+                                          dtype=torch.int32), live, bb),)
+        ub = select_chunk_boxes(bb).to(cuda)
+        got = []
+        for count in (True, False):
+            tested = torch.zeros(1, dtype=torch.int64, device=cuda)
+            sparse.select_nearest(*args, 4, 15, tested=tested, chunk_boxes=ub,
+                                  count=count)
+            got.append(int(tested))
+        assert 0 < got[1] <= got[0] <= need * n_chunks
+        share[kind] = got[0] / (need * n_chunks)
+    assert share["camera"] < 0.5 and share["camera"] < share["random"]
+
+
 def _pair_case(cs, R, seed, device):
     """Pairs of a k = 8 pass over R scattered rays, as _sparse_pass builds
     them at SP = 512, and the same runs cut into items of 1-5 pairs."""
     r = _rays(cs, R, seed, device)
     tmax = torch.full_like(r.tmax, 9.0)
-    lat_valid, lat_id, _, _ = sparse._select(cs, r.o, 1 / r.d, r.tmin, tmax, 8)
+    lat_valid, lat_id, _ = sparse._select(cs, r.o, 1 / r.d, r.tmin, tmax, 8)
     cl, ray, rank, _ = sparse._lattice_pairs(lat_valid, lat_id, 8 * R)
     Fp, items = sparse._pair_inputs(r.o, r.d, r.tmin, tmax, cl, ray, rank,
                                     512)

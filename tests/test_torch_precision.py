@@ -155,8 +155,8 @@ def _pairs(cs, rays, tmax):
     pair rays, pair ray index)."""
     r = port_rays(rays)
     tmax = torch.full_like(r.tmax, tmax)
-    lat_valid, lat_id, _, _ = sparse._select(cs, r.o, safe_inv_dir(r.d),
-                                             r.tmin, tmax, 4)
+    lat_valid, lat_id, _ = sparse._select(cs, r.o, safe_inv_dir(r.d),
+                                          r.tmin, tmax, 4)
     cl, ray, rank, _ = sparse._lattice_pairs(lat_valid, lat_id,
                                              4 * r.o.shape[0])
     Fp, items = sparse._pair_inputs(r.o, r.d, r.tmin, tmax, cl, ray, rank,

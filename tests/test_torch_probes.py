@@ -202,8 +202,8 @@ def _scattered_pairs(cs, n, seed, sp):
                      dtype=torch.float32)
     tmin = torch.zeros(n)
     tmax = torch.full((n,), 9.0)
-    lat_valid, lat_id, _, _ = sparse._select(cs, o, safe_inv_dir(d), tmin,
-                                             tmax, 4)
+    lat_valid, lat_id, _ = sparse._select(cs, o, safe_inv_dir(d), tmin,
+                                          tmax, 4)
     cl, ray, rank, _ = sparse._lattice_pairs(lat_valid, lat_id, 4 * n)
     Fp, items = sparse._pair_inputs(o, d, tmin, tmax, cl, ray, rank, sp)
     cuts = []
@@ -272,8 +272,8 @@ def test_pair_hit_mb_plain_agrees_with_pallas(scenes, ray_set, guard):
     rays = camera_rays(sd) if ray_set == "camera" else random_rays(1234)
     r = port_rays(rays)
     tmax = torch.full_like(r.tmax, 9.0)
-    lat_valid, lat_id, _, _ = sparse._select(cs, r.o, safe_inv_dir(r.d),
-                                             r.tmin, tmax, 4)
+    lat_valid, lat_id, _ = sparse._select(cs, r.o, safe_inv_dir(r.d),
+                                          r.tmin, tmax, 4)
     cl, ray, rank, _ = sparse._lattice_pairs(lat_valid, lat_id,
                                              4 * r.o.shape[0])
     Fp, items = sparse._pair_inputs(r.o, r.d, r.tmin, tmax, cl, ray, rank,

@@ -122,8 +122,8 @@ def test_pair_column_split_keeps_the_answer(scene, rays, col_split,
     words, bitwise, on the pairs of a first pass (items cut at SP = 512)."""
     o, d, tmin, tmax = rays
     k = 4
-    lat_valid, lat_id, _, _ = sparse._select(scene, o, safe_inv_dir(d), tmin,
-                                             tmax, k)
+    lat_valid, lat_id, _ = sparse._select(scene, o, safe_inv_dir(d), tmin,
+                                          tmax, k)
     cl, ray, rank, total = sparse._lattice_pairs(lat_valid, lat_id, k * N)
     assert total == cl.numel() > 512           # more than one SP block
     tmax_p = torch.where(tmax > 0, torch.full_like(tmax, 3.0), tmax)
