@@ -37,10 +37,14 @@ the package is missing. Phases, one JSON line each:
    ``bound_ms`` (the larger of the two over the H100's published peaks),
    ``bound_by``, ``share_of_bound`` (bound_ms / ms) and ``library_ms``
    (null: no single PyTorch call computes any of the four). K1 and K4 add
-   ``ctas``, ``pairs_needed`` (the least (ray, cluster) pairs any walk of
-   these inputs tests) and ``pairs_walked`` (what the kernel's warps
-   tested, from its counter), and K1 ``words_differing`` from its plain
-   version. Then the bf16 tensor-core variants of K1, K3 and K4
+   ``ctas``, ``pairs_needed`` (the (ray, cluster) pairs whose tile entry
+   is within the ray's answer), ``pairs_walked`` and ``clusters_staged``
+   (what the kernel's warps tested and its CTAs staged, from its
+   ``walked`` counter) beside ``pairs_tile_walk`` and
+   ``clusters_tile_walk`` (rays and CTAs x queue length), and K1
+   ``pairs_entered`` (the pairs whose box the ray itself enters within its
+   answer) and ``words_differing`` from its plain version. Then the bf16
+   tensor-core variants of K1, K3 and K4
    (``precision="default"``) on the same inputs, each against its plain
    version at "default" (K1 and K3 at the oracle bar, K4's flags on >=
    99.95% of rays; K1's and K4's plain versions walk in the variants'
@@ -76,7 +80,11 @@ the package is missing. Phases, one JSON line each:
    plain version's, its chunks tested (with the count) those
    ``select_chunks_needed`` counts, its ms beside a bound over the chunks
    it tested and beside the bound over every box, and its profiler name
-   matched by ``KERNEL_SYMBOLS``;
+   matched by ``KERNEL_SYMBOLS``; then K1 on the middle 65,536-ray primary
+   wave of that frame (most rays through the pyramid's holes): its walk
+   counts beside the tile walk's, its ms, its bound over
+   ``pairs_entered``, and its words against the plain version at the
+   oracle bar;
 4. slice: ``PathTracingRenderer`` at 1280x720, depth 2, the default
    configuration: one warm-up frame and three timed frames, with every
    kernel's launch count over the timed frames (each must be > 0),
@@ -333,6 +341,42 @@ def k4_pairs_needed(dense, F, G3, q_cluster, q_entry, q_count, tile,
     return needed
 
 
+def k1_pairs_entered(dense, F, G3, q_cluster, q_entry, q_count, best, tile,
+                     boxes):
+    """(active ray, queued cluster) pairs whose box the ray itself enters
+    no later than its final packed best: the least a walk that takes a
+    ray's candidates only from the boxes it enters tests."""
+    import torch
+    T = q_cluster.shape[0]
+    Fm = F.view(T, tile, 16)
+    inv = dense.safe_inv_dir(Fm[:, :, 0:3])
+    valid = queued(q_cluster, q_count)
+    best = best.view(T, tile)
+    active = Fm[:, :, 11] >= 0
+    pairs = 0
+    for j in range(int(q_count.max())):
+        cl = q_cluster[:, j].long()
+        t0, t1 = dense._slab(Fm[:, :, 3:6], inv, Fm[:, :, 10], Fm[:, :, 11],
+                             boxes[0][cl][:, None], boxes[1][cl][:, None])
+        entry = (torch.clamp_min(t0, 0.0) + 0.0).view(torch.int32)
+        pairs += int((valid[:, j:j + 1] & active & (t0 <= t1)
+                      & (entry <= best)).sum())
+    return pairs
+
+
+def walk_counts(fn, args, q_count, tile, **kw):
+    """What the gate of a dense kernel's walk saves on ``args``: the pairs
+    its warps walked and the clusters its CTAs staged (its ``walked=``
+    counter), beside the tile walk's rays x queue length and CTAs x queue
+    length."""
+    from rayaccel_tpu_torch.ops.trace_dense import CTA_RAYS
+    rows = int(q_count.sum())
+    walked, staged = counted(fn, args, "walked", 2, **kw)
+    return dict(pairs_walked=walked, pairs_tile_walk=tile * rows,
+                clusters_staged=staged,
+                clusters_tile_walk=tile // CTA_RAYS * rows)
+
+
 def counted(fn, args, name, n, **kw):
     """The ``n`` counters a kernel adds to its ``name=`` tensor in one
     launch on ``args`` (and ``kw``): the pairs a dense kernel's warps
@@ -568,13 +612,15 @@ def main() -> int:
     F, *q = dense._dense_inputs(cs, rays, active, tile, opts.k_step,
                                 opts.tile_cap)
     args = (F, cs.G3, q[0], q[1], q[2], tile, opts.k_step)
-    out_k = dense.dense_closest_hit(*args)
-    out_p = dense.dense_closest_hit_plain(*args)
+    kb = dict(boxes=dense.cluster_boxes(cs))
+    out_k = dense.dense_closest_hit(*args, **kb)
+    out_p = dense.dense_closest_hit_plain(*args, **kb)
     torch.cuda.synchronize()
 
-    def winner_t(slot):
+    def winner_t(slot, scene=cs, on=rays):
         hit = slot >= 0
-        _, _, t, _, _ = dense.reconstruct(cs, rays, torch.where(hit, slot, 0))
+        _, _, t, _, _ = dense.reconstruct(scene, on,
+                                          torch.where(hit, slot, 0))
         return hit, t
 
     hk, tk = winner_t(out_k[1])
@@ -587,11 +633,12 @@ def main() -> int:
               words_differing=int((out_k != out_p).sum()),
               ctas=R // dense.CTA_RAYS,
               pairs_needed=flop // (cs.cluster_size * FLOP_PER_TRIANGLE),
-              pairs_walked=counted(dense.dense_closest_hit, args, "walked",
-                                   1)[0],
-              ms=cuda_ms(lambda: dense.dense_closest_hit(*args), 20),
-              plain_ms=cuda_ms(lambda: dense.dense_closest_hit_plain(*args),
-                               3))
+              pairs_entered=k1_pairs_entered(dense, *args[:5], out_p[0],
+                                             tile, **kb),
+              **walk_counts(dense.dense_closest_hit, args, q[2], tile, **kb),
+              ms=cuda_ms(lambda: dense.dense_closest_hit(*args, **kb), 20),
+              plain_ms=cuda_ms(
+                  lambda: dense.dense_closest_hit_plain(*args, **kb), 3))
     s1.update(roofline(flop, moved, s1["ms"]))
     emit(dict(phase="kernel", name="K1 dense_closest_hit", rays=R,
               tiles=T, **s1))
@@ -608,8 +655,9 @@ def main() -> int:
     bf16_rows = []
     default = dict(precision="default")
     kernel_default = dict(default, G3b=cs.G3b)
-    plain_default = dict(default, group=dense.BF16_WARP_RAYS)
-    out_b = dense.dense_closest_hit(*args, **kernel_default)
+    dense_default = dict(kernel_default, **kb)
+    plain_default = dict(default, group=dense.BF16_WARP_RAYS, **kb)
+    out_b = dense.dense_closest_hit(*args, **dense_default)
     out_bp = dense.dense_closest_hit_plain(*args, **plain_default)
     torch.cuda.synchronize()
     hb, tb = winner_t(out_b[1])
@@ -622,12 +670,12 @@ def main() -> int:
                ctas=R // dense.CTA_RAYS,
                staged_bytes=cluster_bytes(cs.G3b, q[0][queued(q[0], q[2])]),
                pairs_needed=flop // (cs.cluster_size * FLOP_PER_TRIANGLE),
-               pairs_walked=counted(dense.dense_closest_hit, args, "walked",
-                                    1, **kernel_default)[0],
+               **walk_counts(dense.dense_closest_hit, args, q[2], tile,
+                             **dense_default),
                vs_fp32={k: vs[k] for k in ("hit_agree", "winner_agree",
                                            "t_within_1e3")},
                ms=cuda_ms(lambda: dense.dense_closest_hit(
-                   *args, **kernel_default), 20),
+                   *args, **dense_default), 20),
                plain_ms=cuda_ms(lambda: dense.dense_closest_hit_plain(
                    *args, **plain_default), 3))
     s1b.update(roofline(flop, moved, s1b["ms"], PEAK_BF16_TENSOR_FLOPS))
@@ -988,8 +1036,8 @@ def main() -> int:
         cs, whitted.shadow_rays(surf), s_active, tile, opts.k_step,
         opts.tile_cap)
     a4 = (F4, cs.G3, q4c, q4e, q4n, tile, opts.k_step)
-    occ_k = dense.dense_occluded(*a4)
-    occ_p = dense.dense_occluded_plain(*a4)
+    occ_k = dense.dense_occluded(*a4, **kb)
+    occ_p = dense.dense_occluded_plain(*a4, **kb)
     torch.cuda.synchronize()
     flop, moved = kernel_work(dense, "dense_occluded", a4, occ_k,
                               cs.n_clusters)
@@ -1001,9 +1049,10 @@ def main() -> int:
               queue_overflow=int(ov4),
               ctas=R // dense.CTA_RAYS,
               pairs_needed=flop // (cs.cluster_size * FLOP_PER_TRIANGLE),
-              pairs_walked=counted(dense.dense_occluded, a4, "walked", 1)[0],
-              ms=cuda_ms(lambda: dense.dense_occluded(*a4), 20),
-              plain_ms=cuda_ms(lambda: dense.dense_occluded_plain(*a4), 3))
+              **walk_counts(dense.dense_occluded, a4, q4n, tile, **kb),
+              ms=cuda_ms(lambda: dense.dense_occluded(*a4, **kb), 20),
+              plain_ms=cuda_ms(lambda: dense.dense_occluded_plain(*a4, **kb),
+                               3))
     s4.update(roofline(flop, moved, s4["ms"]))
     emit(dict(phase="kernel", name="K4 dense_occluded", rays=R, tiles=T,
               **s4))
@@ -1015,7 +1064,7 @@ def main() -> int:
                         max_abs_err=float(s4["flags_differing"] > 0),
                         **kernel_row(s4)))
 
-    occ_b = dense.dense_occluded(*a4, **kernel_default)
+    occ_b = dense.dense_occluded(*a4, **dense_default)
     occ_bp = dense.dense_occluded_plain(*a4, **plain_default)
     torch.cuda.synchronize()
     flop, moved = kernel_work(dense, "dense_occluded", a4, occ_b,
@@ -1027,11 +1076,11 @@ def main() -> int:
                ctas=R // dense.CTA_RAYS,
                staged_bytes=cluster_bytes(cs.G3b, q4c[queued(q4c, q4n)]),
                pairs_needed=flop // (cs.cluster_size * FLOP_PER_TRIANGLE),
-               pairs_walked=counted(dense.dense_occluded, a4, "walked", 1,
-                                    **kernel_default)[0],
+               **walk_counts(dense.dense_occluded, a4, q4n, tile,
+                             **dense_default),
                vs_fp32=dict(flag_agree=float((occ_b == occ_k).float()
                                              .mean())),
-               ms=cuda_ms(lambda: dense.dense_occluded(*a4, **kernel_default),
+               ms=cuda_ms(lambda: dense.dense_occluded(*a4, **dense_default),
                           20),
                plain_ms=cuda_ms(lambda: dense.dense_occluded_plain(
                    *a4, **plain_default), 3))
@@ -1144,8 +1193,46 @@ def main() -> int:
     if not any("select_chunks_kernel" in key_ for key_ in named):
         raise AssertionError(f"the profile names no select_chunks_kernel "
                              f"launch: {named}")
-    del sd_t, cs_t, r_t, ctx_t, state_t, pool_t, F8, first, live, sel_p, got
-    del k2_args
+    del state_t, pool_t, F8, first, live, sel_p, got, k2_args
+
+    # K1 on tetra's primaries, the middle 65,536-ray wave of the same frame:
+    # most pass through the pyramid's holes, and the gate keeps each CTA to
+    # the queued clusters its own rays enter. Its counts beside the tile
+    # walk's, its ms and its bound over the pairs the rays' own boxes need.
+    wt = r_t.n_waves // 2
+    rays_t = pathtracer._primary_rays(cam_t.as_arrays(dev), r_t._wave_x[wt],
+                                      r_t._wave_y[wt], rng.fold_in(key, wt))
+    Ft, *qt = dense._dense_inputs(cs_t, rays_t, r_t._wave_alive[wt],
+                                  r_t.tile, opts_t.k_step, opts_t.tile_cap)
+    args_t = (Ft, cs_t.G3, qt[0], qt[1], qt[2], r_t.tile, opts_t.k_step)
+    kb_t = dict(boxes=dense.cluster_boxes(cs_t))
+    out_kt = dense.dense_closest_hit(*args_t, **kb_t)
+    out_pt = dense.dense_closest_hit_plain(*args_t, **kb_t)
+    torch.cuda.synchronize()
+    hit_kt, t_kt = winner_t(out_kt[1], cs_t, rays_t)
+    hit_pt, t_pt = winner_t(out_pt[1], cs_t, rays_t)
+    s1t = hit_stats(hit_kt, hit_pt, out_kt[1], out_pt[1], t_kt, t_pt)
+    Rt = Ft.shape[0]
+    pairs_t = k1_pairs_entered(dense, *args_t[:5], out_pt[0], r_t.tile,
+                               **kb_t)
+    s1t.update(rays=Rt, tiles=Rt // r_t.tile, ctas=Rt // dense.CTA_RAYS,
+               active=int(r_t._wave_alive[wt].sum()),
+               queue_max=int(qt[2].max()),
+               queue_mean=float(qt[2].float().mean()),
+               queue_overflow=int(qt[3]),
+               words_differing=int((out_kt != out_pt).sum()),
+               pairs_entered=pairs_t,
+               **walk_counts(dense.dense_closest_hit, args_t, qt[2],
+                             r_t.tile, **kb_t),
+               ms=cuda_ms(lambda: dense.dense_closest_hit(*args_t, **kb_t),
+                          20))
+    qc_t = qt[0][queued(qt[0], qt[2])]
+    s1t.update(roofline(pairs_t * cs_t.cluster_size * FLOP_PER_TRIANGLE,
+                        nbytes(*args_t[:1], *qt[:3], out_kt)
+                        + cluster_bytes(cs_t.G3, qc_t), s1t["ms"]))
+    emit(dict(phase="kernel", name="K1 dense_closest_hit tetra", **s1t))
+    require_oracle_bar("K1 tetra", s1t)
+    del sd_t, cs_t, r_t, ctx_t, rays_t, Ft, qt, args_t, out_kt, out_pt, qc_t
     torch.cuda.empty_cache()
 
     if sys.argv[1:] == ["--kernels"]:

@@ -32,8 +32,9 @@
 //   false: an inactive lane) is left out, since it enters no box. Within an
 //   octant the near and far plane of every axis are known at compile time,
 //   so min(tn, tf) and max(tn, tf) are one product each, picked by address
-//   and not by arithmetic; a warp walks every kCullWarps-th ray of each
-//   octant, all lanes reading the same ray (a broadcast). The minima and
+//   and not by arithmetic (common.cuh:slab, the test K1's and K4's gate
+//   shares); a warp walks every kCullWarps-th ray of each octant, all
+//   lanes reading the same ray (a broadcast). The minima and
 //   maxima propagate NaN, as torch.maximum and torch.minimum do. A lane
 //   keeps the least entry of each of its boxes over its rays in a register;
 //   the warps' minima meet in shared memory, and the CTA writes its boxes'
@@ -65,18 +66,6 @@ constexpr int kMaxCap = 16384;
 
 // 3e38 as float32, the cull's "no overlap" entry (ops/trace_mxu.py: INF).
 __device__ __forceinline__ float no_entry() { return 3e38f; }
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
 
 __device__ __forceinline__ unsigned lanes_below(int lane) {
   return (1u << lane) - 1u;
@@ -128,14 +117,7 @@ __device__ __forceinline__ void walk(const float4* rays, int begin, int end,
 #pragma unroll
     for (int i = 0; i < kLaneBoxes; ++i) {
       float t0 = b.z, t1 = b.w;
-#pragma unroll
-      for (int ax = 0; ax < 3; ++ax) {
-        const bool neg = (O >> ax) & 1;
-        const float near = neg ? hi[i][ax] : lo[i][ax];
-        const float far = neg ? lo[i][ax] : hi[i][ax];
-        t0 = max_nan(t0, __fmul_rn(__fsub_rn(near, o[ax]), inv[ax]));
-        t1 = min_nan(t1, __fmul_rn(__fsub_rn(far, o[ax]), inv[ax]));
-      }
+      slab(o, inv, lo[i], hi[i], O, t0, t1);
       if (t0 <= t1) m[i] = fminf(m[i], t0);
     }
   }

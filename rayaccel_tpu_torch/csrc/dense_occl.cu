@@ -3,13 +3,14 @@
 //
 // Replaces rayaccel_tpu/ops/trace_pallas.py:_occl_kernel (:265-324),
 // launched by _make_occl_call (:327-360) inside trace_occlusion_pallas.
-// Same function: a ray is occluded when some triangle of its tile's queued
-// clusters has sign-consistent u, v and det, |u + v| <= |det|, and its
-// det-signed t numerator inside the window: ts > |det| * tmin and
-// ts <= |det| * tmax (inclusive at tmax, as in the TPU kernel; the pair
-// kernel's guard is strict). There is no reciprocal, so the predicate is
-// exact up to the fp32 dot products. Inactive lanes carry tmax = -1, which
-// no candidate satisfies.
+// Same function, taken per ray over the queued clusters whose box the ray
+// enters (as K1's): a ray is occluded when some triangle of those clusters
+// has sign-consistent u, v and det, |u + v| <= |det|, and its det-signed t
+// numerator inside the window: ts > |det| * tmin and ts <= |det| * tmax
+// (inclusive at tmax, as in the TPU kernel; the pair kernel's guard is
+// strict). There is no reciprocal, so the predicate is exact up to the
+// fp32 dot products. Inactive lanes carry tmax = -1, which no candidate
+// satisfies and no box admits.
 //
 // What bounds it on the H100: fp32 instruction throughput, as in K1 (40
 // FMAs, 80 FLOP, and a few compares per (ray, triangle)), but less of it:
@@ -18,21 +19,23 @@
 // PERF.md has the share this kernel reaches).
 //
 // Design, K1's (csrc/dense_hit.cu, common.cuh:walk_queue): a tile's rays
-// split across CTAs of 64, two rays a thread and 8 threads a pair of
-// rays, clusters staged by cp.async into a two-stage ring. A warp's bound is the largest tmax bits among its
-// unoccluded rays (occluded and inactive rays count as negative), so a
-// warp whose rays are all occluded skips every later cluster and the CTA
-// stops staging once all its warps would skip; the Pallas kernel's bound
-// was tile-wide. Inside a cluster, a thread leaves its column loop once
-// both its rays are occluded, and the threads of a pair of rays merge
-// their flags after it.
+// split across CTAs of 64 (8 x 8 pixel squares), each gated by its own
+// rays' boxes, two rays a thread and 8 threads a pair of rays, clusters
+// staged by cp.async into a two-stage ring. A warp's bound is the largest
+// tmax bits among its unoccluded rays (occluded and inactive rays count as
+// negative), so a warp whose rays are all occluded skips every later
+// cluster and the CTA stages no more for it; the Pallas kernel's bound was
+// tile-wide. Inside a cluster, a thread leaves its column loop once each
+// of its rays is occluded or outside the box, and the threads of a pair
+// of rays merge their flags after it.
 //
 // The bf16 variant (precision "default") is K1's bf16 design
-// (csrc/dense_hit.cu, common.cuh:mma_rays): a warp's 16 rays as the A
-// fragment, the scene's bf16 fragment copy as B, whole pairs a lane; its
-// column loop takes kOcclGroups groups at a time with no branch, and the
-// warp leaves a cluster once a ballot, taken between two such steps, shows
-// each of its rays occluded or inactive.
+// (csrc/dense_hit.cu, common.cuh:mma_rays): the walk's CTA and warp gates
+// without the per-ray one, a warp's 16 rays as the A fragment, the scene's
+// bf16 fragment copy as B, whole pairs a lane; its column loop takes
+// kOcclGroups groups at a time with no branch, and the warp leaves a
+// cluster once a ballot, taken between two such steps, shows each of its
+// rays occluded or inactive.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -47,6 +50,8 @@ constexpr int kOcclGroups = 16;
 
 __global__ void __launch_bounds__(kCtaThreads)
 dense_occl_kernel(const float* __restrict__ F, const float* __restrict__ G3,
+                  const float* __restrict__ bbmin,
+                  const float* __restrict__ bbmax,
                   const int* __restrict__ q_cluster,
                   const int* __restrict__ q_entry,
                   const int* __restrict__ q_count,
@@ -55,7 +60,7 @@ dense_occl_kernel(const float* __restrict__ F, const float* __restrict__ G3,
                   int C) {
   extern __shared__ __align__(128) float4 ring[];
   __shared__ int red[2 * kWarps];
-  const int sub = dense_sub(), r = dense_ray();
+  const int sub = dense_sub(), own = dense_ray(), r = cta_row(tile, own);
   const int tl = blockIdx.x * kCtaRays / tile;
 
   float f[2][10], tmin[2], tmax[2];
@@ -66,7 +71,16 @@ dense_occl_kernel(const float* __restrict__ F, const float* __restrict__ G3,
                         occ[1] ? kSignBit : __float_as_int(tmax[1])));
   };
 
-  auto test = [&](const float4* g, int) {
+  auto test = [&](const float4* g, int, unsigned long long in) {
+    // A ray takes the candidates of a box it enters: one that does not
+    // counts as done for this cluster, and keeps its flag.
+    bool was[2], in2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      was[i] = occ[i];
+      in2[i] = enters(in, own + kWarpPairs * i);
+      occ[i] = occ[i] || !in2[i];
+    }
     for (int c = sub; c < C && !(occ[0] && occ[1]); c += kColSplit) {
       bool inside[2];
       float ad[2], ts[2];
@@ -77,18 +91,20 @@ dense_occl_kernel(const float* __restrict__ F, const float* __restrict__ G3,
                             ts[i] <= ad[i] * tmax[i]);
     }
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 2; ++i) {
 #pragma unroll
       for (int o = 1; o < kColSplit; o <<= 1)
         occ[i] = __shfl_xor_sync(0xffffffffu, occ[i], o) || occ[i];
+      occ[i] = in2[i] ? occ[i] : was[i];
+    }
     return warp_bound();
   };
-  const long long tested = walk_queue(
-      G3, q_cluster + static_cast<size_t>(tl) * cap,
-      q_entry + static_cast<size_t>(tl) * cap, q_count[tl], C, warp_bound(),
-      ring, red, test);
-  if (walked != nullptr && (threadIdx.x & 31) == 0)
-    atomicAdd(walked, static_cast<unsigned long long>(tested));
+  const WalkCount n = walk_queue(
+      F, tile, bbmin, bbmax, G3,
+      q_cluster + static_cast<size_t>(tl) * cap,
+      q_entry + static_cast<size_t>(tl) * cap, q_count[tl], cap, C,
+      warp_bound(), ring, red, test);
+  count_walk(walked, n);
   if (sub == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) out[r + kWarpPairs * i] = occ[i] ? 1 : 0;
@@ -101,6 +117,8 @@ dense_occl_kernel(const float* __restrict__ F, const float* __restrict__ G3,
 __global__ void __launch_bounds__(kFragWarps * 32)
 dense_occl_bf16_kernel(const float* __restrict__ F,
                        const float4* __restrict__ G3b,
+                       const float* __restrict__ bbmin,
+                       const float* __restrict__ bbmax,
                        const int* __restrict__ q_cluster,
                        const int* __restrict__ q_entry,
                        const int* __restrict__ q_count,
@@ -110,17 +128,19 @@ dense_occl_bf16_kernel(const float* __restrict__ F,
   extern __shared__ __align__(128) float4 ring[];
   __shared__ int red[2 * kFragWarps];
   const int lane = threadIdx.x & 31, t = lane & 3;
-  const int base = blockIdx.x * kCtaRays + (threadIdx.x >> 5) * kFragRays;
+  const int base = (threadIdx.x >> 5) * kFragRays;  // the warp's first ray
   const int tl = blockIdx.x * kCtaRays / tile;
 
   unsigned a[kFrags][4];
 #pragma unroll
-  for (int f = 0; f < kFrags; ++f) ray_rows_fragment(F, base + 16 * f, a[f]);
+  for (int f = 0; f < kFrags; ++f)
+    ray_rows_fragment(F, cta_row(tile, frag_ray(base, 2 * f)),
+                      cta_row(tile, frag_ray(base, 2 * f + 1)), a[f]);
   float tmin[kLaneRays], tmax[kLaneRays];
   bool idle[kLaneRays], occ[kLaneRays];
 #pragma unroll
   for (int i = 0; i < kLaneRays; ++i) {
-    const size_t r = frag_ray(base, i);
+    const size_t r = cta_row(tile, frag_ray(base, i));
     tmin[i] = F[r * kFeat + 10];
     tmax[i] = F[r * kFeat + 11];
     // Inactive rays (tmax_eff -1) are never occluded and need no test.
@@ -146,7 +166,7 @@ dense_occl_bf16_kernel(const float* __restrict__ F,
     }
     return (v & 0x11111111u) == 0x11111111u;
   };
-  auto test = [&](const float4* stage, int) {
+  auto test = [&](const float4* stage, int, unsigned long long) {
     const uint4* g = reinterpret_cast<const uint4*>(stage);
     const int groups = (C + 3) / 4;
     // kOcclGroups groups at a time, the last one repeated past the
@@ -177,15 +197,16 @@ dense_occl_bf16_kernel(const float* __restrict__ F,
     }
     return warp_bound();
   };
-  const long long tested = walk_frags(
-      G3b, q_cluster + static_cast<size_t>(tl) * cap,
-      q_entry + static_cast<size_t>(tl) * cap, q_count[tl], C, warp_bound(),
-      ring, red, test);
-  if (walked != nullptr && lane == 0)
-    atomicAdd(walked, static_cast<unsigned long long>(tested));
+  const WalkCount n = walk_frags(
+      F, tile, bbmin, bbmax, G3b,
+      q_cluster + static_cast<size_t>(tl) * cap,
+      q_entry + static_cast<size_t>(tl) * cap, q_count[tl], cap, C,
+      warp_bound(), ring, red, test);
+  count_walk(walked, n);
   if (t == 0) {
 #pragma unroll
-    for (int i = 0; i < kLaneRays; ++i) out[frag_ray(base, i)] = occ[i] ? 1 : 0;
+    for (int i = 0; i < kLaneRays; ++i)
+      out[cta_row(tile, frag_ray(base, i))] = occ[i] ? 1 : 0;
   }
 }
 
@@ -193,39 +214,42 @@ dense_occl_bf16_kernel(const float* __restrict__ F,
 }  // namespace racc
 
 // F (T*tile, 16) rows [d, o, d x o, 1, tmin, tmax_eff, 0...]; G3 (n_c, 4C,
-// 16); G3b (nullable) G3's bf16 fragment copy; q_cluster / q_entry (T,
-// cap) int32; q_count (T,) int32; out (R,) one byte per ray, 1 =
-// occluded; walked (nullable) gains the (ray, cluster) pairs tested. The
-// tile is a multiple of kCtaRays. With G3b the bf16 tensor-core variant
-// runs on it.
+// 16); G3b (nullable) G3's bf16 fragment copy; bbmin, bbmax (n_c, 3) the
+// clusters' boxes; q_cluster / q_entry (T, cap) int32; q_count (T,) int32;
+// out (R,) one byte per ray, 1 = occluded; walked (nullable, 2 int64)
+// gains the (ray, cluster) pairs tested and the clusters the CTAs staged.
+// The tile is a multiple of kCtaRays. With G3b the bf16 tensor-core
+// variant runs on it.
 extern "C" int racc_dense_occluded(const float* F, const float* G3,
-                                   const void* G3b, const int* q_cluster,
+                                   const void* G3b, const float* bbmin,
+                                   const float* bbmax, const int* q_cluster,
                                    const int* q_entry, const int* q_count,
                                    unsigned char* out,
                                    unsigned long long* walked, int T,
                                    int tile, int cap, int C, void* stream) {
   using namespace racc;
-  if (!dense_launch_ok(T, tile, C))
+  if (!dense_launch_ok(T, tile, cap, C))
     return static_cast<int>(cudaErrorInvalidValue);
   if (T == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = T * (tile / kCtaRays);
   if (G3b != nullptr) {
-    const int smem = frag_ring_bytes(C);
+    const int smem = walk_bytes(frag_chunks(C), cap);
     cudaError_t e = cudaFuncSetAttribute(
         dense_occl_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     dense_occl_bf16_kernel<<<blocks, kFragWarps * 32, smem, s>>>(
-        F, static_cast<const float4*>(G3b), q_cluster, q_entry, q_count, out,
-        walked, tile, cap, C);
+        F, static_cast<const float4*>(G3b), bbmin, bbmax, q_cluster, q_entry,
+        q_count, out, walked, tile, cap, C);
     return static_cast<int>(cudaGetLastError());
   }
-  const int smem = ring_bytes(C);
+  const int smem = walk_bytes(4 * C * kRowF4, cap);
   cudaError_t e = cudaFuncSetAttribute(
       dense_occl_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dense_occl_kernel<<<blocks, kCtaThreads, smem, s>>>(
-      F, G3, q_cluster, q_entry, q_count, out, walked, tile, cap, C);
+      F, G3, bbmin, bbmax, q_cluster, q_entry, q_count, out, walked, tile,
+      cap, C);
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,9 +41,10 @@ build_log = ""   # nvcc's output of the build this process ran (ptxas -v)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "racc_dense_hit": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "racc_dense_occluded": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _P],
+    "racc_dense_hit": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _P],
+    "racc_dense_occluded": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _P],
     "racc_select_nearest": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _P],
     "racc_select_split": [_I],

@@ -15,14 +15,21 @@ The Pallas wrapper flattened the queue into one padded item list and
 dispatched over a static ladder of capacity buckets. A CUDA grid is sized
 at launch, so the queue stays as (T, tile_cap) rows with per-tile counts;
 no host sync is needed. Clamping (``tile_cap``), K-step padding and the
-overflow count are the JAX package's. The walk's early-out is finer than
-the Pallas kernel's tile-wide bound: each kernel splits a tile across
-CTAs of ``CTA_RAYS`` rays, and each warp (``WARP_RAYS`` rays) skips a
-queued cluster whose entry distance passes every best hit (K1) or every
-unoccluded tmax (K4) of its rays. A cluster is skipped only where it
-cannot change an answer, so the group size does not change the output
-of the fp32 product; the plain versions take it as ``group`` so that the
-card compares like with like and the tests can show that. One decided
+overflow count are the JAX package's. The walk is gated finer than the
+Pallas kernel's tile: each kernel splits a tile across CTAs of
+``CTA_RAYS`` rays (:func:`cta_order`), and each CTA keeps the queued
+clusters whose box one of its rays enters (the cull's slab test, on the
+scene's boxes: the kernels' ``boxes`` argument). A warp (``WARP_RAYS``
+rays) skips a kept cluster none of its rays enters or whose CTA entry
+passes every best hit (K1) or every unoccluded tmax (K4) of its rays, and
+a ray takes the candidates of the boxes it enters only, so K1's answer
+is the closest hit over the queued clusters the ray enters (the Pallas
+kernel took every queued cluster's: they differ only where a hit lies
+outside every box the ray's slab test enters, a float edge case). A
+cluster is skipped only where it cannot change an answer, so the group
+size does not change the output of the fp32 product; the plain versions
+take it as ``group`` so that the card compares like with like and the
+tests can show that. One decided
 difference: ``trace_occlusion_pallas`` discards the queue's overflow count
 (``:394``), so a shadow ray whose blocker sits in a clamped-away cluster
 is reported lit and nothing counts it; :func:`trace_occlusion_dense`
@@ -37,7 +44,10 @@ decode, and F's tmin and tmax_eff columns, stay fp32 in both. The bf16
 variants' warps hold ``BF16_WARP_RAYS`` rays, and their walk is not
 group-invariant: a bf16 t can fall just below a box entry computed in
 fp32, so the group can change a winner, and the plain versions walk in
-the kernel's group at each precision.
+the kernel's group at each precision. For the same reason they keep the
+CTA and warp gates but not the per-ray one: a bf16 hit can lie just
+outside the box the ray's fp32 slab test enters, and Precision.DEFAULT
+keeps it.
 """
 
 from __future__ import annotations
@@ -65,8 +75,8 @@ _INT_MIN = -0x80000000
 # one for K1 and K4, chosen on the card: a CTA takes 64 rays of one tile, so
 # a tile must be a multiple of 64, and each warp bounds 8 of them (two rays
 # a thread, 8 threads on each pair). The plain versions' default early-out
-# group is the kernel's warp, the finest bound it keeps; the CTA bound only
-# decides when the CTA stops staging clusters.
+# group is the kernel's warp, the finest bound it keeps; the CTA's rays
+# gate which clusters it stages and its warps test.
 CTA_RAYS = 64
 WARP_RAYS = 8
 # The bf16 variants' warp (common.cuh: kFragRays), chosen on the card: 16
@@ -75,6 +85,14 @@ BF16_WARP_RAYS = 16
 # The queue kernel's largest tile_cap (csrc/dense_cull.cu: kMaxCap): a
 # row's kept keys, 8 bytes each, sit in one CTA's shared memory.
 QUEUE_MAX_CAP = 16384
+# The queue entries a CTA of K1 or K4 gates at a time (csrc/common.cuh:
+# kGateRows); the staging starts anew at each such window.
+GATE_ROWS = 256
+# The lanes of one of the renderer's blocks of 32 x 16 pixels
+# (render/tiled.py:block_swizzle, 32 lanes a pixel row): on a tile of whole
+# blocks each CTA of K1 and K4 takes a square of 8 x 8 pixels
+# (csrc/common.cuh:cta_row, chosen on the card).
+BLOCK_LANES = 512
 
 
 def use_bf16(precision: str) -> bool:
@@ -108,26 +126,26 @@ def walk_group(tile: int, precision: str = "highest") -> int:
                     else WARP_RAYS)
 
 
-def _walk_groups(q_cluster, q_entry, q_count, tile: int, group: int):
-    """The groups of the plain walks: each tile's rays cut into groups of
-    ``group``, and each group's tile, queue entries and count."""
-    if tile % group:
-        raise ValueError(f"group {group} does not divide tile {tile}")
-    gtile = torch.arange(q_cluster.shape[0] * (tile // group),
-                         device=q_cluster.device) // (tile // group)
-    return gtile, q_entry[gtile], q_count[gtile]
+def _slab(o, inv_d, tmin, tmax, bbmin, bbmax):
+    """The slab test of rays (o, inv_d (..., 3), window [tmin, tmax] (...))
+    against boxes (bbmin, bbmax (..., 3)), broadcast: (t0, t1), the window
+    inside the box, which the ray enters where ``t0 <= t1`` (a NaN fails).
+    The cull's and the walk's gate's test (``csrc/common.cuh:slab``), bit
+    for bit."""
+    t0, t1 = tmin, tmax
+    for a in range(3):
+        tn = (bbmin[..., a] - o[..., a]) * inv_d[..., a]
+        tf = (bbmax[..., a] - o[..., a]) * inv_d[..., a]
+        t0 = torch.maximum(t0, torch.minimum(tn, tf))
+        t1 = torch.minimum(t1, torch.maximum(tn, tf))
+    return t0, t1
 
 
 def _slab_entries(o, inv_d, tmin, tmax, bbmin, bbmax):
     """(R, n) entry distance of every ray into every box over [tmin, tmax]
     (``INF`` where the slab test misses)."""
-    t0 = tmin[:, None].expand(-1, bbmin.shape[0])
-    t1 = tmax[:, None].expand(-1, bbmin.shape[0])
-    for a in range(3):
-        tn = (bbmin[None, :, a] - o[:, a, None]) * inv_d[:, a, None]
-        tf = (bbmax[None, :, a] - o[:, a, None]) * inv_d[:, a, None]
-        t0 = torch.maximum(t0, torch.minimum(tn, tf))
-        t1 = torch.minimum(t1, torch.maximum(tn, tf))
+    t0, t1 = _slab(o[:, None], inv_d[:, None], tmin[:, None], tmax[:, None],
+                   bbmin[None], bbmax[None])
     return torch.where(t0 <= t1, torch.clamp_min(t0, 0.0),
                        torch.full_like(t0, INF))
 
@@ -239,6 +257,12 @@ def _candidates(Ft, G3, cluster, precision: str = "highest"):
     return sign_ok & (torch.abs(u + v) <= ad), ad, ts
 
 
+def cluster_boxes(cs: ClusterScene):
+    """The clusters' boxes (cl_bbmin, cl_bbmax) that K1's and K4's walk
+    gates by: the ``boxes`` argument of the dense kernels."""
+    return cs.cl_bbmin, cs.cl_bbmax
+
+
 def fragment_copy(G3b, n_c: int, C: int, precision: str):
     """The bf16 fragment copy a launch at ``precision`` reads: at
     "default" ``G3b`` (the scene's ``ClusterScene.G3b``, required there),
@@ -252,50 +276,195 @@ def fragment_copy(G3b, n_c: int, C: int, precision: str):
     return G3b
 
 
-def _dense_launch(fn, name, out, F, G3, G3b, q_cluster, q_entry, q_count,
-                  tile: int, walked, precision: str):
+def _dense_launch(fn, name, out, F, G3, G3b, boxes, q_cluster, q_entry,
+                  q_count, tile: int, walked, precision: str):
     """Validate the arguments of a dense kernel and launch it: R / CTA_RAYS
     CTAs, at ``precision="default"`` the bf16 variant on ``G3b``, G3's
-    fragment copy. ``walked`` (optional, a (1,) int64 CUDA tensor) gains
-    the (ray, cluster) pairs the kernel's warps tested."""
+    fragment copy. ``boxes`` is (cl_bbmin, cl_bbmax), the clusters' boxes
+    the walk's gate tests. ``walked`` (optional, a (2,) int64 CUDA tensor)
+    gains the (ray, cluster) pairs the kernel's warps tested and the
+    clusters its CTAs staged: with ``q_count`` the host has the share the
+    gate saves, 1 - walked / (rays x queue length) and 1 - staged / (CTAs
+    x queue length). No frame reads it."""
     T, cap = q_cluster.shape
     R = T * tile
     check_tile(tile)
     _kernels.require(F, "F", torch.float32, (R, 16))
     _kernels.require(G3, "G3", torch.float32)
+    n_c = G3.shape[0]
     C = G3.shape[1] // 4
-    G3b = fragment_copy(G3b, G3.shape[0], C, precision)
+    G3b = fragment_copy(G3b, n_c, C, precision)
+    bbmin, bbmax = boxes
+    _kernels.require(bbmin, "bbmin", torch.float32, (n_c, 3))
+    _kernels.require(bbmax, "bbmax", torch.float32, (n_c, 3))
     _kernels.require(q_cluster, "q_cluster", torch.int32)
     _kernels.require(q_entry, "q_entry", torch.int32, (T, cap))
     _kernels.require(q_count, "q_count", torch.int32, (T,))
     if walked is not None:
-        _kernels.require(walked, "walked", torch.int64, (1,))
+        _kernels.require(walked, "walked", torch.int64, (2,))
     _kernels.check(fn(
         _kernels.ptr(F), _kernels.ptr(G3),
-        None if G3b is None else _kernels.ptr(G3b), _kernels.ptr(q_cluster),
-        _kernels.ptr(q_entry), _kernels.ptr(q_count), _kernels.ptr(out),
+        None if G3b is None else _kernels.ptr(G3b), _kernels.ptr(bbmin),
+        _kernels.ptr(bbmax), _kernels.ptr(q_cluster), _kernels.ptr(q_entry),
+        _kernels.ptr(q_count), _kernels.ptr(out),
         None if walked is None else _kernels.ptr(walked), T, tile, cap, C,
         _kernels.stream()), name)
 
 
+def cta_order(R: int, tile: int, device=None) -> torch.Tensor:
+    """The rows of F in the dense kernels' CTA order (R,): CTA c takes rows
+    ``order[64 c:64 c + 64]``, its warps runs of 8 (fp32) or 16 (bf16) of
+    them. On a tile of whole ``BLOCK_LANES`` blocks, CTA c of a block takes
+    its square of 8 x 8 pixels (c // 4, c % 4); any other tile, runs of
+    64 lanes."""
+    i = torch.arange(R, device=device)
+    if tile % BLOCK_LANES:
+        return i
+    c, k = i % BLOCK_LANES // CTA_RAYS, i % CTA_RAYS
+    return (i - i % BLOCK_LANES + (c // 4 * 8 + k // 8) * 32 + c % 4 * 8
+            + k % 8)
+
+
+def _gated_walk(F, boxes, q_cluster, q_entry, q_count, tile: int,
+                group: int, bound, test, walked=None) -> None:
+    """The plain versions' walk (``csrc/common.cuh:walk_ring``) on F in
+    the kernels' CTA order (:func:`cta_order`): each tile's queue row in
+    order, all groups of ``group`` consecutive rays in lockstep, gated by
+    the rays of their CTA (``CTA_RAYS`` consecutive rays, or the least
+    multiple of ``group`` that holds them; on a tile neither divides, the
+    largest that divides it). At row j a ray enters its tile's j-th
+    cluster where the cull's slab test (on [tmin, tmax_eff], F's d
+    inverted as :func:`safe_inv_dir` does) says so, and a group tests the
+    cluster where one of its rays enters the box and the least entry of
+    its CTA's rays that do is at most the group's ``bound`` (a signed
+    compare). ``test(groups, cluster, enter)`` tests the groups ``groups``
+    against their clusters, ``enter`` (len(groups), group) masking the
+    rays that take a box's candidates, and returns their new bounds.
+    ``walked`` (optional, a (2,) int64 tensor) gains the (ray, cluster)
+    pairs tested and the clusters the kernel's CTAs stage on these
+    inputs (:func:`_staged`; meaningful at the kernel's group)."""
+    if tile % group:
+        raise ValueError(f"group {group} does not divide tile {tile}")
+    bbmin, bbmax = boxes
+    T = q_cluster.shape[0]
+    R = F.shape[0]
+    G = R // group
+    cta = math.gcd(tile, math.lcm(group, CTA_RAYS))
+    dev = F.device
+    gtile = torch.arange(G, device=dev) // (tile // group)
+    gcta = torch.arange(G, device=dev) // (cta // group)
+    entry, count = q_entry[gtile], q_count[gtile]
+    o = F[:, 3:6].reshape(T, tile, 3)
+    inv = safe_inv_dir(F[:, 0:3]).reshape(T, tile, 3)
+    tmin = F[:, 10].reshape(T, tile)
+    tmax = F[:, 11].reshape(T, tile)
+    rows = int(q_count.max()) if T else 0
+    trace = None if walked is None else dict(least=[], any=[], bound=[],
+                                             bound0=bound.clone())
+    tested = 0
+    for j in range(rows):
+        # Entries rise along a row, each CTA's entry is at least its
+        # tile's, and bounds only shrink: once no group is left, none
+        # comes back (only the count needs the rest).
+        alive = (j < count) & (entry[:, j] <= bound)
+        if trace is None and not bool(alive.any()):
+            break
+        cl = q_cluster[:, j].long()
+        t0, t1 = _slab(o, inv, tmin, tmax, bbmin[cl][:, None],
+                       bbmax[cl][:, None])
+        inside = t0 <= t1
+        least = torch.where(inside, torch.clamp_min(t0, 0.0) + 0.0,
+                            torch.full_like(t0, INF))
+        least = least.reshape(-1, cta).amin(dim=1).view(torch.int32)
+        enter = inside.reshape(G, group)
+        some = enter.any(dim=1)
+        groups = (alive & some & (least[gcta] <= bound)).nonzero().squeeze(1)
+        if groups.numel():
+            bound[groups] = test(groups, q_cluster[gtile[groups], j],
+                                 enter[groups])
+            tested += groups.numel() * group
+        if trace is not None:
+            trace["least"].append(least)
+            trace["any"].append(some)
+            trace["bound"].append(bound.clone())
+    if walked is not None:
+        staged = _staged(trace, q_entry, q_count, tile, cta, group)
+        walked += torch.tensor([tested, staged], dtype=walked.dtype,
+                               device=walked.device)
+
+
+def _staged(trace, q_entry, q_count, tile: int, cta: int, group: int) -> int:
+    """The clusters the kernel's CTAs stage on the walk ``trace`` recorded
+    (each row's CTA entries and groups whose rays enter it, the bounds
+    after each row): a CTA gates ``GATE_ROWS`` entries of its row at a
+    time, stops before a window whose first tile entry passes all its
+    bounds, and stages, in row order, each entry some group of it would
+    test at the bounds published after the last but one cluster it
+    staged (the two-stage ring: the first two at the window's start)."""
+    warps = cta // group
+    cap = q_entry.shape[1]
+    window = min(cap, GATE_ROWS)
+    rows = len(trace["least"])
+    if rows == 0:
+        return 0
+    least = torch.stack(trace["least"]).cpu().numpy()           # (n, CTAs)
+    some = torch.stack(trace["any"]).cpu().numpy()              # (n, G)
+    after = torch.stack(trace["bound"]).cpu().numpy()           # (n, G)
+    bound0 = trace["bound0"].cpu().numpy()
+    q_entry = q_entry.cpu().numpy()
+    q_count = q_count.cpu().numpy()
+    staged = 0
+    for c in range(least.shape[1]):
+        t = c * cta // tile
+        w = slice(c * warps, (c + 1) * warps)
+        n = int(q_count[t])
+        for base in range(0, n, window):
+            now = bound0[w] if base == 0 else after[base - 1, w]
+            if q_entry[t, base] > now.max():
+                break
+            kept = [j for j in range(base, min(base + window, n))
+                    if some[j, w].any()]
+            order, nxt = [], 0
+
+            def stage_next(b):
+                nonlocal nxt
+                while nxt < len(kept):
+                    j = kept[nxt]
+                    nxt += 1
+                    if (some[j, w] & (least[j, c] <= b)).any():
+                        order.append(j)
+                        return
+
+            stage_next(now)
+            stage_next(now)
+            s = 0
+            while s < len(order):
+                stage_next(after[order[s], w])
+                s += 1
+            staged += len(order)
+    return staged
+
+
 def dense_closest_hit(F, G3, q_cluster, q_entry, q_count, tile: int,
-                      k_step: int = K_PER_STEP, *, walked=None,
+                      k_step: int = K_PER_STEP, *, boxes, walked=None,
                       precision: str = "highest",
                       G3b=None) -> torch.Tensor:
-    """K1: packed closest hit of each ray over its tile's cluster queue.
+    """K1: packed closest hit of each ray over the clusters of its tile's
+    queue whose box it enters.
 
     F (T*tile, 16) ray rows [d, o, d x o, 1, tmin, tmax_eff, 0...]
-    (tmax_eff = -1 marks an inactive lane); G3 (n_c, 4C, 16); the queue as
-    returned by :func:`cull_and_queue`. ``k_step`` is ignored: it is the
-    queue's padding step, and the walk bounds cluster by cluster.
+    (tmax_eff = -1 marks an inactive lane); G3 (n_c, 4C, 16); ``boxes``
+    the clusters' (cl_bbmin, cl_bbmax); the queue as returned by
+    :func:`cull_and_queue`. ``k_step`` is ignored: it is the queue's
+    padding step, and the walk bounds cluster by cluster.
     Returns (2, R) int32: row 0 the packed best (score bits, low 7 bits =
     column; the tmax_eff bits on a miss), row 1 the slot cluster * C +
     column (-1 on a miss).
 
     On a CUDA tensor this launches ``csrc/dense_hit.cu`` (R / CTA_RAYS
     CTAs, known without a host sync; ``walked`` counts the pairs its warps
-    tested), at ``precision="default"`` its bf16
-    tensor-core variant, which reads ``G3b`` (the scene's
+    tested and the clusters its CTAs staged), at ``precision="default"``
+    its bf16 tensor-core variant, which reads ``G3b`` (the scene's
     ``ClusterScene.G3b``, required there); on a CPU tensor it runs
     :func:`dense_closest_hit_plain`, which needs no ``G3b``.
     ``dense_closest_hit.launches_bf16`` counts the bf16 launches among
@@ -303,11 +472,12 @@ def dense_closest_hit(F, G3, q_cluster, q_entry, q_count, tile: int,
     bf16 = use_bf16(precision)
     if F.device.type == "cpu":
         return dense_closest_hit_plain(F, G3, q_cluster, q_entry, q_count,
-                                       tile, k_step, precision=precision)
+                                       tile, k_step, boxes=boxes,
+                                       walked=walked, precision=precision)
     out = torch.empty((2, F.shape[0]), dtype=torch.int32, device=F.device)
     _dense_launch(_kernels.library().racc_dense_hit, "racc_dense_hit", out,
-                  F, G3, G3b, q_cluster, q_entry, q_count, tile, walked,
-                  precision)
+                  F, G3, G3b, boxes, q_cluster, q_entry, q_count, tile,
+                  walked, precision)
     dense_closest_hit.launches += 1
     dense_closest_hit.launches_bf16 += bf16
     return out
@@ -318,32 +488,28 @@ dense_closest_hit.launches_bf16 = 0
 
 
 def dense_closest_hit_plain(F, G3, q_cluster, q_entry, q_count, tile: int,
-                            k_step: int = K_PER_STEP, *,
-                            group: Optional[int] = None,
+                            k_step: int = K_PER_STEP, *, boxes,
+                            group: Optional[int] = None, walked=None,
                             precision: str = "highest") -> torch.Tensor:
-    """Plain torch version of K1: the same queue walk, cluster by cluster,
-    all groups of ``group`` rays in lockstep (default :func:`walk_group`,
-    the kernel's warp). A group tests a cluster unless its entry passes the
-    largest best hit of the group's rays (a signed compare: an
-    all-inactive group holds negative bits and tests nothing). ``k_step``
-    is ignored."""
+    """Plain torch version of K1: the same gated queue walk
+    (:func:`_gated_walk`), all groups of ``group`` rays in lockstep
+    (default :func:`walk_group`, the kernel's warp). A group's bound is
+    the largest best hit of its rays (an all-inactive group holds negative
+    bits and tests nothing); a ray takes a cluster's candidates only where
+    it enters the box. ``walked`` as the kernel's; ``k_step`` is
+    ignored."""
     group = group or walk_group(tile, precision)
+    bf16 = use_bf16(precision)
     C = G3.shape[1] // 4
+    order = cta_order(F.shape[0], tile, F.device)
+    F = F[order]
     Fm = F.reshape(-1, group, 16)
-    gtile, entry, count = _walk_groups(q_cluster, q_entry, q_count, tile,
-                                       group)
     tmin = Fm[:, :, 10]
     best = Fm[:, :, 11].contiguous().view(torch.int32).clone()
     slot = torch.full_like(best, -1)
-    bound = best.amax(dim=1)
     col = torch.arange(C, dtype=torch.int32, device=F.device)
-    for j in range(int(q_count.max())):
-        # Entries only grow along a row and bounds only shrink, so once no
-        # group is left, none comes back.
-        groups = ((j < count) & (entry[:, j] <= bound)).nonzero().squeeze(1)
-        if groups.numel() == 0:
-            break
-        cluster = q_cluster[gtile[groups], j]
+
+    def test(groups, cluster, enter):
         inside, ad, ts = _candidates(Fm[groups, :, :10], G3, cluster,
                                      precision)
         score_q = ts * torch.reciprocal(ad)
@@ -351,14 +517,19 @@ def dense_closest_hit_plain(F, G3, q_cluster, q_entry, q_count, tile: int,
         score = torch.where(valid, score_q, torch.full_like(score_q, 3e38))
         m = ((score.view(torch.int32) & ~_COL_MASK) | col).amin(dim=2)
         b = best[groups]
-        better = m < b
+        better = (enter | bf16) & (m < b)
         slot[groups] = torch.where(better,
                                    cluster[:, None] * C + (m & _COL_MASK),
                                    slot[groups])
         b = torch.where(better, m, b)
         best[groups] = b
-        bound[groups] = b.amax(dim=1)
-    return torch.stack([best.reshape(-1), slot.reshape(-1)])
+        return b.amax(dim=1)
+
+    _gated_walk(F, boxes, q_cluster, q_entry, q_count, tile, group,
+                best.amax(dim=1), test, walked)
+    out = torch.empty((2, F.shape[0]), dtype=torch.int32, device=F.device)
+    out[:, order] = torch.stack([best.reshape(-1), slot.reshape(-1)])
+    return out
 
 
 def reconstruct(cs: ClusterScene, rays: Rays, slot: torch.Tensor):
@@ -434,8 +605,8 @@ def trace_dense(cs: ClusterScene, rays: Rays, env=None, active=None,
             cs, rays, active, tile, k_step, tile_cap)
         with span("racc.dense.kernel"):
             out = dense_closest_hit(F, cs.G3, q_cluster, q_entry, q_count,
-                                    tile, k_step, precision=precision,
-                                    G3b=cs.G3b)
+                                    tile, k_step, boxes=cluster_boxes(cs),
+                                    precision=precision, G3b=cs.G3b)
         slot = out[1]
         hit = slot >= 0
         attr, tri, t, u, v = reconstruct(cs, rays, torch.where(hit, slot, 0))
@@ -446,15 +617,16 @@ def trace_dense(cs: ClusterScene, rays: Rays, env=None, active=None,
 # ---------------------------------------------------------------- K4 ----
 
 def dense_occluded(F, G3, q_cluster, q_entry, q_count, tile: int,
-                   k_step: int = K_PER_STEP, *, walked=None,
+                   k_step: int = K_PER_STEP, *, boxes, walked=None,
                    precision: str = "highest", G3b=None) -> torch.Tensor:
-    """K4: any hit of each ray over its tile's cluster queue.
+    """K4: any hit of each ray over the clusters of its tile's queue whose
+    box it enters.
 
     Inputs as for :func:`dense_closest_hit` (rows 10/11 of F are tmin and
     tmax_eff; -1 marks an inactive lane). A ray is occluded when some
-    queued triangle has ``sign_ok & |u + v| <= |det| & ts > |det| * tmin &
-    ts <= |det| * tmax`` (the exact window, no reciprocal). Returns (R,)
-    bool.
+    triangle of such a cluster has ``sign_ok & |u + v| <= |det| & ts >
+    |det| * tmin & ts <= |det| * tmax`` (the exact window, no reciprocal).
+    Returns (R,) bool.
 
     On a CUDA tensor this launches ``csrc/dense_occl.cu`` (the grid,
     ``walked``, ``precision``, ``G3b`` and the ignored ``k_step`` as for K1;
@@ -463,11 +635,12 @@ def dense_occluded(F, G3, q_cluster, q_entry, q_count, tile: int,
     bf16 = use_bf16(precision)
     if F.device.type == "cpu":
         return dense_occluded_plain(F, G3, q_cluster, q_entry, q_count,
-                                    tile, k_step, precision=precision)
+                                    tile, k_step, boxes=boxes, walked=walked,
+                                    precision=precision)
     out = torch.empty((F.shape[0],), dtype=torch.bool, device=F.device)
     _dense_launch(_kernels.library().racc_dense_occluded,
-                  "racc_dense_occluded", out, F, G3, G3b, q_cluster, q_entry,
-                  q_count, tile, walked, precision)
+                  "racc_dense_occluded", out, F, G3, G3b, boxes, q_cluster,
+                  q_entry, q_count, tile, walked, precision)
     dense_occluded.launches += 1
     dense_occluded.launches_bf16 += bf16
     return out
@@ -478,35 +651,40 @@ dense_occluded.launches_bf16 = 0
 
 
 def dense_occluded_plain(F, G3, q_cluster, q_entry, q_count, tile: int,
-                         k_step: int = K_PER_STEP, *,
-                         group: Optional[int] = None,
+                         k_step: int = K_PER_STEP, *, boxes,
+                         group: Optional[int] = None, walked=None,
                          precision: str = "highest") -> torch.Tensor:
-    """Plain torch version of K4: the same queue walk, cluster by cluster,
-    all groups of ``group`` rays in lockstep (default :func:`walk_group`,
-    the kernel's warp). A group tests a cluster unless its entry passes the
-    largest tmax bits among the group's unoccluded rays (occluded and
-    inactive rays hold negative bounds, so a group with none left tests
-    nothing). ``k_step`` is ignored."""
+    """Plain torch version of K4: the same gated queue walk
+    (:func:`_gated_walk`), all groups of ``group`` rays in lockstep
+    (default :func:`walk_group`, the kernel's warp). A group's bound is the
+    largest tmax bits among its unoccluded rays (occluded and inactive
+    rays hold negative bounds, so a group with none left tests nothing); a
+    ray takes a cluster's candidates only where it enters the box.
+    ``walked`` as the kernel's; ``k_step`` is ignored."""
     group = group or walk_group(tile, precision)
+    bf16 = use_bf16(precision)
+    order = cta_order(F.shape[0], tile, F.device)
+    F = F[order]
     Fm = F.reshape(-1, group, 16)
-    gtile, entry, count = _walk_groups(q_cluster, q_entry, q_count, tile,
-                                       group)
     tmin = Fm[:, :, 10]
     tmax = Fm[:, :, 11]
     t_bits = tmax.contiguous().view(torch.int32)
     occ = torch.zeros(t_bits.shape, dtype=torch.bool, device=F.device)
-    bound = t_bits.amax(dim=1)
-    for j in range(int(q_count.max())):
-        groups = ((j < count) & (entry[:, j] <= bound)).nonzero().squeeze(1)
-        if groups.numel() == 0:
-            break
-        inside, ad, ts = _candidates(Fm[groups, :, :10], G3,
-                                     q_cluster[gtile[groups], j], precision)
-        o = occ[groups] | (inside & (ts > ad * tmin[groups][:, :, None])
-                           & (ts <= ad * tmax[groups][:, :, None])).any(dim=2)
+
+    def test(groups, cluster, enter):
+        inside, ad, ts = _candidates(Fm[groups, :, :10], G3, cluster,
+                                     precision)
+        hit = (inside & (ts > ad * tmin[groups][:, :, None])
+               & (ts <= ad * tmax[groups][:, :, None])).any(dim=2)
+        o = occ[groups] | ((enter | bf16) & hit)
         occ[groups] = o
-        bound[groups] = torch.where(o, _INT_MIN, t_bits[groups]).amax(dim=1)
-    return occ.reshape(-1)
+        return torch.where(o, _INT_MIN, t_bits[groups]).amax(dim=1)
+
+    _gated_walk(F, boxes, q_cluster, q_entry, q_count, tile, group,
+                t_bits.amax(dim=1), test, walked)
+    out = torch.empty_like(occ.reshape(-1))
+    out[order] = occ.reshape(-1)
+    return out
 
 
 def trace_occlusion_dense(cs: ClusterScene, rays: Rays, active=None,
@@ -523,5 +701,6 @@ def trace_occlusion_dense(cs: ClusterScene, rays: Rays, active=None,
             cs, rays, active, tile, k_step, tile_cap)
         with span("racc.dense.kernel"):
             occ = dense_occluded(F, cs.G3, q_cluster, q_entry, q_count, tile,
-                                 k_step, precision=precision, G3b=cs.G3b)
+                                 k_step, boxes=cluster_boxes(cs),
+                                 precision=precision, G3b=cs.G3b)
     return occ, overflow

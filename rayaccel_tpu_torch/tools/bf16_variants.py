@@ -92,7 +92,8 @@ def measure(name, warp_rays):
     F, *q = dense._dense_inputs(cs, rays, active, tile, opts.k_step,
                                 opts.tile_cap)
     a1 = (F, cs.G3, q[0], q[1], q[2], tile)
-    slot = dense.dense_closest_hit(*a1)[1]
+    bb = dense.cluster_boxes(cs)
+    slot = dense.dense_closest_hit(*a1, boxes=bb)[1]
     hit = slot >= 0
     attr, tri, t, u, v = dense.reconstruct(cs, rays, torch.where(hit, slot, 0))
     surf = surface_from_attrs(attr, cs.mat_params, rays,
@@ -101,8 +102,8 @@ def measure(name, warp_rays):
                                   active & hit, tile, opts.k_step,
                                   opts.tile_cap)
     a4 = (F4, cs.G3, q4[0], q4[1], q4[2], tile)
-    kw = dict(precision="default", G3b=cs.G3b)
-    plain = dict(precision="default", group=warp_rays)
+    kw = dict(precision="default", G3b=cs.G3b, boxes=bb)
+    plain = dict(precision="default", group=warp_rays, boxes=bb)
     line = dict(variant=name, warp_rays=warp_rays,
                 device=torch.cuda.get_device_name(0))
     for key, fn, fn_plain, a in (
@@ -111,7 +112,7 @@ def measure(name, warp_rays):
             ("k4", dense.dense_occluded, dense.dense_occluded_plain, a4)):
         got, want = fn(*a, **kw), fn_plain(*a, **plain)
         line[key] = dict(ms=profiling.cuda_ms(lambda: fn(*a, **kw), 20),
-                         pairs_walked=smoke.counted(fn, a, "walked", 1,
+                         pairs_walked=smoke.counted(fn, a, "walked", 2,
                                                     **kw)[0],
                          differing=int((got != want).sum()))
     # K3: pass 1 of the first bounce of the frame's 983,040-lane pool.

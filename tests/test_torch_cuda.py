@@ -184,15 +184,18 @@ def test_dense_kernels_on_the_queue_kernel(cuda, scenes, scene_data, tile):
     """K1 and K4 give the same words on the kernel's queue as on the plain
     version's."""
     _, cs = scenes
+    bb = dense.cluster_boxes(cs)
     rays, active = _primaries(scene_data, 128, cuda)
     F, q_k, q_k_entry, q_k_count, _ = dense._dense_inputs(
         cs, rays, active, tile, dense.K_PER_STEP, dense.DEFAULT_TILE_CAP)
     T = F.shape[0] // tile
     q_p = dense.cull_and_queue_plain(cs, *_queue_inputs(rays, active), T,
                                      tile)[:3]
-    out = dense.dense_closest_hit(F, cs.G3, q_k, q_k_entry, q_k_count, tile)
+    out = dense.dense_closest_hit(F, cs.G3, q_k, q_k_entry, q_k_count, tile,
+                                  boxes=bb)
     assert torch.equal(out,
-                       dense.dense_closest_hit(F, cs.G3, *q_p, tile))
+                       dense.dense_closest_hit(F, cs.G3, *q_p, tile,
+                                               boxes=bb))
     hit = out[1] >= 0
     attr, tri, t, u, v = dense.reconstruct(cs, rays,
                                            torch.where(hit, out[1], 0))
@@ -204,9 +207,10 @@ def test_dense_kernels_on_the_queue_kernel(cuda, scenes, scene_data, tile):
                                        dense.DEFAULT_TILE_CAP)
     q4_p = dense.cull_and_queue_plain(cs, *_queue_inputs(srays, sactive), T,
                                       tile)[:3]
-    occ = dense.dense_occluded(F4, cs.G3, *q4_k, tile)
+    occ = dense.dense_occluded(F4, cs.G3, *q4_k, tile, boxes=bb)
     assert occ.any() and not occ.all()
-    assert torch.equal(occ, dense.dense_occluded(F4, cs.G3, *q4_p, tile))
+    assert torch.equal(occ, dense.dense_occluded(F4, cs.G3, *q4_p, tile,
+                                                     boxes=bb))
 
 
 @pytest.mark.parametrize("k", [1, 4, 8])
@@ -613,9 +617,10 @@ def test_dense_kernels_match_plain_on_mixed_primaries(cuda, scenes,
     matrix products at a triangle edge)."""
     _, cs = scenes
     rays, active = _primaries(scene_data, 128, cuda)
+    bb = dense.cluster_boxes(cs)
     a1 = _dense_case(cs, rays, active, tile, pad)
-    got = dense.dense_closest_hit(*a1)
-    want = dense.dense_closest_hit_plain(*a1)
+    got = dense.dense_closest_hit(*a1, boxes=bb)
+    want = dense.dense_closest_hit_plain(*a1, boxes=bb)
     hit = want[1] >= 0
     mixed = ((hit & active).reshape(-1, tile).any(1)
              & (~hit & active).reshape(-1, tile).any(1)
@@ -631,8 +636,8 @@ def test_dense_kernels_match_plain_on_mixed_primaries(cuda, scenes,
     surf = surface_from_attrs(attr, cs.mat_params, rays,
                               dense.make_hits(rays, hit, tri, t, u, v))
     a4 = _dense_case(cs, shadow_rays(surf), active & hit, tile, pad)
-    occ = dense.dense_occluded(*a4)
-    occ_p = dense.dense_occluded_plain(*a4)
+    occ = dense.dense_occluded(*a4, boxes=bb)
+    occ_p = dense.dense_occluded_plain(*a4, boxes=bb)
     assert occ_p.any() and not occ_p.all()
     assert (occ == occ_p).float().mean() >= 0.9995
 
@@ -643,9 +648,9 @@ def test_dense_kernels_refuse_a_tile_they_do_not_take(cuda, scenes,
     rays, active = _primaries(scene_data, 32, cuda)
     a = _dense_case(cs, rays, active, 32, False)
     with pytest.raises(ValueError, match="multiple"):
-        dense.dense_closest_hit(*a)
+        dense.dense_closest_hit(*a, boxes=dense.cluster_boxes(cs))
     with pytest.raises(ValueError, match="multiple"):
-        dense.dense_occluded(*a)
+        dense.dense_occluded(*a, boxes=dense.cluster_boxes(cs))
 
 
 def test_regroup_permutation_matches_cpu(cuda, scenes):
@@ -815,9 +820,10 @@ def test_bf16_kernels_match_plain(cuda, scene_data, cluster_size):
     before = [(fn.launches, fn.launches_bf16) for fn in counted]
     rays, active = _primaries(scene_data, 128, cuda)
     a1 = _dense_case(cs, rays, active, 1024, False)
+    bb = dense.cluster_boxes(cs)
     default = dict(precision="default", G3b=cs.G3b)
-    plain = dict(precision="default", group=dense.BF16_WARP_RAYS)
-    got = dense.dense_closest_hit(*a1, **default)
+    plain = dict(precision="default", group=dense.BF16_WARP_RAYS, boxes=bb)
+    got = dense.dense_closest_hit(*a1, boxes=bb, **default)
     want = dense.dense_closest_hit_plain(*a1, **plain)
     hit = want[1] >= 0
     assert hit.any() and ((got[1] >= 0) == hit).float().mean() >= 0.9995
@@ -829,7 +835,7 @@ def test_bf16_kernels_match_plain(cuda, scene_data, cluster_size):
     surf = surface_from_attrs(attr, cs.mat_params, rays,
                               dense.make_hits(rays, hit, tri, t, u, v))
     a4 = _dense_case(cs, shadow_rays(surf), active & hit, 1024, False)
-    occ = dense.dense_occluded(*a4, **default)
+    occ = dense.dense_occluded(*a4, boxes=bb, **default)
     occ_p = dense.dense_occluded_plain(*a4, **plain)
     assert occ_p.any() and not occ_p.all()
     assert (occ == occ_p).float().mean() >= 0.9995
@@ -888,12 +894,13 @@ def test_bf16_dense_kernels_match_plain_at_the_walks_edges(
     active, a1 = _edge_case(cs, rays, active, tile)
     empty = torch.zeros_like(active)
     empty[tile:2 * tile] = True
-    default = dict(precision="default", G3b=cs.G3b)
-    plain = dict(precision="default", group=dense.BF16_WARP_RAYS)
+    bb = dense.cluster_boxes(cs)
+    default = dict(precision="default", G3b=cs.G3b, boxes=bb)
+    plain = dict(precision="default", group=dense.BF16_WARP_RAYS, boxes=bb)
     with pytest.raises(ValueError, match="G3b"):
-        dense.dense_closest_hit(*a1, precision="default")
+        dense.dense_closest_hit(*a1, boxes=bb, precision="default")
 
-    walked = torch.zeros(1, dtype=torch.int64, device=cuda)
+    walked = torch.zeros(2, dtype=torch.int64, device=cuda)
     got = dense.dense_closest_hit(*a1, walked=walked, **default)
     want = dense.dense_closest_hit_plain(*a1, **plain)
     hit, hit_k = want[1] >= 0, got[1] >= 0
@@ -905,7 +912,7 @@ def test_bf16_dense_kernels_match_plain_at_the_walks_edges(
     assert (((t_k - t_p).abs() / t_p.clamp_min(1e-6)) < 1e-3).float().mean() \
         >= 0.9995
     assert not hit_k[~active | empty].any()
-    assert int(walked) > 0 and int(walked) % dense.BF16_WARP_RAYS == 0
+    assert int(walked[0]) > 0 and int(walked[0]) % dense.BF16_WARP_RAYS == 0
 
     attr, tri, t, u, v = dense.reconstruct(cs, rays,
                                            torch.where(hit, want[1], 0))
@@ -920,13 +927,148 @@ def test_bf16_dense_kernels_match_plain_at_the_walks_edges(
 
     launches = [(fn.launches, fn.launches_bf16)
                 for fn in (dense.dense_closest_hit, dense.dense_occluded)]
-    fp32 = dense.dense_closest_hit(*a1)
-    assert ((fp32[1] >= 0) == (dense.dense_closest_hit_plain(*a1)[1] >= 0)
-            ).float().mean() >= 0.9995
-    dense.dense_occluded(*a4)
+    fp32 = dense.dense_closest_hit(*a1, boxes=bb)
+    fp32_p = dense.dense_closest_hit_plain(*a1, boxes=bb)
+    assert ((fp32[1] >= 0) == (fp32_p[1] >= 0)).float().mean() >= 0.9995
+    dense.dense_occluded(*a4, boxes=bb)
     assert [(fn.launches, fn.launches_bf16)
             for fn in (dense.dense_closest_hit, dense.dense_occluded)] == \
         [(n + 1, b) for n, b in launches]
+
+
+# ---- the walk's gate: each CTA keeps the queued clusters its rays enter ----
+
+def _exact_walk(cs, rays, active, tile, tile_cap, seed):
+    """The dense inputs at ``tile`` on rays whose origins are multiples of
+    1/8 and directions multiples of 1/64, with G3 of integer features
+    (``_integer_operands``) and its bf16 fragment copy: every product of
+    the dense kernels, fp32 or bf16, and every sum of ten is exact, so the
+    kernels and their plain versions give the same words in any order of
+    summation. The queue is the cull kernel's, over the scene's boxes."""
+    rays = make_rays(torch.round(rays.o * 8) / 8,
+                     torch.round(rays.d * 64) / 64, rays.tmin, rays.tmax)
+    F, q_cl, q_en, q_n, _ = dense._dense_inputs(
+        cs, rays, active, tile, dense.K_PER_STEP, tile_cap)
+    _, G3i = _integer_operands(F[:1], cs.G3, seed)
+    return (F, G3i, q_cl, q_en, q_n, tile), mma_fragments(G3i)
+
+
+def _gated_walks_match_plain(cs, a, G3b):
+    """K1, K4 and their bf16 variants against their plain versions on the
+    inputs ``a``: the words bit for bit, and ``walked`` (the pairs the
+    warps tested, the clusters the CTAs staged) as the plain walk counts
+    them, both below the tile walk's rays x queue length and CTAs x queue
+    length. Returns {(kernel, precision): walked}."""
+    F, _, _, _, q_n, tile = a
+    rows = int(q_n.sum())
+    counts = {}
+    for kernel, plain in ((dense.dense_closest_hit,
+                           dense.dense_closest_hit_plain),
+                          (dense.dense_occluded, dense.dense_occluded_plain)):
+        for precision in ("highest", "default"):
+            kw = dict(boxes=dense.cluster_boxes(cs), precision=precision)
+            w_k = torch.zeros(2, dtype=torch.int64, device=F.device)
+            w_p = torch.zeros(2, dtype=torch.int64, device=F.device)
+            got = kernel(*a, walked=w_k, G3b=G3b, **kw)
+            want = plain(*a, walked=w_p, **kw)
+            name = (kernel.__name__, precision)
+            assert torch.equal(got, want), name
+            assert w_k.tolist() == w_p.tolist(), (name, w_k, w_p)
+            pairs, staged = w_k.tolist()
+            assert 0 < pairs < tile * rows, name
+            assert 0 < staged < tile // dense.CTA_RAYS * rows, name
+            counts[name] = (pairs, staged)
+    return counts
+
+
+def _two_groups():
+    """Two groups of 128 small triangles, 8 units apart (an 8 x 8 grid of
+    quads in the plane z = 0 around x = -4 and x = +4)."""
+    verts, tris = [], []
+    for cx in (-4.0, 4.0):
+        g = np.linspace(-1.0, 1.0, 9)
+        base = len(verts)
+        verts += [(cx + x, y, 0.0) for y in g for x in g]
+        for i in range(8):
+            for j in range(8):
+                k = base + 9 * i + j
+                tris += [(k, k + 1, k + 10), (k, k + 10, k + 9)]
+    v = np.asarray(verts, np.float32)
+    idx = np.asarray(tris, np.uint32)
+    n = np.tile(np.asarray([[0, 0, 1]], np.float32), (len(idx), 1))
+    return SceneData(vertices=v, indices=idx,
+                     triangle_materials=np.zeros(len(idx), np.uint16),
+                     triangle_normals=n,
+                     normals=np.tile(n[:1], (len(v), 1)),
+                     texcoords=np.zeros((len(v), 2), np.float32),
+                     materials=np.asarray([[0.8, 0.8, 0.8, 1.5]],
+                                          np.float32))
+
+
+def test_gated_walk_is_the_plain_walk_on_two_groups_of_clusters(cuda):
+    """Tiles whose queue holds both groups of ``_two_groups``, and CTAs
+    whose rays aim at one group (``A`` or ``B``), at the sky, or warp by
+    warp at A, B and the sky; one lane in seven inactive, a whole warp and
+    a whole CTA inactive. K1, K4 and their bf16 variants give their plain
+    versions' words bit for bit and count what the plain walk counts: the
+    CTAs and warps skip the group their rays never enter."""
+    cs = cluster_scene_from_numpy(
+        **compile_clusters_np(_two_groups(), cluster_size=16), device=cuda)
+    tile, T = 1024, 4
+    # Lane i of the kernels' CTA order (dense.cta_order) is row order[i].
+    order = dense.cta_order(T * tile, tile).numpy()
+    lane = np.empty(T * tile, np.int64)
+    lane[order] = np.arange(T * tile)
+    cta = lane % tile // dense.CTA_RAYS
+    warp = lane % dense.CTA_RAYS // dense.WARP_RAYS
+    kind = np.where(cta % 4 == 3, warp % 3, cta % 4)    # 0 A, 1 B, 2 sky
+    rs = np.random.default_rng(21)
+    target = np.stack([np.where(kind == 0, -4.0, 4.0)
+                       + rs.uniform(-1.2, 1.2, lane.size),
+                       rs.uniform(-1.2, 1.2, lane.size),
+                       np.zeros(lane.size)], axis=1)
+    o = np.tile(np.asarray([[0.0, 0.0, -8.0]]), (lane.size, 1))
+    d = np.where((kind == 2)[:, None], [[0.3, 0.2, -1.0]], target - o)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    active = rs.random(lane.size) >= 1 / 7
+    active[(cta == 5) & (warp == 2) & (lane < tile)] = False
+    active[(cta == 0) & (lane // tile == 3)] = False
+    rays = make_rays(torch.tensor(o, dtype=torch.float32, device=cuda),
+                     torch.tensor(d, dtype=torch.float32, device=cuda),
+                     tmin=0.0, tmax=1e6)
+    a, G3b = _exact_walk(cs, rays, torch.tensor(active, device=cuda), tile,
+                         dense.DEFAULT_TILE_CAP, 5)
+    x = cs.cl_bbmin[a[2].long(), 0]
+    assert ((x < 0).any(dim=1) & (x > 0).any(dim=1)).all()  # both groups
+    counts = _gated_walks_match_plain(cs, a, G3b)
+    # At most half the CTAs' rays aim at a group, so at most ~3/4 of the
+    # tile walk's staging is left.
+    assert counts[("dense_closest_hit", "highest")][1] < \
+        0.75 * tile // dense.CTA_RAYS * int(a[4].sum())
+
+
+@pytest.mark.parametrize("tile,tile_cap", [(1024, 256), (4096, 512),
+                                           (16384, 512)])
+def test_gated_walk_is_the_plain_walk_on_tetra(cuda, tile, tile_cap):
+    """SPD tetra at size factor 5 (4,096 triangles in 512 clusters of 8)
+    seen through its holes by its camera, 128 x 128 primaries in tiles of
+    ``tile``, the queue from ``cull_and_queue``; at tile_cap 512 some rows
+    (at 16,384 the one row, all 512 clusters) take two windows of the
+    gate. K1, K4 and their bf16 variants give their plain versions' words
+    bit for bit and count what the plain walk counts; K1 tests under a
+    third of the tile walk's pairs."""
+    from rtbench.scenes import spd_tetra
+    sd = SceneData(**spd_tetra.generate(0, max_depth=2, size_factor=5,
+                                        viewport=(128, 128)))
+    cs = cluster_scene_from_numpy(**compile_clusters_np(sd, cluster_size=8),
+                                  device=cuda)
+    rays, active = _primaries(sd, 128, cuda)
+    a, G3b = _exact_walk(cs, rays, active, tile, tile_cap, 9)
+    rows = int(a[4].sum())
+    if tile_cap == 512:
+        assert int(a[4].max()) > dense.GATE_ROWS
+    counts = _gated_walks_match_plain(cs, a, G3b)
+    assert counts[("dense_closest_hit", "highest")][0] < tile * rows / 3
 
 
 def _unit_edge_items(Fp, n_c, sizes):

@@ -107,11 +107,12 @@ def test_dense_occlusion_plain_early_out_is_exact(scenes, shadow_rays):
     r = port_rays(rays)
     F, q_cl, q_en, q_n, _ = dense._dense_inputs(
         cs, r, torch.tensor(active), 512, 4, 256)
-    got = dense.dense_occluded(F, cs.G3, q_cl, q_en, q_n, 512)
+    bb = dense.cluster_boxes(cs)
+    got = dense.dense_occluded(F, cs.G3, q_cl, q_en, q_n, 512, boxes=bb)
     F_far = F.clone()
     F_far[:, 11] = torch.where(F[:, 11] > 0, 3e38, F[:, 11])
     everything = dense.dense_occluded_plain(F_far, cs.G3, q_cl, q_en, q_n,
-                                            512)
+                                            512, boxes=bb)
     # With tmax = 3e38 the window only grows, so the flags can only gain.
     assert not (got & ~everything).any()
     assert dense.dense_occluded.launches == 0     # CPU tensors: plain path

@@ -237,6 +237,7 @@ def test_k1_default_against_pallas(scenes, rays):
     T = r.o.shape[0] // TILE
     F, q_cl, q_en, q_n, _ = dense._dense_inputs(cs, r, None, TILE, 4, 256)
     got = dense.dense_closest_hit_plain(F, cs.G3, q_cl, q_en, q_n, TILE,
+                                        boxes=dense.cluster_boxes(cs),
                                         precision="default")
     call = dense_call(T * 256, T, TILE, cs.cluster_size, HIGHEST, True)
     out = call(*_jax_dense_inputs(jcs, rays, F, T))
@@ -256,6 +257,7 @@ def test_k4_default_against_pallas(scenes, rays):
     T = r.o.shape[0] // TILE
     F, q_cl, q_en, q_n, _ = dense._dense_inputs(cs, r, None, TILE, 4, 256)
     got = dense.dense_occluded_plain(F, cs.G3, q_cl, q_en, q_n, TILE,
+                                     boxes=dense.cluster_boxes(cs),
                                      precision="default")
     call = _make_occl_call(T * 256, T, TILE, cs.cluster_size, HIGHEST, True)
     want = np.asarray(call(*_jax_dense_inputs(jcs, rays, F, T))[:, 0, :]
