@@ -110,11 +110,10 @@ the package is missing. Phases, one JSON line each:
 10. ``pt_stratified``: the pooled path tracer with ``sampler="stratified"``
     at 1280x720, depth 2: frame ms, ``dropped`` 0, and the host ms of one
     wave's jitter alone;
-11. ``whitted_wave``: ``whitted_trace_wave`` with its between-bounce
-    regroup and shadows at depth 4 on one 65,536-lane wave (the parked
-    stacks move with the lanes, each bounce traces the live prefix): all
-    four kernels must launch, ``dropped`` 0, and the radiance must pass
-    the two-class gate against the same wave without the regroup;
+11. ``whitted_wave``: ``whitted_trace_wave`` with shadows at depth 4 on
+    one 65,536-lane wave (the per-wave Whitted path, parked stacks and
+    all): all four kernels must launch, ``dropped`` 0, and the radiance
+    must be finite and not all zero;
 12. ``engines``: the plain engines (``mxu``, ``xla``, ``bruteforce``) and
     sparse primaries on the full scene, one wave of the 320x180 viewport:
     each engine's hits against the dense engine's on the same rays by the
@@ -1481,31 +1480,25 @@ def main() -> int:
                   r._wave_x[0], r._wave_y[0], 1, r._sampler_key))[0])
     del r
 
-    # ---- 11. one wave of Whitted trees with the between-bounce regroup ----
+    # ---- 11. one wave of Whitted trees, the per-wave path ----
     probe = renderer_on(racc.WhittedRenderer, scene_at(*full, 4),
                         shadows=True)(dev)
     w = probe.n_waves // 2
 
-    def tree_wave(regroup):
+    def tree_wave():
         return whitted.whitted_trace_wave(
             cs, probe.environment, cam_arrays, probe._wave_x[w],
             probe._wave_y[w], probe._wave_alive[w], rng.fold_in(key, w), 4,
             stack_size=probe.stack_size, backend="pallas", tile=tile,
-            shadows=True, bounce_backend="sparse", regroup=regroup, opts=opts)
+            shadows=True, bounce_backend="sparse", opts=opts)
 
-    tree_wave(True)                                         # warm-up
+    tree_wave()                                             # warm-up
     reset_counts()
-    ms, (rad, traced, dropped) = wall_ms(lambda: tree_wave(True))
+    ms, (rad, traced, dropped) = wall_ms(tree_wave)
     launches = read_counts()
-    flat_ms, (rad_flat, traced_flat, _) = wall_ms(lambda: tree_wave(False))
-    alive_w = probe._wave_alive[w].cpu().numpy()
-    line = two_class_gate(rad.cpu().numpy()[alive_w],
-                          rad_flat.cpu().numpy()[alive_w])
-    line.update(phase="whitted_wave", lanes=int(rad.shape[0]), max_depth=4,
-                stack_columns=probe.stack_size * 10, ms=ms,
-                no_regroup_ms=flat_ms, rays=int(traced),
-                rays_no_regroup=int(traced_flat), dropped=int(dropped),
-                launches=launches,
+    line = dict(phase="whitted_wave", lanes=int(rad.shape[0]), max_depth=4,
+                stack_columns=probe.stack_size * 10, ms=ms, rays=int(traced),
+                dropped=int(dropped), launches=launches,
                 radiance_finite=bool(torch.isfinite(rad).all()),
                 radiance_max=float(rad.max()))
     emit(line)
@@ -1513,10 +1506,9 @@ def main() -> int:
                      ["dense_closest_hit", "dense_occluded", "select_nearest",
                       "pair_hit", "pair_hit_guard_tmax"])
     if not (line["dropped"] == 0 and line["radiance_finite"]
-            and line["radiance_max"] > 0 and line["rmse_trimmed"] < 1e-3
-            and line["frac_flip"] < 0.005):
+            and line["radiance_max"] > 0):
         raise AssertionError(f"whitted_wave failed: {line}")
-    del probe, rad, rad_flat
+    del probe, rad
 
     # ---- 12. the plain engines against the dense engine ----
     t0 = time.perf_counter()
@@ -1709,7 +1701,9 @@ def main() -> int:
             and line["pfm_shape"] == [720, 1280, 3]
             and line["image_finite"] and line["image_max"] > 0
             and line["png_signature"] and line["png_size"] == [1280, 720]
-            and len(stats.stages or ()) == 5):
+            and set(stats.stages or ()) == {
+                "primary_trace_ms", "bounce_trace_ms", "shade_ms",
+                "env_sample_ms"}):
         raise AssertionError(f"cli failed: {line}")
     # One more frame under the profiler: the kernels' device ms.
     cli_kernel_ms = profile_frame("cli", r)

@@ -83,7 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "present (DisplayBuffer.cpp:106-132)")
     p.add_argument("--checkpoint", help="save/resume accumulation state here")
     p.add_argument("--profile", action="store_true",
-                   help="measure per-stage timings (trace/shade/regroup/env) "
+                   help="measure per-stage timings (trace/shade/env) "
                         "after rendering and print the breakdown")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--device", default=None,

@@ -26,6 +26,11 @@ class Configuration:
     cluster engine, "sparse" the pair engine, "xla" the lockstep BVH
     engine. "bruteforce" is the oracle of ``ops/trace.py:trace`` and runs
     no renderer.
+
+    ``regroup`` takes the renderers' pooled frame (``render/pool.py``) on
+    a cluster engine, and the per-wave body where it is off. The JAX
+    package's wave functions also read it as a between-bounce coherence
+    sort, which changes no radiance bit; the port has no such sort.
     """
 
     backend: str = "pallas"                 # "pallas" | "mxu" | "xla" | "sparse"
@@ -122,6 +127,19 @@ class EngineOpts:
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+    def dense_kwargs(self) -> dict:
+        """The dense engine's knobs, as ``trace_dense`` and
+        ``trace_occlusion_dense`` take them."""
+        return dict(k_step=self.k_step, tile_cap=self.tile_cap,
+                    precision=self.precision)
+
+    def sparse_kwargs(self) -> dict:
+        """The pair engine's knobs, as ``trace_occlusion_sparse`` takes
+        them; the closest-hit ``trace_sparse`` also takes ``k_first``."""
+        return dict(k_pairs=self.k_pairs, pair_budget=self.pair_budget,
+                    sp_tile=self.sp_tile, max_passes=self.max_passes,
+                    k_restart=self.k_restart, precision=self.precision)
 
 
 @dataclasses.dataclass(frozen=True)

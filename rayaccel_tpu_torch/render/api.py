@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from rayaccel_tpu_torch import rng
 from rayaccel_tpu_torch.context import Context
-from rayaccel_tpu_torch.render.pathtracer import bind_scene
+from rayaccel_tpu_torch.render.tiled import bind_scene
 from rayaccel_tpu_torch.types import Stats
 
 

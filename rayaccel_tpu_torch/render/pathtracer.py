@@ -4,22 +4,28 @@ Counterpart of ``rayaccel_tpu/render/pathtracer.py``: ``pt_shade``,
 ``_trace_and_surface`` (the ``"pallas"``, ``"sparse"``, ``"mxu"`` and
 ``"xla"`` engines), ``_shade_advance``, ``_primary_rays`` with the uniform
 and the stratified sampler, ``pt_trace_wave`` (``:188-333``, one wave
-traced to completion, with or without the between-bounce regroup),
-``pt_trace_frame`` (``:361-669``) with the fast width shrink, on one device
-or on one rank of a mesh with the cross-rank reshard, and
-``PathTracingRenderer``, which takes the pooled frame when the
-configuration regroups on a cluster engine and the per-wave body
-otherwise. The random streams follow the JAX key chains exactly. Pooled:
-stage 1 draws positionally from ``fold_in(key, w)`` (camera jitter from
-``fold_in(wkey, 0)``, the first BSDF sample from ``fold_in(wkey, 1)``;
-under a mesh ``key`` is ``fold_in(key, rank)`` here), bounce b draws per
-global lane id from ``fold_in(key, 4096 + b)``. Per wave, with
-``wave_key = fold_in(key, w)``: jitter from ``fold_in(wave_key, 0)``,
-bounce b per wave-local lane id from ``fold_in(wave_key, b + 1)``.
+traced to completion; the port runs it without the JAX function's
+between-bounce regroup, which changes no radiance bit: the draws are keyed
+per lane id), ``pt_trace_frame`` (``:361-669``) with the fast width shrink
+(``render/pool.py``), on one device or on one rank of a mesh with the
+cross-rank reshard, and ``PathTracingRenderer``, which takes the pooled
+frame when the configuration regroups on a cluster engine and the
+per-wave body otherwise. The random streams follow the JAX key chains
+exactly. Pooled: stage 1 draws positionally from ``fold_in(key, w)``
+(camera jitter from ``fold_in(wkey, 0)``, the first BSDF sample from
+``fold_in(wkey, 1)``; under a mesh ``key`` is ``fold_in(key, rank)``
+here), bounce b draws per global lane id from ``fold_in(key, 4096 + b)``.
+Per wave, with ``wave_key = fold_in(key, w)``: jitter from
+``fold_in(wave_key, 0)``, bounce b per wave-local lane id from
+``fold_in(wave_key, b + 1)``.
 
 The JAX function is one compiled program with ``lax.scan`` /
 ``while_loop`` / ``cond``; here the same control flow runs eagerly, with
 the loop conditions read on the host.
+
+The benchmark's layer spans wrap this module's ``trace_dense``,
+``trace_sparse`` and ``sample_environment`` (``rtbench/layers/``): the
+calls look them up here at call time, rays second, ``active=`` by keyword.
 """
 
 from __future__ import annotations
@@ -31,35 +37,27 @@ from rayaccel_tpu_torch import rng
 from rayaccel_tpu_torch.camera import Camera, generate_pixel_rays
 from rayaccel_tpu_torch.config import EngineOpts
 from rayaccel_tpu_torch.context import Context
-from rayaccel_tpu_torch.environment import (Environment, create_environment,
-                                            sample_environment)
+from rayaccel_tpu_torch.environment import Environment, sample_environment
 from rayaccel_tpu_torch.materials import sample_reflective_diffuse
 from rayaccel_tpu_torch.ops.trace import trace_bvh
 from rayaccel_tpu_torch.ops.trace_dense import trace_dense
 from rayaccel_tpu_torch.ops.trace_mxu import trace_mxu
 from rayaccel_tpu_torch.ops.trace_sparse import trace_sparse
-from rayaccel_tpu_torch.parallel.mesh import (Mesh, reshard_balance_cols,
-                                              route_rows_home)
-from rayaccel_tpu_torch.render.regroup import coherence_key, regroup_state
-from rayaccel_tpu_torch.render.shading import (SECONDARY_TMAX, SECONDARY_TMIN,
-                                               SurfaceSample,
-                                               interpolate_surface,
-                                               merge_rays, spawn_secondary,
+from rayaccel_tpu_torch.parallel.mesh import Mesh, reshard_balance_cols
+from rayaccel_tpu_torch.render.pool import (by_lane, first_lane, read_any,
+                                           run_pool)
+from rayaccel_tpu_torch.render.shading import (interpolate_surface,
+                                               merge_rays, secondary_rays,
+                                               spawn_secondary,
                                                surface_from_attrs)
 from rayaccel_tpu_torch.render.tiled import TiledRenderer
-from rayaccel_tpu_torch.scene.clusters import ClusterScene, compile_clusters
-from rayaccel_tpu_torch.scene.compile import compile_scene
+from rayaccel_tpu_torch.scene.clusters import ClusterScene
 from rayaccel_tpu_torch.scene.data import SceneData
-from rayaccel_tpu_torch.types import INVALID_TRIANGLE, Hits, Rays
+from rayaccel_tpu_torch.types import INVALID_TRIANGLE, Rays
 from rayaccel_tpu_torch.utils.spans import span
 
-CLUSTER_BACKENDS = ("mxu", "pallas", "sparse")
 SAMPLER_SEED = 0x5EED      # the stratified sampler's per-pixel rotation key
 _R2 = (0.7548776662466927, 0.5698402909980532)   # plastic-constant R2
-
-# Piece rows carrying this lane value are live-lane duplicates emitted by
-# the fast shrink; reassembly skips them.
-_LANE_INVALID = 3e38
 
 
 def pt_shade(surf, rays, weight, key, lane=None):
@@ -97,15 +95,11 @@ def _trace_and_surface(scene, rays, alive, bk, tile, opts=EngineOpts(),
         return hits, surf, 0
     if bk == "pallas":
         res, overflow = trace_dense(scene, rays, env=env, active=alive,
-                                    tile=tile, k_step=opts.k_step,
-                                    tile_cap=opts.tile_cap,
-                                    precision=opts.precision)
+                                    tile=tile, **opts.dense_kwargs())
     elif bk == "sparse":
-        res, overflow = trace_sparse(
-            scene, rays, env=env, active=alive, k_pairs=opts.k_pairs,
-            pair_budget=opts.pair_budget, sp_tile=opts.sp_tile,
-            max_passes=opts.max_passes, k_first=opts.k_first,
-            k_restart=opts.k_restart, precision=opts.precision)
+        res, overflow = trace_sparse(scene, rays, env=env, active=alive,
+                                     k_first=opts.k_first,
+                                     **opts.sparse_kwargs())
     elif bk == "mxu":
         res, overflow = trace_mxu(scene, rays, env=env, active=alive,
                                   tile=tile), 0
@@ -115,46 +109,6 @@ def _trace_and_surface(scene, rays, alive, bk, tile, opts=EngineOpts(),
         surf = surface_from_attrs(res.attrs, scene.mat_params, rays,
                                   res.hits)
     return res.hits, surf, overflow
-
-
-def read_count(mask: torch.Tensor, site: str) -> int:
-    """``int(mask.sum())``, a host wait, inside the span ``site``."""
-    with span(site):
-        return int(mask.sum())
-
-
-def read_any(mask: torch.Tensor, site: str) -> bool:
-    """``bool(mask.any())``, a host wait, inside the span ``site``."""
-    with span(site):
-        return bool(mask.any())
-
-
-def _live_prefix_sizes(R: int, tile: int):
-    """The widths a regrouped wave's bounce trace may take: the live lanes
-    sit in front, so the smallest of (R/4, R/2, R) that holds them is
-    traced. The sizes are the JAX function's, so that the dense engines'
-    tiling (and with it their queue clamp and overflow count) is too."""
-    return [s for s in (R // 4, R // 2) if s >= tile and s % tile == 0] + [R]
-
-
-def _trace_prefix(trace_fn, rays: Rays, alive, sizes):
-    """``trace_fn(rays, alive)`` over the smallest live prefix in
-    ``sizes``, its hits and frame padded back to full width with misses
-    and zeros."""
-    R = alive.shape[0]
-    n_live = read_count(alive, "racc.render.read.prefix_count")
-    size = next(s for s in sizes if n_live <= s)
-    if size == R:
-        return trace_fn(rays, alive)
-    hits, surf, ov = trace_fn(Rays(*(a[:size] for a in rays)), alive[:size])
-
-    def tail(a, fill=0):
-        pad = a.new_full((R - size, *a.shape[1:]), fill)
-        return torch.cat([a, pad])
-
-    hits = Hits(tri=tail(hits.tri, INVALID_TRIANGLE), t=tail(hits.t),
-                u=tail(hits.u), v=tail(hits.v), miss_rgb=tail(hits.miss_rgb))
-    return hits, SurfaceSample(*(tail(a) for a in surf)), ov
 
 
 def _shade_advance(hits, surf, rays, weight, depth, alive, miss_d, miss_w,
@@ -208,19 +162,13 @@ def _primary_rays(cam_arrays, x, y, wave_key, sampler="uniform",
 def pt_trace_wave(scene, env: Environment, cam_arrays, x: torch.Tensor,
                   y: torch.Tensor, alive0: torch.Tensor, key, max_depth: int,
                   backend: str = "pallas", tile: int = 512,
-                  stack_depth: int = 48, regroup: bool = True,
-                  sampler: str = "uniform", spp_index=None, sampler_key=None,
+                  stack_depth: int = 48, sampler: str = "uniform",
+                  spp_index=None, sampler_key=None,
                   bounce_backend: str | None = None,
                   opts: EngineOpts = EngineOpts()):
     """Trace one wave of pixels to completion (all bounces): the primary
     trace on ``backend``, then bounces on ``bounce_backend`` while any lane
-    is alive.
-
-    With ``regroup`` (cluster engines only), the whole lane state is
-    re-sorted between bounces by a spatial coherence key, dead lanes last,
-    each bounce traces only the live prefix, and the radiance is unsorted
-    by lane id at the end. The BSDF draws are keyed per lane id, so the
-    radiance is the same with and without.
+    is alive. The BSDF draws are keyed per lane id.
 
     Returns (radiance (R, 3), traced, dropped): ``dropped`` counts the
     dense and sparse engines' overflow (0 elsewhere).
@@ -235,56 +183,27 @@ def pt_trace_wave(scene, env: Environment, cam_arrays, x: torch.Tensor,
         bounce_backend = backend
     rays = _primary_rays(cam_arrays, x, y, key, sampler, spp_index,
                          sampler_key)
-    do_regroup = regroup and backend in CLUSTER_BACKENDS
-    if do_regroup:
-        bmin = scene.cl_bbmin.amin(dim=0)
-        bext = scene.cl_bbmax.amax(dim=0) - bmin
-        binv = 1.0 / torch.clamp_min(bext, 1e-20)
-    sizes = _live_prefix_sizes(R, tile)
-    zero = torch.zeros((), dtype=torch.int64, device=device)
-    st = dict(rays=rays, weight=torch.ones_like(rays.o),
-              depth=torch.zeros((R,), dtype=torch.int32, device=device),
-              alive=alive0,
-              lane=torch.arange(R, dtype=torch.int32, device=device),
-              miss_d=rays.d, miss_w=torch.zeros_like(rays.o))
-    traced, dropped = zero, zero
-
-    def trace_fn(bk):
-        return lambda r, a: _trace_and_surface(scene, r, a, bk, tile, opts,
-                                               stack_depth=stack_depth)
-
+    traced = dropped = torch.zeros((), dtype=torch.int64, device=device)
+    weight = torch.ones_like(rays.o)
+    depth = torch.zeros((R,), dtype=torch.int32, device=device)
+    alive = alive0
+    lane = torch.arange(R, dtype=torch.int32, device=device)
+    miss_d, miss_w = rays.d, torch.zeros_like(rays.o)
     bounce = 0
-    while read_any(st["alive"], "racc.render.read.wave_alive"):
+    while read_any(alive, "racc.render.read.wave_alive"):
         with span("racc.render.loop"):
-            bk = backend if bounce == 0 else bounce_backend
-            if do_regroup and bounce > 0:
-                hits, surf, ov = _trace_prefix(trace_fn(bk), st["rays"],
-                                               st["alive"], sizes)
-            else:
-                hits, surf, ov = trace_fn(bk)(st["rays"], st["alive"])
-            traced = traced + st["alive"].sum()
+            hits, surf, ov = _trace_and_surface(
+                scene, rays, alive, backend if bounce == 0 else bounce_backend,
+                tile, opts, stack_depth=stack_depth)
+            traced = traced + alive.sum()
             dropped = dropped + ov
             rays, weight, depth, alive, miss_d, miss_w = _shade_advance(
-                hits, surf, st["rays"], st["weight"], st["depth"],
-                st["alive"], st["miss_d"], st["miss_w"],
-                rng.fold_in(key, bounce + 1), max_depth, lane=st["lane"])
-            lane = st["lane"]
-            if do_regroup:
-                with span("racc.render.regroup"):
-                    k = coherence_key(rays, alive, bmin, binv)
-                    rays, (weight, depth, alive, lane, miss_d, miss_w) = \
-                        regroup_state(k, rays, [weight, depth, alive, lane,
-                                                miss_d, miss_w])
-            st = dict(rays=rays, weight=weight, depth=depth, alive=alive,
-                      lane=lane, miss_d=miss_d, miss_w=miss_w)
+                hits, surf, rays, weight, depth, alive, miss_d, miss_w,
+                rng.fold_in(key, bounce + 1), max_depth, lane=lane)
             bounce += 1
 
     with span("racc.render.assemble"):
-        radiance = st["miss_w"] * sample_environment(env, st["miss_d"])
-        if do_regroup:
-            # Unsort back to the original lane order for the framebuffer.
-            _, (radiance,) = regroup_state(st["lane"], st["rays"],
-                                           [radiance])
+        radiance = miss_w * sample_environment(env, miss_d)
     return radiance, traced, dropped
 
 
@@ -326,62 +245,6 @@ def _stage1(scene, cam_arrays, xs, ys, alives, key, max_depth, backend,
         miss_w=torch.cat([c[5] for c in cols]),
     )
     return state, overflow
-
-
-def _shrink(alive, lane, n_fresh: int, nxt: int, cols):
-    """The width shrink of a pooled bounce loop. Returns (perm, piece):
-    the first ``nxt`` positions of a stable live-first order (the new
-    head), and the piece the pool leaves behind: at every position, the
-    lane id and ``cols`` where the lane is fresh (below ``n_fresh``, so
-    alive when the stage began) and dead now, ``_LANE_INVALID`` elsewhere,
-    so that each dead lane is emitted exactly once."""
-    iota = torch.arange(alive.shape[0], dtype=torch.int32,
-                        device=alive.device)
-    perm = torch.argsort(torch.where(alive, iota, 0x7FFFFFFF),
-                         stable=True)[:nxt]
-    valid = (iota < n_fresh) & ~alive
-    piece = torch.cat([torch.where(valid, lane.to(torch.float32),
-                                   _LANE_INVALID)[:, None], *cols], dim=1)
-    return perm, piece
-
-
-def _final_piece(lane, n_fresh: int, shrunk: bool, cols):
-    """The last stage's piece. After a shrink, the rows at or past
-    ``n_fresh`` are dead filler hauled into the head, emitted in an
-    earlier piece: they are marked invalid."""
-    final = lane.to(torch.float32)
-    if shrunk:
-        final = torch.where(torch.arange(final.shape[0], device=lane.device)
-                            < n_fresh, final, _LANE_INVALID)
-    return torch.cat([final[:, None], *cols], dim=1)
-
-
-def _by_lane(lane_f, rows, N: int, lane0: int = 0):
-    """(N, cols): each valid piece row scattered to its lane id, less the
-    first lane id ``lane0`` of this rank."""
-    real = lane_f < _LANE_INVALID
-    out = torch.zeros((N, rows.shape[1]), dtype=rows.dtype,
-                      device=rows.device)
-    with span("racc.render.read.by_lane"):
-        out[lane_f[real].to(torch.int64) - lane0] = rows[real]
-    return out
-
-
-def _route_home(lane_f, rows, mesh: Mesh | None, resharded: bool):
-    """Reassembly rows (lane id, ``rows``) of the lanes this rank traced,
-    routed to the ranks that own them when the reshard fired. Each lane
-    this rank held after the exchange is emitted exactly once (fast-shrink
-    pieces mark the other rows invalid), so exactly N rows are valid,
-    N / D of each home rank: the exchange home is
-    ``parallel/mesh.py:route_rows_home``'s. Returns (lane_f, rows)."""
-    if not resharded:
-        return lane_f, rows
-    with span("racc.render.exchange"):
-        valid = lane_f < _LANE_INVALID
-        with span("racc.render.read.route_home"):
-            out = torch.cat([lane_f[valid, None], rows[valid]], dim=1)
-        routed = route_rows_home(out, mesh, True)
-    return routed[:, 0], routed[:, 1:]
 
 
 def _reshard_balance(st, mesh: Mesh, D: int):
@@ -450,17 +313,9 @@ def pt_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
     runs another engine in each package; the renderers always pass theirs."""
     W, R = xs.shape
     N = W * R
-    # Global lane ids are exact in the float32 reassembly rows only below
-    # 2^24.
-    assert N * n_shards < (1 << 24), \
-        f"frame pool {N} x {n_shards} ranks >= 2^24 lanes"
+    lane0 = first_lane(N, mesh, n_shards)
     device = xs.device
-    lane0 = 0
-    wave_key = key
-    if mesh is not None:
-        assert n_shards == mesh.size
-        lane0 = mesh.rank * N
-        wave_key = rng.fold_in(key, mesh.rank)
+    wave_key = key if mesh is None else rng.fold_in(key, mesh.rank)
 
     with span("racc.render.stage1"):
         state, dropped = _stage1(scene, cam_arrays, xs, ys, alives,
@@ -475,7 +330,6 @@ def pt_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
             state, resharded = _reshard_balance(state, mesh, n_shards)
     if info is not None:
         info["resharded"] = resharded
-    state["n_fresh"] = N
     bounce = 0
 
     def bounce_body(st):
@@ -492,43 +346,23 @@ def pt_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
         return dict(st, rays=rays2, weight=weight2, depth=depth2,
                     alive=alive2, miss_d=miss_d2, miss_w=miss_w2)
 
-    stage_widths = _stage_widths(N, max_depth, min_stage_width)
-    pieces = []
-    st = state
-    for nxt in [*stage_widths[1:], None]:
-        while True:
-            n_live = read_count(st["alive"], "racc.render.read.pool_count")
-            if n_live == 0 or (nxt is not None and n_live <= nxt):
-                break
-            with span("racc.render.loop"):
-                st = bounce_body(st)
-        if nxt is None:
-            break
-        with span("racc.render.shrink"):
-            perm, piece = _shrink(st["alive"], st["lane"], st["n_fresh"],
-                                  nxt, (st["miss_d"], st["miss_w"]))
-            pieces.append(piece)
-            r = st["rays"]
-            d_h = r.d[perm]
-            st = dict(
-                rays=Rays(r.o[perm], d_h,
-                          torch.full((nxt,), SECONDARY_TMIN,
-                                     dtype=torch.float32, device=device),
-                          torch.full((nxt,), SECONDARY_TMAX,
-                                     dtype=torch.float32, device=device)),
-                weight=st["weight"][perm], miss_d=d_h,
-                miss_w=torch.zeros((nxt, 3), dtype=torch.float32,
-                                   device=device),
-                depth=st["depth"][perm],
-                alive=torch.arange(nxt, device=device) < n_live,
-                lane=st["lane"][perm], n_fresh=n_live)
+    def narrow(st, perm, n_live):
+        nxt = perm.shape[0]
+        d_h = st["rays"].d[perm]
+        return dict(
+            rays=secondary_rays(st["rays"].o[perm], d_h),
+            weight=st["weight"][perm], miss_d=d_h,
+            miss_w=torch.zeros((nxt, 3), dtype=torch.float32, device=device),
+            depth=st["depth"][perm],
+            alive=torch.arange(nxt, device=device) < n_live,
+            lane=st["lane"][perm])
+
+    _, allp, _ = run_pool(state, _stage_widths(N, max_depth, min_stage_width),
+                          bounce_body, narrow,
+                          lambda st: (st["miss_d"], st["miss_w"]))
 
     # ---- stage 3: deferred env lookup + reassembly by lane id ----
     with span("racc.render.assemble"):
-        pieces.append(_final_piece(st["lane"], st["n_fresh"],
-                                   len(stage_widths) > 1,
-                                   (st["miss_d"], st["miss_w"])))
-        allp = torch.cat(pieces) if len(pieces) > 1 else pieces[0]
         miss_w = allp[:, 4:7]
         # Rows with miss_w == 0 multiply the sample by zero: look them all
         # up in one direction.
@@ -538,40 +372,16 @@ def pt_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
                               device=device)
         miss_dir = torch.where(is_miss[:, None], allp[:, 1:4], up)
         radiance = miss_w * sample_environment(env, miss_dir)
-        lane_f, radiance = _route_home(allp[:, 0], radiance, mesh, resharded)
-        rad = _by_lane(lane_f, radiance, N, lane0)
+        rad = by_lane(allp[:, 0], radiance, N, lane0, mesh, resharded)
     return rad.reshape(W, R, 3), traced, dropped
 
 
-def bind_scene(backend: str, scene_data: SceneData, tpu_scene, device):
-    """The renderers' engine choice: (backend, compiled scene). A scene
-    handed in decides the engine family (a ClusterScene moves a non-cluster
-    backend to "mxu", a TpuScene a cluster backend to "xla"), whatever its
-    device: ``TiledRenderer._bind`` moves it to the renderer's. Otherwise
-    the scene is compiled for the backend on ``device``."""
-    if backend == "bruteforce":
-        raise ValueError(
-            "backend 'bruteforce' is the test oracle and runs no renderer: "
-            "call ops.trace.trace(scene, rays, backend='bruteforce')")
-    if tpu_scene is not None:
-        if isinstance(tpu_scene, ClusterScene):
-            if backend not in CLUSTER_BACKENDS:
-                backend = "mxu"
-        elif backend in CLUSTER_BACKENDS:
-            backend = "xla"
-        return backend, tpu_scene
-    if backend in CLUSTER_BACKENDS:
-        return backend, compile_clusters(scene_data, device=device)
-    return backend, compile_scene(scene_data, device=device)
-
-
 class PathTracingRenderer(TiledRenderer):
-    """Progressive wavefront path tracer over a compiled scene. The
-    configuration's ``backend`` traces the primaries; under
-    ``hybrid_tracing`` the bounces of the dense engines ("pallas", "mxu")
-    go to the sparse pair engine. With ``regroup`` on a cluster engine the
-    frame runs on the pooled bounce loop (:func:`pt_trace_frame`),
-    otherwise wave by wave (:func:`pt_trace_wave`).
+    """Progressive wavefront path tracer over a compiled scene
+    (``TiledRenderer._setup``: the engines, under ``hybrid_tracing`` the
+    dense engines' bounces on the sparse pair engine). With ``regroup`` on
+    a cluster engine the frame runs on the pooled bounce loop
+    (:func:`pt_trace_frame`), otherwise wave by wave (:func:`pt_trace_wave`).
 
     ``tpu_scene`` may be a ClusterScene or a TpuScene; without one the
     scene is compiled for the backend. The "bruteforce" oracle runs no
@@ -584,30 +394,9 @@ class PathTracingRenderer(TiledRenderer):
                  tpu_scene=None, environment: Environment | None = None):
         super().__init__(context, scene_data.viewport_width,
                          scene_data.viewport_height)
-        cfg = context.configuration
-        self.camera = camera
-        self.scene_data = scene_data
-        self.backend, self.scene = bind_scene(cfg.backend, scene_data,
-                                              tpu_scene, self.device)
-        self.bounce_backend = (
-            "sparse" if cfg.hybrid_tracing and self.backend in ("mxu",
-                                                                "pallas")
-            else self.backend)
-        if environment is None:
-            env_px = scene_data.env_pixels
-            assert env_px is not None, "scene has no environment probe"
-            environment = create_environment(env_px, env_px.shape[1],
-                                             env_px.shape[0],
-                                             device=self.device)
-        self._bind(self.scene, environment)
-        self.max_depth = int(scene_data.max_depth)
-        self.sampler = cfg.sampler
+        self._setup(camera, scene_data, tpu_scene, environment)
+        self.sampler = context.configuration.sampler
         self._sampler_key = rng.PRNGKey(SAMPLER_SEED)
-        self.opts = cfg.engine_opts()
-        self.tile = min(cfg.trace_block, self.shard_lanes)
-        self.stack_depth = cfg.traversal_stack_depth
-        self.min_stage_width = cfg.min_stage_width
-        self.pooled = cfg.regroup and self.backend in CLUSTER_BACKENDS
 
     def _render(self, key):
         if not self.pooled:
@@ -626,6 +415,6 @@ class PathTracingRenderer(TiledRenderer):
             self.scene, self.environment, self._camera_arrays(),
             x, y, alive, wave_key, self.max_depth, backend=self.backend,
             tile=self.tile, stack_depth=self.stack_depth,
-            regroup=self.context.configuration.regroup, sampler=self.sampler,
-            spp_index=self.spp, sampler_key=self._sampler_key,
+            sampler=self.sampler, spp_index=self.spp,
+            sampler_key=self._sampler_key,
             bounce_backend=self.bounce_backend, opts=self.opts)

@@ -125,15 +125,17 @@ def spawn_secondary(surf: SurfaceSample, wi: torch.Tensor,
     finite = (torch.all(torch.isfinite(pos), dim=-1)
               & torch.all(torch.isfinite(wi), dim=-1))
 
-    n = wi.shape[0]
-    rays = Rays(
-        o=pos, d=wi,
-        tmin=torch.full((n,), SECONDARY_TMIN, dtype=torch.float32,
-                        device=wi.device),
-        tmax=torch.full((n,), SECONDARY_TMAX, dtype=torch.float32,
-                        device=wi.device),
-    )
-    return rays, ok_weight & ok_side & finite
+    return secondary_rays(pos, wi), ok_weight & ok_side & finite
+
+
+def secondary_rays(o: torch.Tensor, d: torch.Tensor) -> Rays:
+    """Rays from ``o`` along ``d`` over [SECONDARY_TMIN, SECONDARY_TMAX]."""
+    n = o.shape[0]
+    return Rays(o, d,
+                torch.full((n,), SECONDARY_TMIN, dtype=torch.float32,
+                           device=o.device),
+                torch.full((n,), SECONDARY_TMAX, dtype=torch.float32,
+                           device=o.device))
 
 
 def merge_rays(cond: torch.Tensor, a: Rays, b: Rays) -> Rays:

@@ -8,6 +8,9 @@ un-permutes it in :meth:`TiledRenderer.image`. The default frame body
 :meth:`TiledRenderer._trace_wave`, each wave keyed ``fold_in(key, w)``; a
 subclass with a frame-pooled body overrides :meth:`TiledRenderer._render`.
 Each frame ends in the :meth:`TiledRenderer.end_frame` hook (``:292``).
+:func:`bind_scene` and :meth:`TiledRenderer._setup` are the renderers'
+shared set-up: the engine family, the scene, the environment, the bounce
+engine and the engine knobs.
 
 With a mesh of D ranks (``context.mesh``), each rank traces and keeps its
 block of every wave, lanes ``[rank*R/D, (rank+1)*R/D)``, as JAX's shard of
@@ -27,12 +30,17 @@ import torch
 from rayaccel_tpu_torch import rng
 from rayaccel_tpu_torch.context import Context
 from rayaccel_tpu_torch.device import to_device
+from rayaccel_tpu_torch.environment import Environment, create_environment
 from rayaccel_tpu_torch.parallel.mesh import replicate_scene
+from rayaccel_tpu_torch.scene.clusters import ClusterScene, compile_clusters
+from rayaccel_tpu_torch.scene.compile import compile_scene
+from rayaccel_tpu_torch.scene.data import SceneData
 from rayaccel_tpu_torch.types import Stats
 from rayaccel_tpu_torch.utils.spans import span
 
 BLOCK_W = 32
 BLOCK_H = 16
+CLUSTER_BACKENDS = ("mxu", "pallas", "sparse")
 
 
 def block_swizzle(width: int, height: int, pad_to: int):
@@ -61,6 +69,28 @@ def block_swizzle(width: int, height: int, pad_to: int):
     x[:n] = xs
     y[:n] = ys
     return perm, x, y
+
+
+def bind_scene(backend: str, scene_data: SceneData, tpu_scene, device):
+    """The renderers' engine choice: (backend, compiled scene). A scene
+    handed in decides the engine family (a ClusterScene moves a non-cluster
+    backend to "mxu", a TpuScene a cluster backend to "xla"), whatever its
+    device: ``TiledRenderer._bind`` moves it to the renderer's. Otherwise
+    the scene is compiled for the backend on ``device``."""
+    if backend == "bruteforce":
+        raise ValueError(
+            "backend 'bruteforce' is the test oracle and runs no renderer: "
+            "call ops.trace.trace(scene, rays, backend='bruteforce')")
+    if tpu_scene is not None:
+        if isinstance(tpu_scene, ClusterScene):
+            if backend not in CLUSTER_BACKENDS:
+                backend = "mxu"
+        elif backend in CLUSTER_BACKENDS:
+            backend = "xla"
+        return backend, tpu_scene
+    if backend in CLUSTER_BACKENDS:
+        return backend, compile_clusters(scene_data, device=device)
+    return backend, compile_scene(scene_data, device=device)
 
 
 class TiledRenderer:
@@ -108,6 +138,37 @@ class TiledRenderer:
         self._rays = torch.zeros((), dtype=torch.int64, device=self.device)
         self._dropped = torch.zeros((), dtype=torch.int64, device=self.device)
         self._fb3 = self._make_fb()
+
+    def _setup(self, camera, scene_data: SceneData, tpu_scene,
+               environment: Environment | None):
+        """The renderers' shared set-up. The configuration's ``backend``
+        traces the primaries; under ``hybrid_tracing`` the bounces of the
+        dense engines ("pallas", "mxu") go to the sparse pair engine. The
+        environment defaults to the scene's probe. ``pooled`` is whether
+        the configuration's ``regroup`` takes the pooled frame: only a
+        cluster engine runs it."""
+        cfg = self.context.configuration
+        self.camera = camera
+        self.scene_data = scene_data
+        self.backend, scene = bind_scene(cfg.backend, scene_data, tpu_scene,
+                                         self.device)
+        self.bounce_backend = (
+            "sparse" if cfg.hybrid_tracing and self.backend in ("mxu",
+                                                                "pallas")
+            else self.backend)
+        if environment is None:
+            env_px = scene_data.env_pixels
+            assert env_px is not None, "scene has no environment probe"
+            environment = create_environment(env_px, env_px.shape[1],
+                                             env_px.shape[0],
+                                             device=self.device)
+        self._bind(scene, environment)
+        self.max_depth = int(scene_data.max_depth)
+        self.opts = cfg.engine_opts()
+        self.tile = min(cfg.trace_block, self.shard_lanes)
+        self.stack_depth = cfg.traversal_stack_depth
+        self.min_stage_width = cfg.min_stage_width
+        self.pooled = cfg.regroup and self.backend in CLUSTER_BACKENDS
 
     def _make_fb(self) -> torch.Tensor:
         return torch.zeros((self.n_waves, self.shard_lanes, 3),

@@ -5,10 +5,12 @@ Counterpart of ``rayaccel_tpu/render/whitted.py``: ``whitted_shade``
 (``:110-142``, every engine), the trace of ``_whitted_trace``
 (``:145-178``, through ``pathtracer._trace_and_surface`` with the
 environment folded at trace time), ``_whitted_step`` (``:181-274``),
-``whitted_trace_wave`` (``:277-420``) with its between-bounce regroup,
-``whitted_trace_frame`` (``:423-768``) with the fast shrink and the scanned
-dense bounce, on one device or on one rank of a mesh with the cross-rank
-reshard, and ``WhittedRenderer`` (``:771-891``).
+``whitted_trace_wave`` (``:277-420``; the port runs it without the JAX
+function's between-bounce regroup, which Whitted shading, deterministic,
+does not see), ``whitted_trace_frame`` (``:423-768``) with the fast shrink
+(``render/pool.py``) and the scanned dense bounce, on one device or on one
+rank of a mesh with the cross-rank reshard, and ``WhittedRenderer``
+(``:771-891``).
 
 Each wavefront lane owns one pixel's whole ray tree. When a hit spawns
 both a reflection and a refraction ray, the reflection continues and the
@@ -25,6 +27,11 @@ adds it to ``dropped``; the JAX function returns 0 there (``:118-124``).
 The JAX functions are compiled programs with ``lax.scan`` /
 ``while_loop`` / ``cond``; here the same control flow runs eagerly, with
 every loop condition read on the host.
+
+The benchmark's layer spans wrap this module's ``trace_occlusion_dense``
+and ``trace_occlusion_sparse`` and, through ``_trace_and_surface``,
+``pathtracer``'s closest-hit engines (``rtbench/layers/``): the calls look
+them up in those modules at call time, rays second, ``active=`` by keyword.
 """
 
 from __future__ import annotations
@@ -36,24 +43,19 @@ from rayaccel_tpu_torch import rng
 from rayaccel_tpu_torch.camera import Camera, generate_pixel_rays
 from rayaccel_tpu_torch.config import EngineOpts
 from rayaccel_tpu_torch.context import Context
-from rayaccel_tpu_torch.environment import Environment, create_environment
+from rayaccel_tpu_torch.environment import Environment
 from rayaccel_tpu_torch.ops.intersect import dot3
 from rayaccel_tpu_torch.ops.trace import trace_occlusion_bvh
 from rayaccel_tpu_torch.ops.trace_dense import trace_occlusion_dense
 from rayaccel_tpu_torch.ops.trace_mxu import trace_occlusion_mxu
 from rayaccel_tpu_torch.ops.trace_sparse import trace_occlusion_sparse
 from rayaccel_tpu_torch.parallel.mesh import Mesh, reshard_balance_cols
-from rayaccel_tpu_torch.render.pathtracer import (CLUSTER_BACKENDS, _by_lane,
-                                                  _final_piece,
-                                                  _live_prefix_sizes,
-                                                  _route_home, _shrink,
-                                                  _trace_and_surface,
-                                                  _trace_prefix, bind_scene,
-                                                  read_any, read_count)
-from rayaccel_tpu_torch.render.regroup import coherence_key, regroup_state
-from rayaccel_tpu_torch.render.shading import (ORIGIN_EPSILON, SECONDARY_TMAX,
-                                               SECONDARY_TMIN, WEIGHT_CUTOFF,
-                                               SurfaceSample, merge_rays)
+from rayaccel_tpu_torch.render.pathtracer import _trace_and_surface
+from rayaccel_tpu_torch.render.pool import (by_lane, first_lane, read_any,
+                                           run_pool)
+from rayaccel_tpu_torch.render.shading import (ORIGIN_EPSILON, WEIGHT_CUTOFF,
+                                               SurfaceSample, merge_rays,
+                                               secondary_rays)
 from rayaccel_tpu_torch.render.tiled import TiledRenderer
 from rayaccel_tpu_torch.scene.clusters import ClusterScene
 from rayaccel_tpu_torch.scene.data import SceneData
@@ -77,15 +79,6 @@ _LIGHT, _LIGHT_UNIT = _LIGHT.tolist(), _LIGHT_UNIT.tolist()
 def _dot_const(a: torch.Tensor, c) -> torch.Tensor:
     """Row-wise dot product of (R, 3) with a constant 3-vector."""
     return a[:, 0] * c[0] + a[:, 1] * c[1] + a[:, 2] * c[2]
-
-
-def _secondary(o: torch.Tensor, d: torch.Tensor) -> Rays:
-    n = o.shape[0]
-    return Rays(o, d,
-                torch.full((n,), SECONDARY_TMIN, dtype=torch.float32,
-                           device=o.device),
-                torch.full((n,), SECONDARY_TMAX, dtype=torch.float32,
-                           device=o.device))
 
 
 def whitted_shade(surf, rays: Rays, weight: torch.Tensor):
@@ -116,7 +109,7 @@ def whitted_shade(surf, rays: Rays, weight: torch.Tensor):
             dot >= 0, ORIGIN_EPSILON, -ORIGIN_EPSILON)[:, None]
         finite = (torch.isfinite(pos).all(dim=-1)
                   & torch.isfinite(dir_new).all(dim=-1))
-        return _secondary(pos, dir_new), cont & extra_ok & finite, dot > 0
+        return secondary_rays(pos, dir_new), cont & extra_ok & finite, dot > 0
 
     refl_rays, refl_base, refl_side = finish(refl_d, True)
     refr_rays, refr_base, refr_side = finish(refr_d, r > 0.0)
@@ -136,7 +129,7 @@ def shadow_rays(surf) -> Rays:
     spos = surf.pos + surf.ng * sgn[:, None]
     with span("racc.shade.read.light"):
         d = torch.tensor(_LIGHT_UNIT, dtype=torch.float32).to(spos.device)
-    return _secondary(spos, d.expand_as(spos).contiguous())
+    return secondary_rays(spos, d.expand_as(spos).contiguous())
 
 
 def _occlusion_query(scene, srays: Rays, active, bk: str, tile: int,
@@ -147,15 +140,10 @@ def _occlusion_query(scene, srays: Rays, active, bk: str, tile: int,
     (the plain engines drop nothing)."""
     if bk == "pallas":
         return trace_occlusion_dense(scene, srays, active=active, tile=tile,
-                                     k_step=opts.k_step,
-                                     tile_cap=opts.tile_cap,
-                                     precision=opts.precision)
+                                     **opts.dense_kwargs())
     if bk == "sparse":
-        return trace_occlusion_sparse(
-            scene, srays, active=active, k_pairs=opts.k_pairs,
-            pair_budget=opts.pair_budget, sp_tile=opts.sp_tile,
-            max_passes=opts.max_passes, k_restart=opts.k_restart,
-            precision=opts.precision)
+        return trace_occlusion_sparse(scene, srays, active=active,
+                                      **opts.sparse_kwargs())
     if bk == "mxu":
         return trace_occlusion_mxu(scene, srays, active=active, tile=tile), 0
     if bk == "xla":
@@ -244,7 +232,7 @@ def _whitted_step(scene, s, hits, surf, bk: str, tile: int, max_depth: int,
     level = torch.clamp_max(sp, top).long()
     pe = stk[level, :, lanes]                                     # (R, 7)
     pw = stk_w[level, :, lanes]                                   # (R, 3)
-    popped = _secondary(pe[:, 0:3], pe[:, 3:6])
+    popped = secondary_rays(pe[:, 0:3], pe[:, 3:6])
 
     alive_next = (active & has_next) | pop
     out_rays = merge_rays(pop, popped, merge_rays(has_next, next_rays, rays))
@@ -270,22 +258,17 @@ def _trace_scanned(trace_fn, rays: Rays, alive, scan: int):
 
 
 def _trace_step(scene, env, st, bk, tile, max_depth, stack_size, shadows,
-                primary_only, opts, stack_depth: int = 48, sizes=None,
+                primary_only, opts, stack_depth: int = 48,
                 scan: int | None = None):
-    """One trace on engine ``bk`` and the step after it. With ``sizes``
-    (a regrouped wave: live lanes in front) only the smallest live prefix
-    of those widths is traced. With ``scan``, a dense engine ("pallas",
-    "mxu") traces a width that is a multiple of ``scan`` and wider in
-    slices of ``scan`` lanes."""
+    """One trace on engine ``bk`` and the step after it. With ``scan``, a
+    dense engine ("pallas", "mxu") traces a width that is a multiple of
+    ``scan`` and wider in slices of ``scan`` lanes."""
     def trace_fn(rays, alive):
         return _trace_and_surface(scene, rays, alive, bk, tile, opts, env,
                                   stack_depth)
 
     R = st["alive"].shape[0]
-    if sizes is not None:
-        hits, surf, ov = _trace_prefix(trace_fn, st["rays"], st["alive"],
-                                       sizes)
-    elif scan and bk in ("pallas", "mxu") and R > scan and R % scan == 0:
+    if scan and bk in ("pallas", "mxu") and R > scan and R % scan == 0:
         hits, surf, ov = _trace_scanned(trace_fn, st["rays"], st["alive"],
                                         scan)
     else:
@@ -297,43 +280,17 @@ def _trace_step(scene, env, st, bk, tile, max_depth, stack_size, shadows,
                              stack_depth)
 
 
-def _regroup_trees(st, bmin, binv):
-    """The between-bounce regroup of a wave of ray trees: the parked-ray
-    stacks flatten into per-lane columns and move with the lane state, so
-    a lane's pending subtree goes where the lane goes; the accumulated
-    radiance and the lane id move too. Dead lanes sort last."""
-    R = st["alive"].shape[0]
-    S = st["stk"].shape[0]
-    ck = coherence_key(st["rays"], st["alive"], bmin, binv)
-    stk_cols = st["stk"].reshape(S * 7, R).T                  # (R, S*7)
-    stkw_cols = st["stk_w"].reshape(S * 3, R).T               # (R, S*3)
-    rays, (weight, depth, alive, sp, lane, radiance, stk_cols,
-           stkw_cols) = regroup_state(
-        ck, st["rays"], [st["weight"], st["depth"], st["alive"], st["sp"],
-                         st["lane"], st["radiance"], stk_cols, stkw_cols])
-    return dict(st, rays=rays, weight=weight, depth=depth, alive=alive,
-                sp=sp, lane=lane, radiance=radiance,
-                stk=stk_cols.T.reshape(S, 7, R).contiguous(),
-                stk_w=stkw_cols.T.reshape(S, 3, R).contiguous())
-
-
 def whitted_trace_wave(scene, env: Environment, cam_arrays,
                        x: torch.Tensor, y: torch.Tensor, alive0: torch.Tensor,
                        key, max_depth: int, stack_size: int = 9,
                        backend: str = "pallas", tile: int = 512,
                        stack_depth: int = 48, shadows: bool = False,
                        bounce_backend: str | None = None,
-                       primary_only: bool = False, regroup: bool = True,
+                       primary_only: bool = False,
                        opts: EngineOpts = EngineOpts()):
     """Trace one wave of pixels through their full Whitted ray trees: the
     primary trace on ``backend``, then bounces on ``bounce_backend`` while
     any lane is alive.
-
-    With ``regroup`` the lane state, parked stacks included, is re-sorted
-    between bounces by the coherence key (dead lanes last), each bounce
-    traces only the live prefix, and the radiance is unsorted by lane id
-    at the end. It is off for ``primary_only`` (no bounce follows the first
-    shade) and for the "xla" engine.
 
     Returns (radiance (R, 3), traced, dropped).
 
@@ -342,36 +299,18 @@ def whitted_trace_wave(scene, env: Environment, cam_arrays,
     port is the plain ``torch.bmm`` engine, so a call that leaves
     ``backend`` out runs another engine in each package; the renderers
     always pass theirs."""
-    R = x.shape[0]
     if bounce_backend is None:
         bounce_backend = backend
     rays = generate_pixel_rays(cam_arrays, x, y, key=key)
-    do_regroup = (regroup and not primary_only
-                  and backend != "xla" and bounce_backend != "xla")
     st = _initial_state(rays, alive0, stack_size)
-    sizes = None
-    if do_regroup:
-        bmin = scene.cl_bbmin.amin(dim=0)
-        binv = 1.0 / torch.clamp_min(scene.cl_bbmax.amax(dim=0) - bmin,
-                                     1e-20)
-        st["lane"] = torch.arange(R, dtype=torch.int32, device=x.device)
     bk = backend
     while read_any(st["alive"], "racc.render.read.wave_alive"):
         with span("racc.render.loop"):
             st = _trace_step(scene, env, st, bk, tile, max_depth,
                              stack_size, shadows, primary_only, opts,
-                             stack_depth, sizes)
-            if do_regroup:
-                with span("racc.render.regroup"):
-                    st = _regroup_trees(st, bmin, binv)
-                sizes = _live_prefix_sizes(R, tile)
+                             stack_depth)
             bk = bounce_backend
-    radiance = st["radiance"]
-    if do_regroup:
-        with span("racc.render.assemble"):
-            _, (radiance,) = regroup_state(st["lane"], st["rays"],
-                                           [radiance])
-    return radiance, st["traced"], st["dropped"]
+    return st["radiance"], st["traced"], st["dropped"]
 
 
 def _reshard_trees(st, mesh: Mesh, D: int):
@@ -395,8 +334,8 @@ def _reshard_trees(st, mesh: Mesh, D: int):
     stk_w = torch.zeros_like(st["stk_w"])
     stk[0] = S[:, 15:22].T
     stk_w[0] = S[:, 22:25].T
-    return dict(st, rays=_secondary(S[:, 0:3].contiguous(),
-                                    S[:, 3:6].contiguous()),
+    return dict(st, rays=secondary_rays(S[:, 0:3].contiguous(),
+                                        S[:, 3:6].contiguous()),
                 weight=S[:, 6:9], radiance=S[:, 9:12],
                 depth=S[:, 12].to(torch.int32), sp=S[:, 13].to(torch.int32),
                 alive=S[:, 14] > 0, stk=stk, stk_w=stk_w, lane=lane), True
@@ -462,17 +401,11 @@ def whitted_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
     always pass theirs."""
     W, R = xs.shape
     N = W * R
-    # Global lane ids are exact in the float32 reassembly rows only below
-    # 2^24.
-    assert N * n_shards < (1 << 24), \
-        f"frame pool {N} x {n_shards} ranks >= 2^24 lanes"
+    lane0 = first_lane(N, mesh, n_shards)
     S = stack_size
     device = xs.device
     f32 = dict(dtype=torch.float32, device=device)
-    lane0 = 0
     if mesh is not None:
-        assert n_shards == mesh.size
-        lane0 = mesh.rank * N
         key = rng.fold_in(key, mesh.rank)
 
     # ---- stage 1: primary trace + first shade/park, wave by wave ----
@@ -501,8 +434,9 @@ def whitted_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
         stk[0] = torch.cat([wst["stk"][0] for wst in waves], dim=1)
         stk_w[0] = torch.cat([wst["stk_w"][0] for wst in waves], dim=1)
         st = dict(
-            rays=_secondary(torch.cat([wst["rays"].o for wst in waves]),
-                            torch.cat([wst["rays"].d for wst in waves])),
+            rays=secondary_rays(
+                torch.cat([wst["rays"].o for wst in waves]),
+                torch.cat([wst["rays"].d for wst in waves])),
             weight=pooled("weight"), depth=pooled("depth"),
             alive=pooled("alive"), sp=pooled("sp"), stk=stk, stk_w=stk_w,
             radiance=pooled("radiance"),
@@ -510,7 +444,7 @@ def whitted_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
                               device=device),
             traced=sum(wst["traced"] for wst in waves),
             dropped=sum(wst["dropped"] for wst in waves))
-        del waves
+        del waves, stk, stk_w
     resharded = False
     if mesh is not None and n_shards > 1 and reshard:
         with span("racc.render.exchange"):
@@ -519,65 +453,52 @@ def whitted_trace_frame(scene: ClusterScene, env: Environment, cam_arrays,
     # ---- stage 2: one bounce loop over the pooled trees ----
     stage_widths = _stage_widths(N, stage_ratio, min_stage_width)
     H = min(hot_levels, S)
-    n_fresh = N
-    pieces = []
-    iterations = deep_hauls = 0
-    for nxt in [*stage_widths[1:], None]:
-        while True:
-            n_live = read_count(st["alive"], "racc.render.read.pool_count")
-            if n_live == 0 or (nxt is not None and n_live <= nxt):
-                break
-            with span("racc.render.loop"):
-                st = _trace_step(scene, env, st, bounce_backend, tile,
-                                 max_depth, S, shadows, False, opts,
-                                 scan=bounce_scan)
-            iterations += 1
-        if nxt is None:
-            break
-        with span("racc.render.shrink"):
-            # Live lanes keep their radiance in the head (partial sums
-            # never split between pieces).
-            perm, piece = _shrink(st["alive"], st["lane"], n_fresh, nxt,
-                                  (st["radiance"],))
-            pieces.append(piece)
-            # Occupied levels are 0..sp-1: the deep tier moves only when
-            # some lane has parked past the hot levels.
-            L = S if H < S and read_any(st["sp"] > H,
-                                        "racc.render.read.deep_stack") else H
-            deep_hauls += L > H
-            stk = torch.zeros((S, 7, nxt), **f32)
-            stk_w = torch.zeros((S, 3, nxt), **f32)
-            stk[:L] = st["stk"][:L, :, perm]
-            stk_w[:L] = st["stk_w"][:L, :, perm]
-            r = st["rays"]
-            st = dict(
-                rays=_secondary(r.o[perm], r.d[perm]),
-                weight=st["weight"][perm], radiance=st["radiance"][perm],
-                depth=st["depth"][perm], sp=st["sp"][perm],
-                alive=torch.arange(nxt, device=device) < n_live,
-                stk=stk, stk_w=stk_w, lane=st["lane"][perm],
-                traced=st["traced"], dropped=st["dropped"])
-        n_fresh = n_live
+    deep_hauls = 0
+
+    def step(st):
+        return _trace_step(scene, env, st, bounce_backend, tile, max_depth,
+                           S, shadows, False, opts, scan=bounce_scan)
+
+    def narrow(st, perm, n_live):
+        nonlocal deep_hauls
+        nxt = perm.shape[0]
+        # Occupied levels are 0..sp-1: the deep tier moves only when some
+        # lane has parked past the hot levels.
+        L = S if H < S and read_any(st["sp"] > H,
+                                    "racc.render.read.deep_stack") else H
+        deep_hauls += L > H
+        stk = torch.zeros((S, 7, nxt), **f32)
+        stk_w = torch.zeros((S, 3, nxt), **f32)
+        stk[:L] = st["stk"][:L, :, perm]
+        stk_w[:L] = st["stk_w"][:L, :, perm]
+        r = st["rays"]
+        return dict(
+            rays=secondary_rays(r.o[perm], r.d[perm]),
+            weight=st["weight"][perm], radiance=st["radiance"][perm],
+            depth=st["depth"][perm], sp=st["sp"][perm],
+            alive=torch.arange(nxt, device=device) < n_live,
+            stk=stk, stk_w=stk_w, lane=st["lane"][perm],
+            traced=st["traced"], dropped=st["dropped"])
+
+    # Live lanes keep their radiance in the head (partial sums never split
+    # between pieces).
+    st, allp, iterations = run_pool(st, stage_widths, step, narrow,
+                                    lambda st: (st["radiance"],))
     if info is not None:
         info.update(iterations=iterations, shrinks=len(stage_widths) - 1,
                     deep_hauls=deep_hauls, resharded=resharded)
 
     # ---- stage 3: reassembly by lane id ----
     with span("racc.render.assemble"):
-        pieces.append(_final_piece(st["lane"], n_fresh,
-                                   len(stage_widths) > 1, (st["radiance"],)))
-        allp = torch.cat(pieces)
-        lane_f, radiance = _route_home(allp[:, 0], allp[:, 1:4], mesh,
-                                       resharded)
-        rad = _by_lane(lane_f, radiance, N, lane0)
+        rad = by_lane(allp[:, 0], allp[:, 1:4], N, lane0, mesh, resharded)
     return rad.reshape(W, R, 3), st["traced"], st["dropped"]
 
 
 class WhittedRenderer(TiledRenderer):
-    """Whitted ray tracer over a compiled scene. The configuration's
-    ``backend`` traces the primaries (and their shadow rays); under
-    ``hybrid_tracing`` the bounces of the dense engines ("pallas", "mxu")
-    go to the sparse pair engine. The frame runs on the pooled tree loop
+    """Whitted ray tracer over a compiled scene (``TiledRenderer._setup``:
+    the engines, under ``hybrid_tracing`` the dense engines' bounces on the
+    sparse pair engine); the primaries' shadow rays go to the primary
+    engine. The frame runs on the pooled tree loop
     (``whitted_trace_frame``) when the configuration regroups on a cluster
     engine and the trees bounce; ``primary_only``, ``regroup=False`` and
     the "xla" engine trace wave by wave (``whitted_trace_wave``).
@@ -593,35 +514,15 @@ class WhittedRenderer(TiledRenderer):
         super().__init__(context, scene_data.viewport_width,
                          scene_data.viewport_height)
         cfg = context.configuration
-        self.camera = camera
-        self.scene_data = scene_data
         self.shadows = shadows
         self.primary_only = primary_only
-        self.backend, self.scene = bind_scene(cfg.backend, scene_data,
-                                              tpu_scene, self.device)
-        self.bounce_backend = (
-            "sparse" if cfg.hybrid_tracing and self.backend in ("mxu",
-                                                                "pallas")
-            else self.backend)
-        if environment is None:
-            env_px = scene_data.env_pixels
-            assert env_px is not None, "scene has no environment probe"
-            environment = create_environment(env_px, env_px.shape[1],
-                                             env_px.shape[0],
-                                             device=self.device)
-        self._bind(self.scene, environment)
+        self._setup(camera, scene_data, tpu_scene, environment)
         # main.cpp:346 forces maxDepth=8 for the Whitted demo.
-        self.max_depth = int(scene_data.max_depth)
         self.stack_size = max(cfg.max_shading_depth, self.max_depth + 1)
-        self.opts = cfg.engine_opts()
-        self.tile = min(cfg.trace_block, self.shard_lanes)
-        self.stack_depth = cfg.traversal_stack_depth
-        self.min_stage_width = cfg.min_stage_width
         self.stage_ratio = cfg.whitted_stage_ratio
         self.hot_levels = cfg.whitted_hot_levels
         self.bounce_scan = cfg.whitted_bounce_scan
-        self.pooled = (not primary_only and cfg.regroup
-                       and self.backend in CLUSTER_BACKENDS)
+        self.pooled = self.pooled and not primary_only
         self.last_info: dict = {}
 
     def _wave_kwargs(self):
@@ -645,5 +546,4 @@ class WhittedRenderer(TiledRenderer):
             self.scene, self.environment, self._camera_arrays(),
             x, y, alive, wave_key, self.max_depth,
             stack_depth=self.stack_depth, primary_only=self.primary_only,
-            regroup=self.context.configuration.regroup,
             **self._wave_kwargs())

@@ -653,38 +653,6 @@ def test_dense_kernels_refuse_a_tile_they_do_not_take(cuda, scenes,
         dense.dense_occluded(*a, boxes=dense.cluster_boxes(cs))
 
 
-def test_regroup_permutation_matches_cpu(cuda, scenes):
-    """The coherence key and the stable sort give the card the CPU's
-    permutation, ties (dead lanes, repeated origins) included: every column
-    of the regrouped state is equal, narrow or wide."""
-    from rayaccel_tpu_torch.render.regroup import (coherence_key,
-                                                   regroup_state)
-    from rayaccel_tpu_torch.types import Rays
-    cpu_cs, _ = scenes
-    n = 65536
-    r = _rays(cpu_cs, n, 11, "cpu")
-    r.o[: n // 4] = r.o[n // 4: n // 2]               # live lanes that tie
-    rs = np.random.default_rng(12)
-    alive = torch.tensor(rs.uniform(size=n) < 0.6)
-    bmin = cpu_cs.cl_bbmin.amin(0)
-    binv = 1.0 / (cpu_cs.cl_bbmax.amax(0) - bmin).clamp_min(1e-20)
-    cols = [torch.arange(n, dtype=torch.int32), alive,
-            torch.tensor(rs.uniform(size=(n, 3)).astype(np.float32)),
-            torch.tensor(rs.uniform(size=(n, 90)).astype(np.float32))]
-    want_key = coherence_key(r, alive, bmin, binv)
-    got_key = coherence_key(Rays(*(a.to(cuda) for a in r)), alive.to(cuda),
-                            bmin.to(cuda), binv.to(cuda))
-    assert torch.equal(got_key.cpu(), want_key)
-    want_rays, want_cols = regroup_state(want_key, r, cols)
-    got_rays, got_cols = regroup_state(
-        got_key, Rays(*(a.to(cuda) for a in r)), [c.to(cuda) for c in cols])
-    for a, b in zip([*got_rays, *got_cols], [*want_rays, *want_cols]):
-        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
-    n_live = int(alive.sum())
-    assert bool(got_cols[1][:n_live].all()) and not bool(
-        got_cols[1][n_live:].any())
-
-
 def test_trace_mxu_matches_dense_on_the_card(cuda, scenes):
     """The plain cluster engine (``torch.bmm`` at fp32, TF32 off) against
     the dense work-queue engine (K1) on the same rays on the card, and its
@@ -754,7 +722,8 @@ def test_cli_resume_is_bitwise_on_the_card(cuda, tmp_path):
 
 
 def test_profile_stages_on_the_card(cuda):
-    """Five stages, each timed by CUDA events and positive."""
+    """Four stages (the JAX function's less its regroup), each timed by
+    CUDA events and positive."""
     import rayaccel_tpu_torch as racc
     from rayaccel_tpu_torch import rng
     from rayaccel_tpu_torch.scene.loader import make_test_scene
@@ -768,7 +737,7 @@ def test_profile_stages_on_the_card(cuda):
     r.render_frame(rng.PRNGKey(0))
     out = profile_stages(r, iters=3)
     assert set(out) == {"primary_trace_ms", "bounce_trace_ms", "shade_ms",
-                        "regroup_ms", "env_sample_ms"}
+                        "env_sample_ms"}
     assert all(np.isfinite(v) and v > 0 for v in out.values()), out
 
 

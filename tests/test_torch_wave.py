@@ -1,9 +1,8 @@
 """The port's per-wave path tracer against the JAX package's on the 64x64
-test scene: the stratified sampler's draws, ``pt_trace_wave`` with and
-without the between-bounce regroup (dense primaries, sparse bounces, run
-in JAX as its own tests run it) through the two-class image gate, the
-regroup bitwise inside the port, and the per-wave renderer against the
-pooled one."""
+test scene: the stratified sampler's draws, ``pt_trace_wave`` (dense
+primaries, sparse bounces) against the JAX function with and without its
+between-bounce regroup (run in JAX as its own tests run it) through the
+two-class image gate, and the per-wave renderer against the pooled one."""
 
 import numpy as np
 import pytest
@@ -105,8 +104,10 @@ def test_stratified_sampler(wave_inputs, spp):
 
 @pytest.mark.parametrize("regroup", [False, True])
 def test_wave_matches_jax(wave_inputs, regroup):
-    """Depth 3, the same key: the two-class gate, dropped 0 on both, rays
-    traced within 0.5% (a flipped winner re-aims a path)."""
+    """Depth 3, the same key: the port's one path against the JAX wave
+    with and without its regroup (``regroup`` is the JAX side's): the
+    two-class gate, dropped 0 on both, rays traced within 0.5% (a flipped
+    winner re-aims a path)."""
     sd, jcs, cs, perm, x, y = wave_inputs
     px = sd.env_pixels
     alive = perm >= 0
@@ -115,34 +116,13 @@ def test_wave_matches_jax(wave_inputs, regroup):
         jnp.asarray(x), jnp.asarray(y), jnp.asarray(alive),
         jax.random.PRNGKey(11), DEPTH, backend="pallas", tile=TILE,
         regroup=regroup, bounce_backend="sparse")
-    rad, traced, dropped = _port_wave(sd, cs, perm, x, y, 11, regroup=regroup)
+    rad, traced, dropped = _port_wave(sd, cs, perm, x, y, 11)
     assert int(dropped) == int(dropped_ref) == 0
     assert abs(int(traced) - int(traced_ref)) <= 0.005 * int(traced_ref)
     img = rad.numpy()[alive]
     gate = two_class_gate(img, np.asarray(ref)[alive])
     assert gate["rmse_trimmed"] < 1e-3 and gate["frac_flip"] < 0.005, gate
     assert np.isfinite(img).all() and img.max() > 0
-
-
-@pytest.mark.parametrize("bounce_backend", ["sparse", "pallas", "mxu"])
-def test_wave_regroup_bitwise(wave_inputs, bounce_backend):
-    """The BSDF draws are keyed by lane id, so moving the lanes between
-    bounces and tracing only the live prefix changes no lane's radiance:
-    the wave with and without the regroup is the same bit for bit, on
-    every cluster engine."""
-    sd, _, cs, perm, x, y = wave_inputs
-    px = sd.env_pixels
-    out = {}
-    for rg in (False, True):
-        out[rg] = pathtracer.pt_trace_wave(
-            cs, create_environment(px, px.shape[1], px.shape[0], device="cpu"),
-            _cams(sd)[1], torch.tensor(x), torch.tensor(y),
-            torch.tensor(perm >= 0), rng.PRNGKey(4), DEPTH,
-            backend="pallas" if bounce_backend == "sparse" else bounce_backend,
-            tile=512, bounce_backend=bounce_backend, regroup=rg)
-        assert int(out[rg][2]) == 0
-    np.testing.assert_array_equal(out[True][0].numpy(), out[False][0].numpy())
-    assert int(out[True][1]) == int(out[False][1]) > SIZE * SIZE
 
 
 def _renderer(sd, **kw):
@@ -190,7 +170,7 @@ def test_per_wave_renderer_is_the_wave_function(wave_inputs):
         pathtracer.pt_trace_wave(
             r.scene, env, _cams(sd)[1], xs[w], ys[w], alive[w],
             rng.fold_in(rng.PRNGKey(2), w), DEPTH, backend="pallas",
-            tile=512, regroup=False, bounce_backend="sparse")[0]
+            tile=512, bounce_backend="sparse")[0]
         for w in range(W)])
     fb = r.frame_buffer.clone()
     np.testing.assert_array_equal(fb.numpy(), want.reshape(-1, 3).numpy())
