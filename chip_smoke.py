@@ -84,10 +84,17 @@ the package is missing. Phases, one JSON line each:
    wave of that frame (most rays through the pyramid's holes): its walk
    counts beside the tile walk's, its ms, its bound over
    ``pairs_entered``, and its words against the plain version at the
-   oracle bar;
+   oracle bar; then the threefry draws (``csrc/threefry.cu``, behind
+   ``rng.uniform``, ``rng.lane_uniform`` and ``rng.fold_in_uniform_pair``):
+   each draw shape at a wave's width (65,536) and the bounce pool's
+   (983,040), word for word its plain int64 path, with its ms, the plain
+   path's ms (the yardstick) and its bound (``THREEFRY_ROW_OPS``, bytes
+   at 3.35 TB/s);
 4. slice: ``PathTracingRenderer`` at 1280x720, depth 2, the default
    configuration: one warm-up frame and three timed frames, with every
-   kernel's launch count over the timed frames (each must be > 0),
+   kernel's launch count over the timed frames (each must be > 0; every
+   slice runs the threefry draws, one launch for each ``racc.shade.rng``
+   span its frames open, ``rng_spans``),
    ``dropped`` (must be 0) and an image check (finite, not black);
 5. gate: the same slice at 320x180 and 2 spp on the card against the same
    frames on the host CPU (plain versions, same keys), through the
@@ -234,6 +241,17 @@ PEAK_BYTES_PER_S = 3.35e12
 FLOP_PER_TRIANGLE = 80
 FLOP_PER_SLAB = 24
 NO_LIBRARY = "none: no single PyTorch call computes it"
+# The threefry kernel's bound: the operations only the INT32 pipe runs,
+# 64 a clock on each of the 132 SMs (NVIDIA's documented throughput of
+# 32-bit shifts and logic at compute capability 9.0), at 1.98 GHz: a
+# Threefry-2x32 block's 20 rotations and 20 xors, a float's shift and or,
+# and each xor of two words (the positional and pair draws); the pair's
+# per-element key adds its schedule's xor. The adds are left out: the
+# kernel's SASS (sm_90a) issues all but 8-15 of them a row as IMAD.IADD on
+# the FMA pipe, and its SHF, LOP3 and LEA.HI come to 43, 83 and 126 a row.
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+THREEFRY_SHAPES = ("positional", "lane", "pair")     # rng.py's numbering
+THREEFRY_ROW_OPS = (40 + 1 + 2, 2 * 40 + 3 * 2, 3 * 40 + 1 + 2 * (1 + 2))
 # Rays of each of the oracle's ray sets (``tools/oracle_lib.py``'s).
 ORACLE_RAYS = 65536
 # The metrics of ``python -m rayaccel_tpu_torch.bench`` at
@@ -252,7 +270,8 @@ KERNEL_SYMBOLS = {"dense_closest_hit": "dense_hit_kernel",
                   "pair_hit": "pair_hit_kernel",
                   "dense_closest_hit_bf16": "dense_hit_bf16_kernel",
                   "dense_occluded_bf16": "dense_occl_bf16_kernel",
-                  "pair_hit_bf16": "pair_hit_bf16_kernel"}
+                  "pair_hit_bf16": "pair_hit_bf16_kernel",
+                  "threefry_draws": r"\bthreefry_kernel<"}
 UNIT_PASS_SYMBOL = "pair_hit_units_kernel"
 BF16_KERNELS = ("dense_closest_hit", "dense_occluded", "pair_hit")
 
@@ -391,6 +410,7 @@ def record_launches(dense, sparse, run):
     copy of its inputs and its output. Returns [(wrapper, args, kwargs,
     out)] in launch order."""
     import torch
+    from rayaccel_tpu_torch import rng
     calls = []
 
     def keeper(fn):
@@ -410,7 +430,8 @@ def record_launches(dense, sparse, run):
     for mod, fn in ((dense, dense.dense_closest_hit),
                     (dense, dense.dense_occluded),
                     (sparse, sparse.select_nearest),
-                    (sparse, sparse.pair_hit)):
+                    (sparse, sparse.pair_hit),
+                    (rng, rng.threefry_draws)):
         originals[fn.__name__] = (mod, fn)
         setattr(mod, fn.__name__, keeper(fn))
     try:
@@ -426,7 +447,12 @@ def kernel_work(dense, name, args, out, n_c, precision="highest"):
     """(operations, bytes) that one launch of a kernel needs on its own
     inputs ``args`` and output ``out`` at ``precision``: K1 and K4 their
     pairs needed, K2 its live lanes (tmax > 0) against the n_c real boxes
-    (the padding boxes are no work), K3 the pairs its items cover."""
+    (the padding boxes are no work), K3 the pairs its items cover, the
+    threefry draws ``THREEFRY_ROW_OPS`` a row."""
+    if name == "threefry_draws":
+        shape, _, ids, n = args[:4]
+        return (n * THREEFRY_ROW_OPS[shape],
+                nbytes(out) + (0 if ids is None else nbytes(ids)))
     if name in ("dense_closest_hit", "dense_occluded"):
         F, G3, qc, qe, qn, tile = args[:6]
         pairs = (k1_pairs_needed(F, qc, qe, qn, out[0], tile)
@@ -1234,13 +1260,70 @@ def main() -> int:
     del sd_t, cs_t, r_t, ctx_t, rays_t, Ft, qt, args_t, out_kt, out_pt, qc_t
     torch.cuda.empty_cache()
 
+    # The threefry draws: each draw shape at a wave's width and the bounce
+    # pool's against its plain int64 path, bit for bit, the plain path's
+    # ms beside (some 180 elementwise launches a cipher call), and the
+    # bound. Positional draws take the first BSDF draw's (R, 3); lane ids
+    # and pixels run over the frame in order. The kernel table's row
+    # carries the lane-keyed draw at the pool's width (the frame's widest
+    # draw) and each shape at each width under ``by_shape``.
+    draws_row = dict(name="threefry_draws", route="cuda",
+                     source="rayaccel_tpu_torch/csrc/threefry.cu",
+                     replaces="none: jax.random's threefry, fused by XLA",
+                     max_abs_err=0.0, by_shape={})
+    tkey = rng.fold_in(rng.PRNGKey(0x5EED), 3)
+    for width in (65536, 983040):
+        ids = torch.arange(width, dtype=torch.int32, device=dev)
+        pix = (ids // 1280) << 16 | ids % 1280
+        cases = (
+            (rng._POSITIONAL, None, 3 * width,
+             lambda: rng.uniform(tkey, (width, 3), dev),
+             lambda: rng.uniform_plain(tkey, (width, 3), dev)),
+            (rng._LANE, ids, width, lambda: rng.lane_uniform(tkey, ids),
+             lambda: rng.lane_uniform_plain(tkey, ids)),
+            (rng._PAIR, pix, width,
+             lambda: rng.fold_in_uniform_pair(tkey, pix),
+             lambda: rng.fold_in_uniform_pair_plain(tkey, pix)))
+        for shape, shape_ids, rows, kernel_fn, plain_fn in cases:
+            name = THREEFRY_SHAPES[shape]
+            before = rng.threefry_draws.launches
+            got, want = kernel_fn(), plain_fn()
+            torch.cuda.synchronize()
+            st = dict(rows=rows, width=width, floats=got.numel(),
+                      launches=rng.threefry_draws.launches - before,
+                      words_differing=int((got.view(torch.int32)
+                                           != want.view(torch.int32)).sum()),
+                      ms=cuda_ms(kernel_fn, 50), plain_ms=cuda_ms(plain_fn, 5))
+            ops, moved = kernel_work(dense, "threefry_draws",
+                                     (shape, tkey, shape_ids, rows), got, 0)
+            st.update(roofline(ops, moved, st["ms"], PEAK_INT32_OPS))
+            st["int_ops"] = st.pop("flop")
+            emit(dict(phase="kernel", name=f"threefry {name}", **st))
+            if st["words_differing"] or st["launches"] != 1:
+                raise AssertionError(f"threefry {name} at {width}: {st}")
+            draws_row["by_shape"][f"{name} {width}"] = kernel_row(st)
+            if shape == rng._LANE and width == 983040:
+                draws_row.update(kernel_row(st))
+        del ids, pix, got, want
+    kernels.append(draws_row)
+
     if sys.argv[1:] == ["--kernels"]:
         emit(dict(kernels_ok=True, kernels=kernels + bf16_rows + probe_rows))
         return 0
 
     wrappers = (dense.dense_closest_hit, dense.dense_occluded,
-                sparse.select_nearest, sparse.pair_hit)
+                sparse.select_nearest, sparse.pair_hit, rng.threefry_draws)
     slices = {}
+    # The ``racc.shade.rng`` spans rng.py opens, counted as it opens them:
+    # a slice holds the threefry launches to one a span.
+    rng_spans = [0]
+    open_span = rng.span
+
+    def counted_span(name):
+        rng_spans[0] += name == "racc.shade.rng"
+        return open_span(name)
+
+    rng.span = counted_span
 
     def reset_counts():
         for fn in wrappers:
@@ -1248,6 +1331,7 @@ def main() -> int:
             if fn.__name__ in BF16_KERNELS:
                 fn.launches_bf16 = 0
         sparse.pair_hit.guard_launches = 0
+        rng_spans[0] = 0
 
     def read_counts():
         """Launches of each kernel-table row: a wrapper's fp32 launches
@@ -1270,10 +1354,12 @@ def main() -> int:
     def drive(name, renderer, keys, needed, deep=True, **extra):
         """One warm-up frame, then ``keys`` timed, with every launch count
         set to 0 just before them and read just after. Emits the slice's
-        line; raises unless each kernel in ``needed`` launched, ``dropped``
+        line; raises unless each kernel in ``needed`` and the threefry
+        draws launched, the draws once a ``racc.shade.rng`` span, ``dropped``
         is 0 and the image is finite and not black. With ``deep``, the
         slice's profiled frame and launch frame follow and its counts enter
         the kernel table."""
+        needed = [*needed, "threefry_draws"]
         torch.cuda.reset_peak_memory_stats()
         renderer.render_frame(rng.PRNGKey(100))          # warm-up
         torch.cuda.synchronize()
@@ -1293,6 +1379,7 @@ def main() -> int:
             frame_ms=seconds / len(keys) * 1e3,
             mrays_per_s=rays_traced / seconds / 1e6, rays=rays_traced,
             dropped=renderer.dropped, launches=launches,
+            rng_spans=rng_spans[0],
             image_finite=bool(np.isfinite(img).all()),
             image_mean=float(img.mean()), image_max=float(img.max()),
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -1301,6 +1388,10 @@ def main() -> int:
         if renderer.dropped != 0:
             raise AssertionError(f"{name} dropped {renderer.dropped} rays")
         require_launches(name, launches, needed)
+        if launches["threefry_draws"] != line["rng_spans"]:
+            raise AssertionError(f"{name}: {launches['threefry_draws']} "
+                                 f"threefry launches in {line['rng_spans']} "
+                                 f"racc.shade.rng spans")
         if not (line["image_finite"] and line["image_max"] > 0):
             raise AssertionError(f"{name} image is not finite or is black")
         if not deep:
@@ -1348,12 +1439,14 @@ def main() -> int:
             precision = kw.get("precision", "highest")
             flop, moved = kernel_work(dense, fn.__name__, a, out,
                                       cs.n_clusters, precision)
+            draws = fn.__name__ == "threefry_draws"
             row = per[row_name(fn.__name__, precision)]
             row["launches"] += 1
-            row["widths"].append(int(a[0].shape[0]))
+            row["widths"].append(int(a[3] if draws else a[0].shape[0]))
             row["ms"] += cuda_ms(lambda: fn(*a, **kw), 5)
-            row["bound_ms"] += roofline(flop, moved, 1.0,
-                                        peak_flops(precision))["bound_ms"]
+            row["bound_ms"] += roofline(
+                flop, moved, 1.0,
+                PEAK_INT32_OPS if draws else peak_flops(precision))["bound_ms"]
         for row in per.values():
             row["share_of_bound"] = (row["bound_ms"] / row["ms"]
                                      if row["ms"] else None)
@@ -1450,7 +1543,7 @@ def main() -> int:
         shadows=True)
     require_launches("whitted_gate", launches,
                      ["dense_closest_hit", "dense_occluded", "select_nearest",
-                      "pair_hit", "pair_hit_guard_tmax"])
+                      "pair_hit", "pair_hit_guard_tmax", "threefry_draws"])
 
     def wall_ms(fn):
         """Milliseconds of one ``fn()`` on the host's clock, the device
@@ -1504,7 +1597,7 @@ def main() -> int:
     emit(line)
     require_launches("whitted_wave", launches,
                      ["dense_closest_hit", "dense_occluded", "select_nearest",
-                      "pair_hit", "pair_hit_guard_tmax"])
+                      "pair_hit", "pair_hit_guard_tmax", "threefry_draws"])
     if not (line["dropped"] == 0 and line["radiance_finite"]
             and line["radiance_max"] > 0):
         raise AssertionError(f"whitted_wave failed: {line}")
@@ -1696,7 +1789,8 @@ def main() -> int:
     emit(line)
     app_launches["cli"] = (render_counts, frames)
     require_launches("cli", render_counts,
-                     ["dense_closest_hit", "select_nearest", "pair_hit"])
+                     ["dense_closest_hit", "select_nearest", "pair_hit",
+                      "threefry_draws"])
     if not (r.dropped == 0 and r.max_depth == 8 and r.spp == 4
             and line["pfm_shape"] == [720, 1280, 3]
             and line["image_finite"] and line["image_max"] > 0
@@ -1757,7 +1851,8 @@ def main() -> int:
     emit(line)
     app_launches["cli_whitted"] = (launches, 1)
     require_launches("cli_whitted", launches,
-                     ["dense_closest_hit", "select_nearest", "pair_hit"])
+                     ["dense_closest_hit", "select_nearest", "pair_hit",
+                      "threefry_draws"])
     if not (r.dropped == 0 and r.max_depth == 8 and line["image_finite"]
             and line["image_max"] > 0):
         raise AssertionError(f"cli_whitted failed: {line}")
@@ -1827,7 +1922,8 @@ def main() -> int:
     emit(line)
     app_launches["viewer"] = (launches, None)
     require_launches("viewer", launches,
-                     ["dense_closest_hit", "select_nearest", "pair_hit"])
+                     ["dense_closest_hit", "select_nearest", "pair_hit",
+                      "threefry_draws"])
     if not (line["png_signature"] and served["spp"] >= 1 and moved
             and line["reset"] and line["stopped"] and vr.dropped == 0):
         raise AssertionError(f"viewer failed: {line}")
@@ -1857,7 +1953,8 @@ def main() -> int:
             renderer_on(cls, scene_at(320, 180, depth), mesh1, **kw),
             [rng.PRNGKey(9)], renderer=name, viewport=[320, 180], spp=1,
             max_depth=depth, shadows=bool(kw))
-        require_launches(f"mesh1_gate {name}", launches, needed)
+        require_launches(f"mesh1_gate {name}", launches,
+                         [*needed, "threefry_draws"])
     dist.destroy_process_group()
 
     def require_no_fp32(name, launches):
@@ -1902,7 +1999,8 @@ def main() -> int:
                   dropped_highest=images["highest"][1], launches=launches,
                   seconds=time.perf_counter() - t0))
         app_launches[f"default_gate_{name}"] = (launches, 1)
-        require_launches(f"default_gate {name}", launches, needed)
+        require_launches(f"default_gate {name}", launches,
+                         [*needed, "threefry_draws"])
         require_no_fp32(f"default_gate {name}", launches)
         if images["default"][1] or images["highest"][1]:
             raise AssertionError(f"default_gate {name} dropped rays: "

@@ -40,6 +40,7 @@ build_log = ""   # nvcc's output of the build this process ran (ptxas -v)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _SIGNATURES = {
     "racc_dense_hit": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _P],
@@ -61,6 +62,7 @@ _SIGNATURES = {
                          _I, _I, _I, _P],
     "racc_cull_queue": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                         _I, _I, _I, _P],
+    "racc_threefry": [_I, _P, _P, _I, _U, _U, _P],
 }
 
 

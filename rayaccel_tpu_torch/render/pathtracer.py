@@ -136,9 +136,8 @@ def _stratified_jitter(x, y, spp_index, sampler_key):
     per pixel by a frame-independent random offset (a function of the
     pixel, not the lane: waves reuse lane offsets). Returns (rot (R, 2),
     jx, jy)."""
-    pix = (y.to(torch.int64) << 16) | x.to(torch.int64)
-    with span("racc.shade.rng"):
-        rot = rng.uniform_pair_each(*rng.fold_in_each(sampler_key, pix))
+    pix = (y.to(torch.int32) << 16) | x.to(torch.int32)
+    rot = rng.fold_in_uniform_pair(sampler_key, pix)
     s_f = np.float32(int(spp_index))
     # The products are rounded to float32 on the host, as the device would
     # round them.

@@ -5,10 +5,11 @@ Counterpart of the ``jax.random`` calls on the headline path
 oracle's scattered rays and the dry run's per-rank keys) and of
 ``rayaccel_tpu/render/pathtracer.py:_lane_uniform``. A key is a tuple of
 two Python ints (the two uint32 words of a raw jax key), so folding a
-scalar into a key is host arithmetic; the per-element streams run as int64
-tensor arithmetic on the device of the tensor they are given; the tensor
-draws (``uniform``, ``lane_uniform``) run inside the span
-``racc.shade.rng`` (``utils/spans.py``).
+scalar into a key is host arithmetic. The tensor draws (``uniform``,
+``lane_uniform``, ``fold_in_uniform_pair``) run inside the span
+``racc.shade.rng`` (``utils/spans.py``): on a CPU tensor as int64 tensor
+arithmetic (their ``_plain`` twins, which run on any device), on a CUDA
+tensor as one launch of ``csrc/threefry.cu`` with the same bits.
 
 Matching jax (0.9, ``jax_threefry_partitionable=True``):
 
@@ -23,9 +24,9 @@ Matching jax (0.9, ``jax_threefry_partitionable=True``):
 - ``lane_uniform`` calls the raw ``threefry_2x32``, which splits its counter
   array in half and pairs element i with element n/2 + i.
 
-CPU torch has no uint32 shifts, adds or compares, so every word is held in
-an int64 and masked to 32 bits after each operation. The same code runs on
-Python ints (keys) and on int64 tensors (streams).
+CPU torch has no uint32 shifts, adds or compares, so every word of the plain
+path is held in an int64 and masked to 32 bits after each operation. The
+same code runs on Python ints (keys) and on int64 tensors (streams).
 """
 
 from __future__ import annotations
@@ -35,12 +36,17 @@ from typing import Tuple
 import torch
 
 from rayaccel_tpu_torch.device import resolve_device
+from rayaccel_tpu_torch.ops import _kernels
 from rayaccel_tpu_torch.utils.spans import span
 
 Key = Tuple[int, int]
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+# The draw shapes of ``csrc/threefry.cu`` (its template parameter), and the
+# floats of an output row of each.
+_POSITIONAL, _LANE, _PAIR = 0, 1, 2
+_ROW = {_POSITIONAL: 1, _LANE: 3, _PAIR: 2}
 
 
 def _rotl(x, r: int):
@@ -105,33 +111,102 @@ def uniform_pair_each(k0: torch.Tensor, k1: torch.Tensor) -> torch.Tensor:
     return _bits_to_unit_float(torch.stack(draws, dim=-1))
 
 
-def uniform(key: Key, shape, device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32)`` on ``device`` (default:
-    the current CUDA device; with none visible this raises, as
-    :func:`device.resolve_device` does)."""
-    device = resolve_device(device)
+def threefry_draws(shape: int, key: Key, ids, n: int,
+                   device) -> torch.Tensor:
+    """One launch of ``csrc/threefry.cu``: the (n, row) float32 draws of
+    draw shape ``shape`` (``_POSITIONAL``, ``_LANE`` or ``_PAIR``) under
+    ``key``, from the (n,) int32 tensor ``ids`` (lane ids or elements;
+    None for positional draws) on CUDA ``device``.
+    ``threefry_draws.launches`` counts its launches."""
+    if n > 0x7FFFFFFF:
+        raise ValueError(f"the threefry kernel draws at most 2^31 - 1 rows, "
+                         f"got {n}")
+    out = torch.empty((n, _ROW[shape]), dtype=torch.float32, device=device)
+    if ids is not None:
+        ids = ids.contiguous()
+        _kernels.require(ids, "ids", torch.int32, (n,))
+    if n == 0:
+        return out
+    _kernels.check(_kernels.library().racc_threefry(
+        shape, _kernels.ptr(ids) if ids is not None else None,
+        _kernels.ptr(out), n, key[0], key[1], _kernels.stream()),
+        "racc_threefry")
+    threefry_draws.launches += 1
+    return out
+
+
+threefry_draws.launches = 0
+
+
+def fold_in_uniform_pair(key: Key, data: torch.Tensor) -> torch.Tensor:
+    """``vmap(lambda p: uniform(fold_in(key, p), (2,)))(data)`` over an
+    integer tensor (each element taken mod 2^32): (..., 2) float32, the
+    stratified sampler's per-pixel rotation. One kernel launch on a CUDA
+    tensor, which must be int32; :func:`fold_in_uniform_pair_plain` on a
+    CPU tensor."""
+    with span("racc.shade.rng"):
+        if data.device.type == "cpu":
+            return fold_in_uniform_pair_plain(key, data)
+        return threefry_draws(_PAIR, key, data.reshape(-1), data.numel(),
+                              data.device).reshape(*data.shape, 2)
+
+
+def fold_in_uniform_pair_plain(key: Key, data: torch.Tensor) -> torch.Tensor:
+    """:func:`fold_in_uniform_pair` as int64 tensor arithmetic, on any
+    device: :func:`fold_in_each`, then :func:`uniform_pair_each`."""
+    return uniform_pair_each(*fold_in_each(key, data))
+
+
+def _numel(shape) -> int:
     n = 1
     for s in shape:
         n *= int(s)
+    return n
+
+
+def uniform(key: Key, shape, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` on ``device`` (default:
+    the current CUDA device; with none visible this raises, as
+    :func:`device.resolve_device` does). One kernel launch on a CUDA
+    device; :func:`uniform_plain` on the CPU."""
+    device = resolve_device(device)
     with span("racc.shade.rng"):
-        lo = torch.arange(n, dtype=torch.int64, device=device)
-        b0, b1 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
-        return _bits_to_unit_float(b0 ^ b1).reshape(tuple(shape))
+        if device.type == "cpu":
+            return uniform_plain(key, shape, device)
+        return threefry_draws(_POSITIONAL, key, None, _numel(shape),
+                              device).reshape(tuple(shape))
+
+
+def uniform_plain(key: Key, shape, device) -> torch.Tensor:
+    """:func:`uniform` as int64 tensor arithmetic, on any ``device``: the
+    64-bit iota's (hi, lo) = (0, i) hashed, ``bits1 ^ bits2``."""
+    lo = torch.arange(_numel(shape), dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    return _bits_to_unit_float(b0 ^ b1).reshape(tuple(shape))
 
 
 def lane_uniform(key: Key, lane: torch.Tensor) -> torch.Tensor:
-    """Per-lane (R, 3) uniforms keyed by lane id (``_lane_uniform``).
+    """Per-lane (R, 3) uniforms keyed by the (R,) lane ids ``lane``
+    (``_lane_uniform``): one kernel launch on a CUDA tensor, which must be
+    int32; :func:`lane_uniform_plain` on a CPU tensor."""
+    with span("racc.shade.rng"):
+        if lane.device.type == "cpu":
+            return lane_uniform_plain(key, lane)
+        return threefry_draws(_LANE, key, lane, lane.shape[0], lane.device)
+
+
+def lane_uniform_plain(key: Key, lane: torch.Tensor) -> torch.Tensor:
+    """:func:`lane_uniform` as int64 tensor arithmetic, on any device.
 
     The JAX function hashes the counter array [l, l+2^30, l+2^31, l+3*2^30]
     with ``threefry_2x32``, which pairs (l, l+2^31) and (l+2^30,
     l+3*2^30) into one cipher block each; its three draws are the first
     word of each block and the second word of the first block."""
-    with span("racc.shade.rng"):
-        l = lane.to(torch.int64)
-        a0, a1 = threefry2x32(key[0], key[1], l, (l + (2 << 30)) & _M32)
-        b0, _ = threefry2x32(key[0], key[1], (l + (1 << 30)) & _M32,
-                             (l + (3 << 30)) & _M32)
-        return _bits_to_unit_float(torch.stack([a0, b0, a1], dim=1))
+    l = lane.to(torch.int64)
+    a0, a1 = threefry2x32(key[0], key[1], l, (l + (2 << 30)) & _M32)
+    b0, _ = threefry2x32(key[0], key[1], (l + (1 << 30)) & _M32,
+                         (l + (3 << 30)) & _M32)
+    return _bits_to_unit_float(torch.stack([a0, b0, a1], dim=1))
 
 
 # XLA's erf_inv for float32 (``ErfInv32``): a degree-8 polynomial in

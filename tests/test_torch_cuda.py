@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from rayaccel_tpu_torch import rng
 from rayaccel_tpu_torch.camera import Camera, generate_pixel_rays
+from rayaccel_tpu_torch.device import resolve_device
 from rayaccel_tpu_torch.ops import trace_dense as dense
 from rayaccel_tpu_torch.ops import trace_sparse as sparse
 from rayaccel_tpu_torch.render.whitted import shadow_rays
@@ -24,6 +26,7 @@ from rayaccel_tpu_torch.scene.data import SceneData
 from rayaccel_tpu_torch.scene.loader import make_battlefield_like
 from rayaccel_tpu_torch.tools.oracle_lib import two_class_gate
 from rayaccel_tpu_torch.types import make_rays
+from rng_cases import EDGE_LANES, EDGE_PIXELS, KEYS, key, pixel_ids
 
 pytestmark = pytest.mark.cuda
 
@@ -1403,3 +1406,117 @@ def test_pair_hit_mb_raises_instead_of_returning_stale_words(cuda, scenes):
         pm.pair_hit_mb(Fp, shifted, items, col_bits, False)
     assert pm.pair_hit_mb.launches == launches + 1
     assert torch.equal(pm.pair_hit_mb(*args), sparse.pair_hit(*args))
+
+
+# ---- the threefry draws (csrc/threefry.cu) against the plain int64 path,
+# over the keys, lane ids and pixels of tests/rng_cases.py
+
+
+def _same_words(got, want):
+    assert got.shape == want.shape and got.device.type == "cuda"
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("spec", KEYS)
+@pytest.mark.parametrize("shape", [(2, 65536), (65536, 3), (983040, 3),
+                                   (5,), (0,)])
+def test_threefry_positional_draws_are_the_plain_words(cuda, shape, spec):
+    """``uniform`` at the camera jitter's (2, R) and the first BSDF draw's
+    (R, 3), at a wave's width and the bounce pool's, a short and an empty
+    stream: one launch, the plain path's words."""
+    launches = rng.threefry_draws.launches
+    got = rng.uniform(key(spec), shape, device=cuda)
+    _same_words(got, rng.uniform_plain(key(spec), shape, cuda))
+    assert tuple(got.shape) == shape
+    assert rng.threefry_draws.launches == launches + (got.numel() > 0)
+
+
+@pytest.mark.parametrize("count", [1, 255, 257, 65553, 983029])
+@pytest.mark.parametrize("spec", KEYS)
+def test_threefry_lane_draws_are_the_plain_words(cuda, spec, count):
+    """``lane_uniform`` on the edge lane ids and a run of ``count`` more
+    (12 to 983,040 lanes, mostly not a multiple of the 256-thread block),
+    int32 as the pools hold them."""
+    lanes = torch.cat([torch.tensor(EDGE_LANES), torch.arange(count)]).to(
+        dtype=torch.int32, device=cuda)
+    launches = rng.threefry_draws.launches
+    got = rng.lane_uniform(key(spec), lanes)
+    _same_words(got, rng.lane_uniform_plain(key(spec), lanes))
+    assert rng.threefry_draws.launches == launches + 1
+
+
+def test_threefry_takes_int32_ids_only(cuda):
+    """The kernel reads int32 lane ids and pixels; an int64 tensor is
+    refused before any launch."""
+    launches = rng.threefry_draws.launches
+    wide = torch.arange(8, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="ids must be torch.int32"):
+        rng.lane_uniform(key(KEYS[0]), wide)
+    with pytest.raises(ValueError, match="ids must be torch.int32"):
+        rng.fold_in_uniform_pair(key(KEYS[0]), wide)
+    assert rng.threefry_draws.launches == launches
+
+
+@pytest.mark.parametrize("spec", KEYS)
+def test_threefry_pair_draws_are_the_plain_words(cuda, spec):
+    """The stratified sampler's per-pixel pair at the frame's corners and
+    middle, alone and together, and over a whole 1280x720 image."""
+    for pixels in ([EDGE_PIXELS[0]], [EDGE_PIXELS[1]], EDGE_PIXELS):
+        pix = torch.tensor(pixel_ids(*zip(*pixels)), dtype=torch.int32,
+                           device=cuda)
+        _same_words(rng.fold_in_uniform_pair(key(spec), pix),
+                    rng.fold_in_uniform_pair_plain(key(spec), pix))
+    ys, xs = torch.meshgrid(
+        torch.arange(720, dtype=torch.int32, device=cuda),
+        torch.arange(1280, dtype=torch.int32, device=cuda), indexing="ij")
+    pix = (ys << 16) | xs
+    got = rng.fold_in_uniform_pair(key(spec), pix)
+    assert tuple(got.shape) == (720, 1280, 2)
+    _same_words(got, rng.fold_in_uniform_pair_plain(key(spec), pix))
+
+
+def _force_plain_draws(monkeypatch):
+    """Every draw through its plain int64 path, on the card too."""
+    monkeypatch.setattr(rng, "uniform", lambda k, shape, device=None:
+                        rng.uniform_plain(k, shape, resolve_device(device)))
+    monkeypatch.setattr(rng, "lane_uniform", rng.lane_uniform_plain)
+    monkeypatch.setattr(rng, "fold_in_uniform_pair",
+                        rng.fold_in_uniform_pair_plain)
+
+
+@pytest.mark.parametrize("kind", ["pt", "pt_stratified", "whitted"])
+def test_frames_on_the_kernel_draws_equal_the_plain_draws(
+        cuda, scenes, scene_data, monkeypatch, kind):
+    """Two pooled frames (the path tracer with the uniform and the
+    stratified sampler; Whitted trees to depth 3) on the kernel's draws and
+    again on the plain draws: the same radiance bit for bit, the same rays
+    traced, nothing dropped."""
+    import rayaccel_tpu_torch as racc
+    pt = kind != "whitted"
+    sd = type(scene_data)(**{**scene_data.__dict__, "viewport_width": 320,
+                             "viewport_height": 180,
+                             "max_depth": 2 if pt else 3})
+    cfg = racc.Configuration(
+        wave_size=16384, trace_block=1024,
+        sampler="stratified" if kind == "pt_stratified" else "uniform")
+    cam = racc.Camera.look_at(sd.cam_origin, sd.cam_dir, sd.cam_up,
+                              sd.cam_fov, 320, 180)
+    cls = racc.PathTracingRenderer if pt else racc.WhittedRenderer
+
+    def frames():
+        r = cls(racc.create_context(cfg, device=cuda), cam, sd,
+                tpu_scene=scenes[1])
+        assert r.pooled
+        launches = rng.threefry_draws.launches
+        traced = [int(r.render_frame(rng.PRNGKey(k)).rays_traced)
+                  for k in (3, 4)]
+        return (r.image(), traced, r.dropped,
+                rng.threefry_draws.launches - launches)
+
+    img, traced, dropped, launches = frames()
+    _force_plain_draws(monkeypatch)
+    img_p, traced_p, dropped_p, launches_p = frames()
+    assert launches > 0 and launches_p == 0
+    np.testing.assert_array_equal(img.view(np.uint32), img_p.view(np.uint32))
+    assert traced == traced_p and dropped == dropped_p == 0
+    assert np.isfinite(img).all() and img.max() > 0
